@@ -1,0 +1,542 @@
+#!/usr/bin/env python3
+"""Smoke run of horovod_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc,
+holds each kernel against its plain PyTorch version on the card, checks
+one small LM step on the card against the same step on the CPU, then
+drives the port's main path at full width: ``init()`` over NCCL, the
+12-layer d768 LM at sequence 2048 and batch 8 in bf16 with flash
+attention, trained a few steps through ``DistributedOptimizer``. Any
+failure raises. The last line of output is
+
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
+
+and the line before it a JSON object with each kernel's launches on the
+main path, error against its plain version, time, plain time, bound and
+library time. After the timed steps one more step runs under
+``torch.profiler`` for the device's busy share and the time by kernel.
+Exits non-zero without printing a result when CUDA is unavailable or the
+package is missing.
+"""
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published dense peaks (NVIDIA data sheet, 700 W)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+# the full-width workload (bench.py lm_tokens_per_sec(flash=True))
+LM = dict(layers=12, d_model=768, heads=12, vocab=32000, seq_len=2048,
+          batch=8)
+STEPS = 5
+
+KERNELS = {  # name -> (wrapper, TPU kernel it replaces)
+    "fwd": ("flash_fwd", "horovod_tpu/ops/flash_attention.py:128"),
+    "dq": ("flash_dq", "horovod_tpu/ops/flash_attention.py:191"),
+    "dkv": ("flash_dkv", "horovod_tpu/ops/flash_attention.py:237"),
+}
+SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
+
+# error bound, element by element, (atol, rtol, ttol) by input dtype:
+#     |kernel - plain| <= atol + rtol |plain| + ttol terms
+# where terms is the root of the sum of squares of the terms the element
+# sums (P V for out, dS K for dq, dS^T Q for dk, P^T dO for dv). fp32:
+# summation order only. bf16: the outputs round to bf16, so two fp32
+# values a hair apart can land one bf16 step apart, at most 2^-7 of the
+# value (under rtol); P and dS round to bf16, a relative error of up to
+# 2^-8 in each term, at other points of the online softmax than in the
+# plain version, so the two sums part by a random walk of about
+# 2.3e-3 terms (ttol is near nine of its steps). atol keeps elements
+# that are exactly 0 (rows that see no key) from a bound of 0.
+TOL = {"float32": (1e-5, 1e-5, 1e-5), "bfloat16": (1e-5, 1e-2, 2e-2)}
+# the 64-row tile that the planted faults of phase 3b leave out
+TILE = slice(1024, 1088)
+# trace categories of work on the device; annotation ranges on the
+# device's lanes span kernels and are left out
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _rand(shape, dtype, gen, device):
+    import torch
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device="cpu").to(device=device, dtype=dtype)
+
+
+def _err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def _terms(fa, q, k, v, g, lse, delta, kw):
+    """For each output of the three kernels, per element, the root of
+    the sum of squares of the terms it sums: the scale of the rounding
+    of P and dS. Built from the plain version's own P and dS."""
+    p, ds = fa._p_ds(q, k, v, g, lse, delta, kw["causal"], kw["sm_scale"],
+                     kw.get("q_offset", 0), kw.get("kv_offset", 0))
+    p2, ds2 = p.square(), ds.square()
+
+    def rss(w2, x):
+        return w2.matmul(x.float().square()).sqrt()
+
+    return {"fwd out": rss(p2, v), "dq": rss(ds2, k),
+            "dk": rss(ds2.transpose(1, 2), q),
+            "dv": rss(p2.transpose(1, 2), g)}
+
+
+def _excess(got, want, dtype, terms=None):
+    """The largest |got - want| / (atol + rtol |want| + ttol terms) over
+    the elements: the check passes at 1 or below."""
+    atol, rtol, ttol = TOL[dtype]
+    got, want = got.float(), want.float()
+    bound = atol + rtol * want.abs()
+    if terms is not None:
+        bound = bound + ttol * terms
+    return float(((got - want).abs() / bound).max())
+
+
+def _check(name, got, want, dtype, terms=None):
+    err, worst = _err(got, want), _excess(got, want, dtype, terms)
+    ok = worst <= 1.0  # False on NaN too
+    print(f"  {name:<44} max_abs_err {err:.3e}  worst element at "
+          f"{worst:.3f} of tol  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: an element is {worst} times its "
+                             f"tolerance {TOL[dtype]} (atol, rtol, ttol)")
+    return err
+
+
+def _check_lse(fa, lse, want):
+    """Rows that see no key carry exactly the NEG_INF sentinel; the other
+    rows are fp32 log-sum-exps held to the fp32 bound."""
+    dead = want <= fa.NEG_INF / 2
+    if not bool((lse[dead] == fa.NEG_INF).all()):
+        raise AssertionError("lse: a row that sees no key lost the sentinel")
+    return _check(f"fwd lse ({int(dead.sum())} sentinel rows exact)",
+                  lse[~dead], want[~dead], "float32")
+
+
+def run_case(fa, torch, dev, dtype_name, bh, sq, skv, d, causal, q_off,
+             kv_off, out_f32=False, seed=0):
+    """K1, K2 and K3 against their plain versions on one set of inputs;
+    returns the three max errors."""
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator().manual_seed(seed)
+    q = _rand((bh, sq, d), dtype, gen, dev)
+    k = _rand((bh, skv, d), dtype, gen, dev)
+    v = _rand((bh, skv, d), dtype, gen, dev)
+    g = _rand((bh, sq, d), dtype, gen, dev)
+    kw = dict(causal=causal, sm_scale=1.0 / d ** 0.5, q_offset=q_off,
+              kv_offset=kv_off)
+    tag = (f"{dtype_name} bh{bh} sq{sq} skv{skv} d{d} "
+           f"{'causal' if causal else 'full'} off({q_off},{kv_off})")
+    print(f" case {tag}{' fp32-out' if out_f32 else ''}")
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = (g.float() * p_out.float()).sum(-1)
+    terms = _terms(fa, q, k, v, g, p_lse, delta, kw)
+    torch.cuda.synchronize()
+    e_fwd = max(_check("fwd out", out, p_out, dtype_name, terms["fwd out"]),
+                _check_lse(fa, lse, p_lse))
+    bkw = dict(kw, out_dtype=torch.float32 if out_f32 else None)
+    dq = fa.flash_dq(q, k, v, g, p_lse, delta, **bkw)
+    dk, dv = fa.flash_dkv(q, k, v, g, p_lse, delta, **bkw)
+    p_dq = fa.flash_dq_plain(q, k, v, g, p_lse, delta, **bkw)
+    p_dk, p_dv = fa.flash_dkv_plain(q, k, v, g, p_lse, delta, **bkw)
+    torch.cuda.synchronize()
+    want_dt = torch.float32 if out_f32 else dtype
+    assert dq.dtype == dk.dtype == dv.dtype == want_dt
+    e_dq = _check("dq", dq, p_dq, dtype_name, terms["dq"])
+    e_dkv = max(_check("dk", dk, p_dk, dtype_name, terms["dk"]),
+                _check("dv", dv, p_dv, dtype_name, terms["dv"]))
+    return e_fwd, e_dq, e_dkv
+
+
+def phase_kernels(fa, torch, dev):
+    print("== phase 3a: each kernel against its plain version")
+    cases = [
+        ("bfloat16", 4, 256, 256, 64, True, 0, 0),
+        ("bfloat16", 4, 256, 256, 64, False, 0, 0),
+        ("bfloat16", 3, 200, 200, 64, True, 0, 0),      # ragged S
+        ("bfloat16", 3, 200, 136, 64, False, 0, 0),     # ragged, sq != skv
+        ("bfloat16", 2, 192, 192, 64, True, 0, 100),    # fully-masked rows
+        ("bfloat16", 2, 130, 260, 64, True, 130, 0),    # later query shard
+        ("bfloat16", 2, 160, 160, 128, True, 0, 0),     # widest head
+        ("bfloat16", 2, 100, 100, 40, True, 0, 0),      # padded head dim
+        ("float32", 3, 200, 200, 64, True, 0, 0),
+        ("float32", 2, 96, 96, 128, False, 0, 0),
+        ("float32", 2, 120, 120, 24, True, 0, 50),
+    ]
+    for case in cases:
+        run_case(fa, torch, dev, *case)
+    # fp32 partials of bf16 inputs: the ring-attention form of K2/K3
+    run_case(fa, torch, dev, "bfloat16", 2, 256, 256, 64, True, 0, 64,
+             out_f32=True)
+    run_case(fa, torch, dev, "bfloat16", 2, 200, 200, 64, False, 0, 0,
+             out_f32=True)
+
+
+def _bound_ms(kind, bh, s, d, dtype_name, itemsize):
+    """Least time for the work at causal shape [bh, s, d]: the larger of
+    the products' FLOPs over the tensor-core peak and the bytes (inputs
+    read once, outputs written once) over the memory rate."""
+    pairs = bh * s * (s + 1) // 2  # visible (query, key) pairs
+    elems = bh * s * d
+    row = bh * s * 4               # one fp32 value per row (lse, delta)
+    products, nbytes = {
+        "fwd": (2, 4 * elems * itemsize + row),               # q k v | o lse
+        "dq": (3, 5 * elems * itemsize + 2 * row),            # q k v g lse delta | dq
+        "dkv": (4, 6 * elems * itemsize + 2 * row),           # q k v g lse delta | dk dv
+    }[kind]
+    flops = 2 * products * pairs * d
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes"), flops, nbytes
+
+
+def _planted_faults(fa, torch, q, k, v, g, lse, delta, kw, plain):
+    """What kernels that each leave out one tile of their loop (``TILE``,
+    mid-sequence) would output, made from the plain versions: K1 without
+    that kv tile's P.V (its weight kept in l), K2 without that kv tile,
+    K3 without that q tile. ``plain`` holds the plain fp32 results."""
+    t, f32 = TILE.start, dict(kw, out_dtype=torch.float32)
+    k_t, v_t = k[:, TILE], v[:, TILE]
+    o_t, lse_t = fa.flash_fwd_plain(q, k_t, v_t, kv_offset=t, **kw)
+    out = plain["fwd out"] - o_t.float() * torch.exp(lse_t - lse)[..., None]
+    dq = plain["dq"] - fa.flash_dq_plain(q, k_t, v_t, g, lse, delta,
+                                         kv_offset=t, **f32)
+    dk_t, dv_t = fa.flash_dkv_plain(q[:, TILE], k, v, g[:, TILE],
+                                    lse[:, TILE], delta[:, TILE],
+                                    q_offset=t, **f32)
+    return {"fwd out": out, "dq": dq, "dk": plain["dk"] - dk_t,
+            "dv": plain["dv"] - dv_t}
+
+
+def phase_slice_shape(fa, torch, dev, bench):
+    """Each kernel at the shape the main path gives it: error against the
+    plain version, the same check failing planted faults, time, plain
+    time and the library's time."""
+    import torch.nn.functional as F
+    print("== phase 3b: kernels at the main path's shape")
+    b, h, s = LM["batch"], LM["heads"], LM["seq_len"]
+    d = LM["d_model"] // h
+    bh, name = b * h, "bfloat16"
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(1)
+    q, k, v, g = (_rand((bh, s, d), dtype, gen, dev) for _ in range(4))
+    kw = dict(causal=True, sm_scale=1.0 / d ** 0.5)
+    f32 = dict(kw, out_dtype=torch.float32)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = (g.float() * out.float()).sum(-1)
+    terms = _terms(fa, q, k, v, g, lse, delta, kw)
+    errs = {"fwd": max(_check("fwd out", out, p_out, name, terms["fwd out"]),
+                       _check_lse(fa, lse, p_lse))}
+    # the plain outputs in fp32; in bf16 they round to the plain version's
+    plain = {"fwd out": p_out.float(),
+             "dq": fa.flash_dq_plain(q, k, v, g, lse, delta, **f32)}
+    plain["dk"], plain["dv"] = fa.flash_dkv_plain(q, k, v, g, lse, delta,
+                                                  **f32)
+    del p_out, p_lse
+    errs["dq"] = _check("dq", fa.flash_dq(q, k, v, g, lse, delta, **kw),
+                        plain["dq"].to(dtype), name, terms["dq"])
+    dk, dv = fa.flash_dkv(q, k, v, g, lse, delta, **kw)
+    errs["dkv"] = max(
+        _check("dk", dk, plain["dk"].to(dtype), name, terms["dk"]),
+        _check("dv", dv, plain["dv"].to(dtype), name, terms["dv"]))
+    del dk, dv
+    print(f"  planted faults, each leaving out the tile {TILE.start}:"
+          f"{TILE.stop} of its loop, must fail the same check:")
+    bad = _planted_faults(fa, torch, q, k, v, g, lse, delta, kw, plain)
+    for key, got in bad.items():
+        want = plain[key].to(dtype)
+        got = got.to(dtype)
+        worst = _excess(got, want, name, terms[key])
+        print(f"    {key:<8} max_abs_err {_err(got, want):.3e}  worst "
+              f"element at {worst:.3f} of tol  (max|plain| "
+              f"{float(want.float().abs().max()):.3e})  "
+              f"{'rejected' if worst > 1.0 else 'ACCEPTED'}")
+        if not worst > 1.0:
+            raise AssertionError(f"the {name} tolerance accepts a {key} "
+                                 "that leaves out a tile")
+    del bad, plain, terms
+    torch.cuda.empty_cache()
+
+    calls = {
+        "fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                lambda: fa.flash_fwd_plain(q, k, v, **kw)),
+        "dq": (lambda: fa.flash_dq(q, k, v, g, lse, delta, **kw),
+               lambda: fa.flash_dq_plain(q, k, v, g, lse, delta, **kw)),
+        "dkv": (lambda: fa.flash_dkv(q, k, v, g, lse, delta, **kw),
+                lambda: fa.flash_dkv_plain(q, k, v, g, lse, delta, **kw)),
+    }
+    # the library yardsticks, in SDPA's [B, H, S, D] layout; the port
+    # never calls them. The forward: scaled_dot_product_attention. The
+    # backward: aten's flash backward, one call for dq, dk and dv, so it
+    # stands against K2 and K3 alike.
+    aten = torch.ops.aten
+    qs, ks, vs, gs = (x.view(b, h, s, d) for x in (q, k, v, g))
+    sdpa_fwd = bench.cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, scale=kw["sm_scale"]), iters=20)
+    o_l, lse_l, cum_q, cum_k, max_q, max_k, seed, offset = \
+        aten._scaled_dot_product_flash_attention(
+            qs, ks, vs, 0.0, True, False, scale=kw["sm_scale"])[:8]
+
+    def sdpa_bwd():
+        return aten._scaled_dot_product_flash_attention_backward(
+            gs, qs, ks, vs, o_l, lse_l, cum_q, cum_k, max_q, max_k, 0.0,
+            True, seed, offset, scale=kw["sm_scale"])
+
+    lib_dq = sdpa_bwd()[0].view(bh, s, d)
+    print(f"  library backward dq against the kernel's: max_abs_err "
+          f"{_err(lib_dq, fa.flash_dq(q, k, v, g, lse, delta, **kw)):.3e}")
+    del lib_dq
+    sdpa_bwd_ms = bench.cuda_time_ms(sdpa_bwd, iters=20)
+    library = {"fwd": sdpa_fwd, "dq": sdpa_bwd_ms, "dkv": sdpa_bwd_ms}
+    rows = {}
+    for kind, (kern, plain) in calls.items():
+        ms = bench.cuda_time_ms(kern, iters=20)
+        plain_ms = bench.cuda_time_ms(plain, iters=5, warmup=1)
+        torch.cuda.empty_cache()
+        bound, by, flops, nbytes = _bound_ms(kind, bh, s, d, name, 2)
+        rows[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by, max_abs_err=errs[kind],
+                          library_ms=library[kind])
+        print(f"  {kind:<4} {ms:9.3f} ms  plain {plain_ms:9.3f} ms  "
+              f"bound {bound:7.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)  {flops / ms / 1e9:.1f} TFLOP/s  "
+              f"{100 * bound / ms:.1f}% of bound")
+    print(f"  library: sdpa fwd {sdpa_fwd:.3f} ms, flash bwd (dq, dk, dv) "
+          f"{sdpa_bwd_ms:.3f} ms; port fwd {rows['fwd']['ms']:.3f} ms, "
+          f"dq + dkv {rows['dq']['ms'] + rows['dkv']['ms']:.3f} ms")
+    return rows
+
+
+def phase_parity(torch, dev):
+    """One LM step (loss and gradients, 2 layers, fp32) on the card
+    through the kernels and on the CPU through the plain versions, with
+    the same weights and tokens."""
+    import numpy as np
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    print("== phase 4: small LM step, card against CPU")
+    cfg = TransformerConfig(vocab_size=512, num_layers=2, num_heads=4,
+                            d_model=256, d_ff=1024, dtype=torch.float32,
+                            flash_attention=True)
+    cpu = Transformer(cfg, generator=torch.Generator().manual_seed(3))
+    card = Transformer(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 384)))
+    losses = []
+    for model, toks in ((cpu, tokens), (card, tokens.to(dev))):
+        loss = training.softmax_cross_entropy(model(toks)[:, :-1],
+                                              toks[:, 1:])
+        loss.backward()
+        losses.append(loss.item())
+    print(f"  loss cpu {losses[0]:.7f} card {losses[1]:.7f}")
+    if not abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0]):
+        raise AssertionError(f"loss differs: {losses}")
+    worst = 0.0
+    for (n, pc), (_, pg) in zip(cpu.named_parameters(),
+                                card.named_parameters()):
+        err = _err(pg.grad.cpu(), pc.grad)
+        bound = 1e-6 + 1e-4 * float(pc.grad.abs().max())
+        worst = max(worst, err / bound)
+        if err > bound:
+            raise AssertionError(f"grad {n}: error {err} above {bound}")
+    print(f"  grads agree: worst error at {worst:.3f} of its tolerance "
+          "(1e-6 + 1e-4 max|g|)")
+
+
+def _model_flops(lm):
+    """FLOPs one rank's step needs, recompute not counted: 6 per matmul
+    weight per token (forward and backward), plus causal attention's six
+    products (two forward, four backward) over the visible pairs."""
+    d, b, s = lm["d_model"], lm["batch"], lm["seq_len"]
+    weights = lm["layers"] * 12 * d * d + d * lm["vocab"]  # d_ff = 4 d
+    pairs = b * s * (s + 1) // 2
+    return 6 * weights * b * s + lm["layers"] * 6 * 2 * pairs * d
+
+
+def phase_full(hvd, fa, torch, bench):
+    import numpy as np
+    print("== phase 5: full-width data-parallel LM training")
+    hvd.init()  # the card and NCCL
+    print(f"  init: rank {hvd.rank()} size {hvd.size()} device "
+          f"{hvd.device()} backend "
+          f"{torch.distributed.get_backend()}")
+    t0 = time.perf_counter()
+    step, model, opt, tokens = bench.make_lm_bench(
+        batch=LM["batch"], seq_len=LM["seq_len"], layers=LM["layers"],
+        d_model=LM["d_model"], heads=LM["heads"], vocab=LM["vocab"],
+        flash=True, dtype=torch.bfloat16, lr=3e-4, weight_decay=1e-4)
+    bench.sync()
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"  model: {nparams / 1e6:.2f} M params, built and broadcast in "
+          f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()  # count only the main path's launches
+    losses, times = [], []
+    for _ in range(STEPS):
+        t = time.perf_counter()
+        loss = step(tokens)
+        bench.sync()
+        times.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = 1e3 * float(np.median(times[1:]))
+    ntok = LM["batch"] * LM["seq_len"] * hvd.size()
+    buckets = opt.last_buckets
+    print(f"  losses {[round(x, 5) for x in losses]}")
+    print(f"  step ms {[round(1e3 * x, 2) for x in times]} (first includes "
+          f"warm-up); median of steps 2..{STEPS}: {step_ms:.2f} ms, "
+          f"{ntok / step_ms * 1e3:.0f} tokens/s")
+    rate = _model_flops(LM) / (step_ms / 1e3)  # this rank's FLOP/s
+    print(f"  model FLOPs {_model_flops(LM) / 1e12:.2f} T per step and rank: "
+          f"{rate / 1e12:.1f} TFLOP/s, "
+          f"{100 * rate / PEAK_FLOPS['bfloat16']:.2f}% of the bf16 peak")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  fused allreduce: {len(buckets)} buckets, "
+          f"{sum(b.nbytes for b in buckets) / 1e6:.1f} MB per step")
+    print(f"  launches on the main path: {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not decrease: {losses}")
+    want = LM["layers"] * STEPS
+    if launches != {"fwd": want, "dq": want, "dkv": want}:
+        raise AssertionError(f"launches {launches}, want {want} of each")
+    profile_step(torch, step, tokens, step_ms)
+    hvd.shutdown()
+    return launches
+
+
+# kernel-name patterns of the step's layers, in the order they are tried
+LAYERS = (("attention kernels", ("flash_",)),
+          ("matmuls", ("nvjet", "gemm", "cutlass", "xmma")),
+          ("allreduce", ("nccl",)),
+          ("optimizer", ("multi_tensor", "foreach")),
+          ("reductions (norms, softmax, loss)", ("reduce", "softmax")),
+          ("elementwise and copies", ("elementwise", "copy", "cat",
+                                      "Memcpy", "Memset")))
+
+
+def profile_step(torch, step, tokens, step_ms):
+    """Device time by layer and by kernel over one more step, read from
+    the profiler's trace (kernels, copies and memsets only), and the
+    device's idle share: 1 - the union of their intervals / the
+    unprofiled median step time."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(tokens)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "step.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    work = sorted(((e["ts"], e["dur"], e["name"]) for e in trace["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK),
+                  key=lambda w: w[0])
+    busy, end = 0.0, -math.inf  # microseconds, overlaps counted once
+    for ts, dur, _ in work:
+        busy += max(0.0, ts + dur - max(ts, end))
+        end = max(end, ts + dur)
+    busy /= 1e3
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    by_name = {}
+    for _, dur, name in work:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + dur / 1e3, n + 1)
+    total = sum(ms for ms, _ in by_name.values())
+    print(f"  profiled step: {busy:.2f} ms of device work "
+          f"({len(by_name)} kinds, {total:.2f} ms summed) in a "
+          f"{step_ms:.2f} ms step: device idle "
+          f"{100 * (1 - busy / step_ms):.1f}%")
+    by_layer = dict.fromkeys([name for name, _ in LAYERS] + ["other"], 0.0)
+    for name, (ms, _) in by_name.items():
+        layer = next((layer for layer, pats in LAYERS
+                      if any(p in name for p in pats)), "other")
+        by_layer[layer] += ms
+    for layer, ms in by_layer.items():
+        print(f"    {ms:9.3f} ms {100 * ms / total:5.1f}%  {layer}")
+    top = sorted(by_name.items(), key=lambda item: -item[1][0])[:12]
+    for name, (ms, n) in top:
+        print(f"    {ms:9.3f} ms {100 * ms / total:5.1f}%  x{n:<4} "
+              f"{name[:90]}")
+
+
+def main(argv=None):
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(
+        argv)
+    if not (ROOT / "horovod_tpu_torch" / "__init__.py").is_file():
+        print("chip_smoke: horovod_tpu_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import _build
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.utils import benchmarks as bench
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain fp32 stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    print("== phase 2: kernel build")
+    t0 = time.perf_counter()
+    lib = _build.build()
+    print(f"  built in {time.perf_counter() - t0:.1f} s -> {lib}")
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+    dev = torch.device("cuda", 0)
+    phase_kernels(fa, torch, dev)
+    rows = phase_slice_shape(fa, torch, dev, bench)
+    phase_parity(torch, dev)
+    launches = phase_full(hvd, fa, torch, bench)
+
+    kernels = []
+    for kind_ in ("fwd", "dq", "dkv"):
+        wrapper, replaces = KERNELS[kind_]
+        kernels.append(dict(name=wrapper, route="cuda", source=SOURCE,
+                            replaces=replaces, launches=launches[kind_],
+                            **rows[kind_]))
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

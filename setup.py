@@ -39,8 +39,14 @@ setup(
               "horovod_tpu.runtime", "horovod_tpu.serve",
               "horovod_tpu.spark", "horovod_tpu.telemetry",
               "horovod_tpu.tensorflow", "horovod_tpu.torch",
-              "horovod_tpu.utils"],
-    package_data={"horovod_tpu": ["lib/libhvdcore.so"]},
+              "horovod_tpu.utils",
+              # the PyTorch/CUDA port; its kernels build from csrc/ at
+              # first use (horovod_tpu_torch/_build.py)
+              "horovod_tpu_torch", "horovod_tpu_torch.models",
+              "horovod_tpu_torch.ops", "horovod_tpu_torch.parallel",
+              "horovod_tpu_torch.utils"],
+    package_data={"horovod_tpu": ["lib/libhvdcore.so"],
+                  "horovod_tpu_torch": ["csrc/*.cu"]},
     include_package_data=True,
     python_requires=">=3.10",
     install_requires=["numpy", "jax", "flax", "optax"],
