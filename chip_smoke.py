@@ -19,6 +19,11 @@ library time. After the timed steps one more step runs under
 ``torch.profiler`` for the device's busy share and the time by kernel.
 Exits non-zero without printing a result when CUDA is unavailable or the
 package is missing.
+
+    python3 chip_smoke.py --tune
+
+builds the kernels, times each tile configuration of the bf16 K1 and K3
+kernels at the main path's shape and stops, printing no result lines.
 """
 
 import argparse
@@ -40,12 +45,20 @@ LM = dict(layers=12, d_model=768, heads=12, vocab=32000, seq_len=2048,
           batch=8)
 STEPS = 5
 
-KERNELS = {  # name -> (wrapper, TPU kernel it replaces)
-    "fwd": ("flash_fwd", "horovod_tpu/ops/flash_attention.py:128"),
-    "dq": ("flash_dq", "horovod_tpu/ops/flash_attention.py:191"),
-    "dkv": ("flash_dkv", "horovod_tpu/ops/flash_attention.py:237"),
+CSRC = "horovod_tpu_torch/csrc/"
+KERNELS = {  # name -> (wrapper, TPU kernel it replaces, bf16 source, design)
+    "fwd": ("flash_fwd", "horovod_tpu/ops/flash_attention.py:128",
+            CSRC + "flash_fwd_sm90.cu", "wgmma+tma"),
+    "dq": ("flash_dq", "horovod_tpu/ops/flash_attention.py:191",
+           CSRC + "flash_attention.cu", "wmma"),
+    "dkv": ("flash_dkv", "horovod_tpu/ops/flash_attention.py:237",
+            CSRC + "flash_dkv_sm90.cu", "wgmma+tma"),
 }
-SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
+# tile configurations of the bf16 Hopper kernels that --tune compares at
+# the main path's shape, by parameter: K1 keys per kv tile and stages, K3
+# stages (its q tile is 64 rows at D 64)
+TUNE = {"fwd": (("keys", "stages"), [(64, 2), (64, 3), (128, 2), (128, 3)]),
+        "dkv": (("stages",), [(2,), (3,)])}
 
 # error bound, element by element, (atol, rtol, ttol) by input dtype:
 #     |kernel - plain| <= atol + rtol |plain| + ttol terms
@@ -59,7 +72,8 @@ SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
 # 2.3e-3 terms (ttol is near nine of its steps). atol keeps elements
 # that are exactly 0 (rows that see no key) from a bound of 0.
 TOL = {"float32": (1e-5, 1e-5, 1e-5), "bfloat16": (1e-5, 1e-2, 2e-2)}
-# the 64-row tile that the planted faults of phase 3b leave out
+# the 64 rows that the planted faults of phase 3b leave out: half of one
+# of K1's 128-key tiles, one of K3's 64-row q tiles, one of K2's kv tiles
 TILE = slice(1024, 1088)
 # trace categories of work on the device; annotation ranges on the
 # device's lanes span kernels and are left out
@@ -179,6 +193,12 @@ def phase_kernels(fa, torch, dev):
         ("bfloat16", 2, 130, 260, 64, True, 130, 0),    # later query shard
         ("bfloat16", 2, 160, 160, 128, True, 0, 0),     # widest head
         ("bfloat16", 2, 100, 100, 40, True, 0, 0),      # padded head dim
+        ("bfloat16", 2, 320, 320, 64, True, 0, 0),      # S not a multiple of 128
+        ("bfloat16", 1, 1024, 1024, 128, True, 0, 0),   # widest head at length
+        ("bfloat16", 2, 192, 192, 16, True, 0, 0),      # narrow head
+        ("bfloat16", 2, 96, 96, 8, True, 0, 0),         # narrowest head
+        ("bfloat16", 2, 200, 200, 96, False, 0, 0),     # half of the second 64 columns
+        ("bfloat16", 2, 200, 72, 64, False, 0, 0),      # kv shorter than a tile
         ("float32", 3, 200, 200, 64, True, 0, 0),
         ("float32", 2, 96, 96, 128, False, 0, 0),
         ("float32", 2, 120, 120, 24, True, 0, 50),
@@ -261,6 +281,16 @@ def phase_slice_shape(fa, torch, dev, bench):
         _check("dk", dk, plain["dk"].to(dtype), name, terms["dk"]),
         _check("dv", dv, plain["dv"].to(dtype), name, terms["dv"]))
     del dk, dv
+    # the kernels own their output rows (no atomics): two runs, same bits
+    for kind, run in (("fwd", lambda: fa.flash_fwd(q, k, v, **kw)),
+                      ("dkv", lambda: fa.flash_dkv(q, k, v, g, lse, delta,
+                                                   **kw))):
+        first, again = run(), run()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        print(f"  {kind} run twice: {'identical bits' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"{kind}: two runs on the same inputs differ")
+    del first, again
     print(f"  planted faults, each leaving out the tile {TILE.start}:"
           f"{TILE.stop} of its loop, must fail the same check:")
     bad = _planted_faults(fa, torch, q, k, v, g, lse, delta, kw, plain)
@@ -317,7 +347,8 @@ def phase_slice_shape(fa, torch, dev, bench):
         bound, by, flops, nbytes = _bound_ms(kind, bh, s, d, name, 2)
         rows[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                           bound_by=by, max_abs_err=errs[kind],
-                          library_ms=library[kind])
+                          library_ms=library[kind],
+                          tflops=flops / ms / 1e9)
         print(f"  {kind:<4} {ms:9.3f} ms  plain {plain_ms:9.3f} ms  "
               f"bound {bound:7.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB)  {flops / ms / 1e9:.1f} TFLOP/s  "
@@ -326,6 +357,58 @@ def phase_slice_shape(fa, torch, dev, bench):
           f"{sdpa_bwd_ms:.3f} ms; port fwd {rows['fwd']['ms']:.3f} ms, "
           f"dq + dkv {rows['dq']['ms'] + rows['dkv']['ms']:.3f} ms")
     return rows
+
+
+def phase_tune(fa, torch, dev, bench, lib):
+    """Each tile configuration of the bf16 K1 and K3 kernels at the main
+    path's shape, timed in turns, each held to the default's output."""
+    import ctypes
+    print("== tune: tile configurations at the main path's shape")
+    b, h, s = LM["batch"], LM["heads"], LM["seq_len"]
+    d = LM["d_model"] // h
+    bh, scale = b * h, 1.0 / d ** 0.5
+    gen = torch.Generator().manual_seed(1)
+    q, k, v, g = (_rand((bh, s, d), torch.bfloat16, gen, dev)
+                  for _ in range(4))
+    kw = dict(causal=True, sm_scale=scale)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (g.float() * out.float()).sum(-1)
+    dk, dv = fa.flash_dkv(q, k, v, g, lse, delta, **kw)
+    o2, lse2 = torch.empty_like(out), torch.empty_like(lse)
+    dk2, dv2 = torch.empty_like(dk), torch.empty_like(dv)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = [x.data_ptr() for x in (q, k, v, g, lse, delta)]
+
+    def fwd(keys, stages):
+        return lib.hvd_flash_fwd_sm90(
+            ptr[0], ptr[1], ptr[2], o2.data_ptr(), lse2.data_ptr(), bh, s, s,
+            d, 0, 0, 1, ctypes.c_float(scale), keys, stages, stream)
+
+    def dkv(stages):
+        return lib.hvd_flash_dkv_sm90(
+            *ptr, dk2.data_ptr(), dv2.data_ptr(), 0, bh, s, s, d, 0, 0, 1,
+            ctypes.c_float(scale), stages, stream)
+
+    for kind, call, want in (("fwd", fwd, (out, lse)),
+                             ("dkv", dkv, (dk, dv))):
+        got = (o2, lse2) if kind == "fwd" else (dk2, dv2)
+        names, cfgs = TUNE[kind]
+        label = {c: " ".join(f"{n} {x}" for n, x in zip(names, c))
+                 for c in cfgs}
+        times = {}
+        for rnd in range(2):  # two rounds, configurations in turns
+            for cfg in cfgs:
+                rc = call(*cfg)
+                if rc != 0:
+                    raise RuntimeError(f"{kind} {cfg}: CUDA error {rc}")
+                torch.cuda.synchronize()
+                err = max(_err(a, b_) for a, b_ in zip(got, want))
+                ms = bench.cuda_time_ms(lambda: call(*cfg), iters=20)
+                times.setdefault(cfg, []).append(ms)
+                print(f"  {kind} {label[cfg]} round {rnd}: {ms:.4f} ms  "
+                      f"max_abs_err against the default {err:.3e}")
+        best = min(times, key=lambda c: min(times[c]))
+        print(f"  {kind} fastest: {label[best]} ({min(times[best]):.4f} ms)")
 
 
 def phase_parity(torch, dev):
@@ -487,8 +570,10 @@ def profile_step(torch, step, tokens, step_ms):
 
 
 def main(argv=None):
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(
-        argv)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tune", action="store_true",
+                    help="time the tile configurations, then stop")
+    args = ap.parse_args(argv)
     if not (ROOT / "horovod_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: horovod_tpu_torch is not beside this script",
               file=sys.stderr)
@@ -516,9 +601,13 @@ def main(argv=None):
     lib = _build.build()
     print(f"  built in {time.perf_counter() - t0:.1f} s -> {lib}")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "setmaxnreg", "wgmma", "arning")):
             print("  ptxas:", line.strip())
     dev = torch.device("cuda", 0)
+    if args.tune:
+        phase_tune(fa, torch, dev, bench, _build.load())
+        return 0
     phase_kernels(fa, torch, dev)
     rows = phase_slice_shape(fa, torch, dev, bench)
     phase_parity(torch, dev)
@@ -526,10 +615,10 @@ def main(argv=None):
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):
-        wrapper, replaces = KERNELS[kind_]
-        kernels.append(dict(name=wrapper, route="cuda", source=SOURCE,
-                            replaces=replaces, launches=launches[kind_],
-                            **rows[kind_]))
+        wrapper, replaces, source, design = KERNELS[kind_]
+        kernels.append(dict(name=wrapper, route="cuda", source=source,
+                            replaces=replaces, design=design,
+                            launches=launches[kind_], **rows[kind_]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, bound
-with ``ctypes``: no PyTorch headers enter the build, so it takes seconds,
-not minutes. The build runs at first use, is cached under ``_build/`` by
-a hash of the sources and flags, and is guarded by a file lock so that
-concurrent processes build once. A failed build raises with the
-compiler's output.
+(``sm_90a``), one ``nvcc`` per ``.cu`` file, all started together, and
+linked into one shared library with a plain C interface, bound with
+``ctypes``: no PyTorch headers enter the build, so it takes seconds, not
+minutes. TMA's tensor-map encoder (``cuTensorMapEncodeTiled``) lives
+in ``libcuda``; the launchers look it up at run time through the CUDA
+runtime (``cudaGetDriverEntryPointByVersion``), so nothing beyond the
+static runtime is linked. The build runs at first use, is cached under
+``_build/`` by a hash of every source and header under ``csrc/`` and of
+the flags, and is guarded by a file lock so that concurrent processes
+build once. A failed build raises with the compiler's output.
 """
 
 import ctypes
@@ -18,10 +22,13 @@ import subprocess
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
-SOURCES = (PACKAGE_DIR / "csrc" / "flash_attention.cu",)
+CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+LINK_FLAGS = ("-shared", *ARCH)
+SOURCE_SUFFIXES = (".cu", ".cuh", ".h")
 
 _lib = None
 
@@ -44,12 +51,41 @@ def nvcc_path():
     return found
 
 
-def library_path():
+def sources(csrc=CSRC_DIR):
+    """Every file the build reads, in sorted order: the ``.cu`` files it
+    compiles and the headers they include."""
+    return sorted(p for p in Path(csrc).iterdir()
+                  if p.is_file() and p.suffix in SOURCE_SUFFIXES)
+
+
+def library_path(csrc=CSRC_DIR):
+    """Where the build of these sources and flags lives: a change to any
+    source or header under ``csrc`` gives another path, so a stale
+    library is never loaded."""
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in sources(csrc):
+        h.update(src.name.encode() + b"\0")
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libhvd_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Start every command at once, then wait for each; raise with the
+    compiler's output if one failed. Returns their joined output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs, failed = [], []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        outs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
 
 
 def build():
@@ -63,15 +99,20 @@ def build():
         try:
             if lib.exists():
                 return lib
-            tmp = lib.with_suffix(f".tmp{os.getpid()}")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, SOURCES)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                    f"{res.stdout}\n{res.stderr}")
-            lib.with_suffix(".log").write_text(res.stdout + res.stderr)
+            nvcc = nvcc_path()
+            objdir = BUILD_DIR / f"obj{os.getpid()}"
+            objdir.mkdir(exist_ok=True)
+            try:
+                units = [s for s in sources() if s.suffix == ".cu"]
+                objs = [objdir / (s.stem + ".o") for s in units]
+                log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                                for s, o in zip(units, objs)])
+                tmp = lib.with_suffix(f".tmp{os.getpid()}")
+                log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp),
+                                  *map(str, objs)]])
+            finally:
+                shutil.rmtree(objdir, ignore_errors=True)
+            lib.with_suffix(".log").write_text(log)
             os.replace(tmp, lib)
             return lib
         finally:
@@ -92,7 +133,12 @@ def load():
     lib.hvd_flash_dq.argtypes = [p] * 7 + [i] * 8 + [f, i, p]
     # q k v g lse delta dk dv | out_f32 bh sq skv d q_off kv_off causal | ...
     lib.hvd_flash_dkv.argtypes = [p] * 8 + [i] * 8 + [f, i, p]
-    for fn in (lib.hvd_flash_fwd, lib.hvd_flash_dq, lib.hvd_flash_dkv):
+    # the bf16 Hopper kernels with their tile choice: K1 ... | bn stages |
+    # stream, K3 ... | stages | stream
+    lib.hvd_flash_fwd_sm90.argtypes = [p] * 5 + [i] * 7 + [f, i, i, p]
+    lib.hvd_flash_dkv_sm90.argtypes = [p] * 8 + [i] * 8 + [f, i, p]
+    for fn in (lib.hvd_flash_fwd, lib.hvd_flash_dq, lib.hvd_flash_dkv,
+               lib.hvd_flash_fwd_sm90, lib.hvd_flash_dkv_sm90):
         fn.restype = ctypes.c_int
     lib.hvd_cuda_error_string.argtypes = [i]
     lib.hvd_cuda_error_string.restype = ctypes.c_char_p

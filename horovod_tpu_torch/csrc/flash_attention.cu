@@ -15,27 +15,31 @@
 // (m, l, acc) in VMEM from one grid step to the next. Blocks of a CUDA grid
 // run in no order, so the sequential axis becomes a loop inside one CTA:
 //   K1: one CTA per (bh, q tile), looping over K/V tiles up to the causal
-//       diagonal, (m, l) and the fp32 accumulator in shared memory;
+//       diagonal, carrying (m, l) and the fp32 accumulator (in shared
+//       memory here, in registers in the bf16 kernel);
 //   K2: one CTA per (bh, q tile), looping over K/V tiles, dQ in fp32;
 //   K3: one CTA per (bh, kv tile), looping over q tiles from the diagonal,
 //       dK and dV in fp32.
 // The two backward passes recompute P from (q, k, lse), need no atomics and
 // give the same bits on every run.
 //
-// Products. bf16 tiles go through the tensor cores with WMMA 16x16x16
-// fragments (fp32 accumulate); every product result lands in an fp32 tile in
-// shared memory, where one warp per row does the softmax arithmetic. fp32
-// tiles take a scalar FMA loop (exact fp32, no TF32), with 32-row tiles so
-// that the largest head dim still fits in shared memory. The tensor-core
-// path is what the training step runs; the fp32 path serves parity checks.
+// Products. K1 and K3 in bf16 are the Hopper kernels of flash_fwd_sm90.cu
+// and flash_dkv_sm90.cu: wgmma with register-resident accumulators fed by
+// TMA (their notes say how). This file holds the rest. K2 in bf16 goes
+// through the tensor cores with WMMA 16x16x16 fragments (fp32 accumulate);
+// every product result lands in an fp32 tile in shared memory, where one
+// warp per row does the softmax arithmetic. fp32 tiles, in all three
+// kernels, take a scalar FMA loop (exact fp32, no TF32), with 32-row tiles
+// so that the largest head dim still fits in shared memory: the fp32 path
+// serves parity checks.
 //
 // Bounds at the training shape (B 8, H 12, S 2048, D 64, causal, bf16, on an
 // H100 SXM: 989 TFLOP/s bf16, 3.35 TB/s): every kernel does 2-4 products of
 // S^2*D/2 each per head and moves only O(S*D) bytes per head, so all three
-// are compute-bound (K1 ~52 us, K2 ~78 us, K3 ~104 us at peak). This first
-// design round-trips every product through shared memory and runs 4 warps
-// per CTA, so it sits well below that bound; wgmma with register-resident
-// accumulators, TMA loads and warp specialisation are the way to close it.
+// are compute-bound (K1 ~52 us, K2 ~78 us, K3 ~104 us at peak). K2's design
+// round-trips every product through shared memory and runs 4 warps per
+// CTA, so it sits well below that bound; the wgmma/TMA design of K1 and K3
+// is the way to close it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,6 +47,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -106,7 +112,7 @@ template <typename T> struct FwdSmem {
     Carve c;
     q = c.take<T>(B * pl.ldt); k = c.take<T>(B * pl.ldt); v = c.take<T>(B * pl.ldt);
     s = c.take<float>(B * pl.lds);
-    p = Plan<T>::F32 ? s : c.take<T>(B * pl.ldp);
+    p = s;  // K1 runs here only in fp32, which writes P in place of S
     acc = c.take<float>(B * pl.lda);
     m = c.take<float>(B); l = c.take<float>(B);
     total = c.off;
@@ -115,13 +121,13 @@ template <typename T> struct FwdSmem {
 
 template <typename T> struct BwdSmem {
   size_t q, g, k, v, s, dp, p, ds, acc1, acc2, lse, delta, total;
-  __host__ __device__ BwdSmem(const Plan<T>& pl, bool two_acc, bool need_p) {
+  __host__ __device__ BwdSmem(const Plan<T>& pl, bool two_acc) {
     constexpr int B = Plan<T>::B;
     Carve c;
     q = c.take<T>(B * pl.ldt); g = c.take<T>(B * pl.ldt);
     k = c.take<T>(B * pl.ldt); v = c.take<T>(B * pl.ldt);
     s = c.take<float>(B * pl.lds); dp = c.take<float>(B * pl.lds);
-    p = Plan<T>::F32 || !need_p ? s : c.take<T>(B * pl.ldp);
+    p = s;  // only K3 in fp32 writes P, in place of S
     ds = Plan<T>::F32 ? dp : c.take<T>(B * pl.ldp);
     acc1 = c.take<float>(B * pl.lda);
     acc2 = two_acc ? c.take<float>(B * pl.lda) : acc1;
@@ -191,29 +197,19 @@ __device__ void tile_mma(float* C, int ldc, const float* A, int lda, const float
   }
 }
 
-// Number of kv tiles a causal q tile [q0, q_end) can see (all when !causal).
-__device__ __forceinline__ int kv_tiles(int q0, int q_end, int skv, int q_off, int kv_off, int causal,
-                                        int B) {
-  const int n = (skv + B - 1) / B;
-  if (!causal) return n;
-  const long long last = (long long)q_off + q_end - 1 - kv_off;  // last visible key position
-  return last < 0 ? 0 : (int)min((long long)n, last / B + 1);
-}
-
 // ---------------------------------------------------------------------------
-// K1: forward. Replaces _flash_fwd_impl / _kernel / _kernel_lse
-// (horovod_tpu/ops/flash_attention.py:128, :53, :122).
-// Bound at the training shape: Q.K^T and P.V over the visible half of the
-// scores, 51.5 GFLOP against 101 MB moved, so compute-bound: 52 us at the
-// bf16 tensor-core peak. The design keeps Q in shared memory for the whole
-// loop, runs both products on the tensor cores, stops at the causal diagonal
-// and launches the q tiles with the most kv tiles first.
+// K1 in fp32: forward. Replaces _flash_fwd_impl / _kernel / _kernel_lse
+// (horovod_tpu/ops/flash_attention.py:128, :53, :122) for fp32 inputs, the
+// exact parity path; bf16 runs flash_fwd_sm90.cu. The design keeps Q in
+// shared memory for the whole loop, stops at the causal diagonal and
+// launches the q tiles with the most kv tiles first.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ o, float* __restrict__ lse, int sq, int skv, int d, int dp, int q_off,
                      int kv_off, int causal, float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 K1 is flash_fwd_sm90_kernel");
   constexpr int B = Plan<T>::B;
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan<T> pl(dp);
@@ -237,7 +233,7 @@ __global__ void __launch_bounds__(THREADS)
   load_tile(sQ, pl.ldt, qb, q0, sq, d, dp, B);
   zero(sAcc, B * pl.lda);
   for (int r = threadIdx.x; r < B; r += THREADS) { sM[r] = HVD_NEG_INF; sL[r] = 0.f; }
-  const int n_kv = kv_tiles(q0, min(q0 + B, sq), skv, q_off, kv_off, causal, B);
+  const int n_kv = hopper::kv_tiles(q0, min(q0 + B, sq), skv, q_off, kv_off, causal, B);
 
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * B;
@@ -348,7 +344,7 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int B = Plan<T>::B;
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan<T> pl(dp);
-  const BwdSmem<T> at(pl, false, false);
+  const BwdSmem<T> at(pl, false);
   T* sQ = reinterpret_cast<T*>(smem + at.q);
   T* sG = reinterpret_cast<T*>(smem + at.g);
   T* sK = reinterpret_cast<T*>(smem + at.k);
@@ -370,7 +366,7 @@ __global__ void __launch_bounds__(THREADS)
   load_rows(sLse, lse + qbase, q0, sq, B, HVD_NEG_INF);
   load_rows(sDelta, delta + qbase, q0, sq, B, 0.f);
   zero(sAcc, B * pl.lda);
-  const int n_kv = kv_tiles(q0, min(q0 + B, sq), skv, q_off, kv_off, causal, B);
+  const int n_kv = hopper::kv_tiles(q0, min(q0 + B, sq), skv, q_off, kv_off, causal, B);
 
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * B;
@@ -390,12 +386,11 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// K3: dK and dV. Replaces _dkv_kernel, pass 2 of _flash_bwd_core
-// (horovod_tpu/ops/flash_attention.py:237, :297).
-// Bound at the training shape: Q.K^T, dO.V^T, P^T.dO and dS^T.Q, 103 GFLOP
-// against 153 MB, compute-bound: 104 us. The design keeps K, V and both
-// fp32 accumulators on chip for the whole loop, starts the loop at the causal
-// diagonal, and gives each CTA its own dK/dV rows, so no atomics.
+// K3 in fp32: dK and dV. Replaces _dkv_kernel, pass 2 of _flash_bwd_core
+// (horovod_tpu/ops/flash_attention.py:237, :297) for fp32 inputs, the exact
+// parity path; bf16 runs flash_dkv_sm90.cu. The design keeps K, V and both
+// fp32 accumulators on chip for the whole loop, starts the loop at the
+// causal diagonal, and gives each CTA its own dK/dV rows, so no atomics.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -403,10 +398,11 @@ __global__ void __launch_bounds__(THREADS)
                      const T* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
                      void* __restrict__ dk, void* __restrict__ dv, int out_f32, int sq, int skv, int d, int dp,
                      int q_off, int kv_off, int causal, float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 K3 is flash_dkv_sm90_kernel");
   constexpr int B = Plan<T>::B;
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan<T> pl(dp);
-  const BwdSmem<T> at(pl, true, true);
+  const BwdSmem<T> at(pl, true);
   T* sQ = reinterpret_cast<T*>(smem + at.q);
   T* sG = reinterpret_cast<T*>(smem + at.g);
   T* sK = reinterpret_cast<T*>(smem + at.k);
@@ -429,11 +425,7 @@ __global__ void __launch_bounds__(THREADS)
   zero(sDK, B * pl.lda);
   zero(sDV, B * pl.lda);
   const int n_q = (sq + B - 1) / B;
-  int i0 = 0;
-  if (causal) {  // first q tile whose last row reaches this kv tile's first key
-    const long long x = (long long)kv_off + k0 - q_off - (B - 1);
-    i0 = x <= 0 ? 0 : (int)min((long long)n_q, (x + B - 1) / B);
-  }
+  const int i0 = hopper::first_q_tile(k0, n_q, q_off, kv_off, causal, B);
 
   for (int i = i0; i < n_q; ++i) {
     const int q0 = i * B;
@@ -482,7 +474,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g, const 
               void* dq, int out_f32, int bh, int sq, int skv, int d, int q_off, int kv_off, int causal,
               float scale, cudaStream_t stream) {
   const int dp = round16(d);
-  const size_t smem = BwdSmem<T>(Plan<T>(dp), false, false).total;
+  const size_t smem = BwdSmem<T>(Plan<T>(dp), false).total;
   cudaError_t e = prepare(flash_dq_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((sq + Plan<T>::B - 1) / Plan<T>::B, bh);
@@ -497,7 +489,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g, const
                const float* delta, void* dk, void* dv, int out_f32, int bh, int sq, int skv, int d, int q_off,
                int kv_off, int causal, float scale, cudaStream_t stream) {
   const int dp = round16(d);
-  const size_t smem = BwdSmem<T>(Plan<T>(dp), true, true).total;
+  const size_t smem = BwdSmem<T>(Plan<T>(dp), true).total;
   cudaError_t e = prepare(flash_dkv_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((skv + Plan<T>::B - 1) / Plan<T>::B, bh);
@@ -516,7 +508,7 @@ extern "C" {
 int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq, int skv,
                   int d, int q_off, int kv_off, int causal, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_fwd<bf16>(q, k, v, o, lse, bh, sq, skv, d, q_off, kv_off, causal, scale, s);
+  if (dtype == 1) return hvd_flash_fwd_sm90(q, k, v, o, lse, bh, sq, skv, d, q_off, kv_off, causal, scale, 0, 0, s);
   return launch_fwd<float>(q, k, v, o, lse, bh, sq, skv, d, q_off, kv_off, causal, scale, s);
 }
 
@@ -534,8 +526,8 @@ int hvd_flash_dkv(const void* q, const void* k, const void* v, const void* g, co
                   int q_off, int kv_off, int causal, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_dkv<bf16>(q, k, v, g, lse, delta, dk, dv, out_f32, bh, sq, skv, d, q_off, kv_off, causal,
-                            scale, s);
+    return hvd_flash_dkv_sm90(q, k, v, g, lse, delta, dk, dv, out_f32, bh, sq, skv, d, q_off, kv_off, causal,
+                              scale, 0, s);
   return launch_dkv<float>(q, k, v, g, lse, delta, dk, dv, out_f32, bh, sq, skv, d, q_off, kv_off, causal,
                            scale, s);
 }

@@ -1,13 +1,15 @@
 """Fused flash attention: three hand-written CUDA kernels for Hopper.
 
 The attention hot path of the transformer (models/transformer.py). The
-kernels live in ``csrc/flash_attention.cu`` and are built at first use
-(``_build.py``):
+kernels live in ``csrc/`` and are built at first use (``_build.py``):
 
 * ``flash_fwd`` (K1): out and the fp32 log-sum-exp rows, the S x S score
-  matrix never stored;
-* ``flash_dq`` (K2): dQ, recomputing P from (q, k, lse);
-* ``flash_dkv`` (K3): dK and dV, the same recompute.
+  matrix never stored; bf16 in ``flash_fwd_sm90.cu`` (wgmma and TMA),
+  fp32 in ``flash_attention.cu``;
+* ``flash_dq`` (K2): dQ, recomputing P from (q, k, lse), in
+  ``flash_attention.cu``;
+* ``flash_dkv`` (K3): dK and dV, the same recompute; bf16 in
+  ``flash_dkv_sm90.cu`` (wgmma and TMA), fp32 in ``flash_attention.cu``.
 
 Each wrapper launches its kernel for tensors on the card, counts the
 launch in ``LAUNCHES`` and raises if the launch fails; tensors on the CPU

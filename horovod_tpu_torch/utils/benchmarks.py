@@ -45,17 +45,21 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
 
 
 def cuda_time_ms(fn, iters=10, warmup=2):
-    """Median milliseconds of one ``fn()`` on the card over ``iters``
-    runs, each timed by a pair of CUDA events on the current stream."""
+    """Milliseconds of one ``fn()`` on the card: the median over 3 rounds
+    of the time of ``iters`` calls made back to back between one pair of
+    CUDA events, over ``iters``. The host enqueues ahead of the card, so
+    a call's launch overhead on the host is hidden whenever the call
+    takes longer on the card than on the host."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(iters):
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
     return float(np.median(times))

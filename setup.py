@@ -46,7 +46,7 @@ setup(
               "horovod_tpu_torch.ops", "horovod_tpu_torch.parallel",
               "horovod_tpu_torch.utils"],
     package_data={"horovod_tpu": ["lib/libhvdcore.so"],
-                  "horovod_tpu_torch": ["csrc/*.cu"]},
+                  "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     include_package_data=True,
     python_requires=">=3.10",
     install_requires=["numpy", "jax", "flax", "optax"],
