@@ -22,8 +22,8 @@ package is missing.
 
     python3 chip_smoke.py --tune
 
-builds the kernels, times each tile configuration of the bf16 K1 and K3
-kernels at the main path's shape and stops, printing no result lines.
+builds the kernels, times each tile configuration of the bf16 K1, K2 and
+K3 kernels at the main path's shape and stops, printing no result lines.
 """
 
 import argparse
@@ -50,14 +50,15 @@ KERNELS = {  # name -> (wrapper, TPU kernel it replaces, bf16 source, design)
     "fwd": ("flash_fwd", "horovod_tpu/ops/flash_attention.py:128",
             CSRC + "flash_fwd_sm90.cu", "wgmma+tma"),
     "dq": ("flash_dq", "horovod_tpu/ops/flash_attention.py:191",
-           CSRC + "flash_attention.cu", "wmma"),
+           CSRC + "flash_dq_sm90.cu", "wgmma+tma"),
     "dkv": ("flash_dkv", "horovod_tpu/ops/flash_attention.py:237",
             CSRC + "flash_dkv_sm90.cu", "wgmma+tma"),
 }
 # tile configurations of the bf16 Hopper kernels that --tune compares at
-# the main path's shape, by parameter: K1 keys per kv tile and stages, K3
-# stages (its q tile is 64 rows at D 64)
+# the main path's shape, by parameter: K1 and K2 keys per kv tile and
+# stages, K3 stages (its q tile is 64 rows at D 64)
 TUNE = {"fwd": (("keys", "stages"), [(64, 2), (64, 3), (128, 2), (128, 3)]),
+        "dq": (("keys", "stages"), [(64, 2), (64, 3), (128, 2), (128, 3)]),
         "dkv": (("stages",), [(2,), (3,)])}
 
 # error bound, element by element, (atol, rtol, ttol) by input dtype:
@@ -73,7 +74,8 @@ TUNE = {"fwd": (("keys", "stages"), [(64, 2), (64, 3), (128, 2), (128, 3)]),
 # that are exactly 0 (rows that see no key) from a bound of 0.
 TOL = {"float32": (1e-5, 1e-5, 1e-5), "bfloat16": (1e-5, 1e-2, 2e-2)}
 # the 64 rows that the planted faults of phase 3b leave out: half of one
-# of K1's 128-key tiles, one of K3's 64-row q tiles, one of K2's kv tiles
+# of K1's 128-key tiles, one of K3's 64-row q tiles, and for K2 half of a
+# 128-key tile or one 64-key tile
 TILE = slice(1024, 1088)
 # trace categories of work on the device; annotation ranges on the
 # device's lanes span kernels and are left out
@@ -283,6 +285,8 @@ def phase_slice_shape(fa, torch, dev, bench):
     del dk, dv
     # the kernels own their output rows (no atomics): two runs, same bits
     for kind, run in (("fwd", lambda: fa.flash_fwd(q, k, v, **kw)),
+                      ("dq", lambda: (fa.flash_dq(q, k, v, g, lse, delta,
+                                                  **kw),)),
                       ("dkv", lambda: fa.flash_dkv(q, k, v, g, lse, delta,
                                                    **kw))):
         first, again = run(), run()
@@ -360,8 +364,8 @@ def phase_slice_shape(fa, torch, dev, bench):
 
 
 def phase_tune(fa, torch, dev, bench, lib):
-    """Each tile configuration of the bf16 K1 and K3 kernels at the main
-    path's shape, timed in turns, each held to the default's output."""
+    """Each tile configuration of the bf16 K1, K2 and K3 kernels at the
+    main path's shape, timed in turns, each held to the default's output."""
     import ctypes
     print("== tune: tile configurations at the main path's shape")
     b, h, s = LM["batch"], LM["heads"], LM["seq_len"]
@@ -373,8 +377,10 @@ def phase_tune(fa, torch, dev, bench, lib):
     kw = dict(causal=True, sm_scale=scale)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = (g.float() * out.float()).sum(-1)
+    dq = fa.flash_dq(q, k, v, g, lse, delta, **kw)
     dk, dv = fa.flash_dkv(q, k, v, g, lse, delta, **kw)
     o2, lse2 = torch.empty_like(out), torch.empty_like(lse)
+    dq2 = torch.empty_like(dq)
     dk2, dv2 = torch.empty_like(dk), torch.empty_like(dv)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = [x.data_ptr() for x in (q, k, v, g, lse, delta)]
@@ -384,14 +390,19 @@ def phase_tune(fa, torch, dev, bench, lib):
             ptr[0], ptr[1], ptr[2], o2.data_ptr(), lse2.data_ptr(), bh, s, s,
             d, 0, 0, 1, ctypes.c_float(scale), keys, stages, stream)
 
+    def dq_(keys, stages):
+        return lib.hvd_flash_dq_sm90(
+            *ptr, dq2.data_ptr(), 0, bh, s, s, d, 0, 0, 1,
+            ctypes.c_float(scale), keys, stages, stream)
+
     def dkv(stages):
         return lib.hvd_flash_dkv_sm90(
             *ptr, dk2.data_ptr(), dv2.data_ptr(), 0, bh, s, s, d, 0, 0, 1,
             ctypes.c_float(scale), stages, stream)
 
-    for kind, call, want in (("fwd", fwd, (out, lse)),
-                             ("dkv", dkv, (dk, dv))):
-        got = (o2, lse2) if kind == "fwd" else (dk2, dv2)
+    for kind, call, want, got in (("fwd", fwd, (out, lse), (o2, lse2)),
+                                  ("dq", dq_, (dq,), (dq2,)),
+                                  ("dkv", dkv, (dk, dv), (dk2, dv2))):
         names, cfgs = TUNE[kind]
         label = {c: " ".join(f"{n} {x}" for n, x in zip(names, c))
                  for c in cfgs}

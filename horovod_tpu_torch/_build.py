@@ -119,29 +119,43 @@ def build():
             fcntl.flock(lock, fcntl.LOCK_UN)
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Every C entry point of the library: its argument types and result type.
+# ctypes passes whatever it is given, so a missing or wrong entry is a
+# silent memory fault on the card; tests/test_torch_build.py holds this
+# table to the declarations in csrc/.
+ENTRY_POINTS = {
+    # q k v o lse | bh sq skv d q_off kv_off causal | scale | dtype | stream
+    "hvd_flash_fwd": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ctypes.c_int),
+    # q k v g lse delta dq | out_f32 bh sq skv d q_off kv_off causal | ...
+    "hvd_flash_dq": ([_P] * 7 + [_I] * 8 + [_F, _I, _P], ctypes.c_int),
+    # q k v g lse delta dk dv | out_f32 bh sq skv d q_off kv_off causal | ...
+    "hvd_flash_dkv": ([_P] * 8 + [_I] * 8 + [_F, _I, _P], ctypes.c_int),
+    # the bf16 Hopper kernels with their tile choice in place of dtype:
+    # K1 ... | bn stages | stream
+    "hvd_flash_fwd_sm90": ([_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
+                           ctypes.c_int),
+    # K2 ... | bn stages | stream
+    "hvd_flash_dq_sm90": ([_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
+                          ctypes.c_int),
+    # K3 ... | stages | stream
+    "hvd_flash_dkv_sm90": ([_P] * 8 + [_I] * 8 + [_F, _I, _P], ctypes.c_int),
+    "hvd_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+
+
 def load():
     """The loaded kernel library (built first if needed), with every C
-    entry point's ``argtypes``/``restype`` declared."""
+    entry point's ``argtypes``/``restype`` declared from
+    ``ENTRY_POINTS``."""
     global _lib
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # q k v o lse | bh sq skv d q_off kv_off causal | scale | dtype | stream
-    lib.hvd_flash_fwd.argtypes = [p] * 5 + [i] * 7 + [f, i, p]
-    # q k v g lse delta dq | out_f32 bh sq skv d q_off kv_off causal | ...
-    lib.hvd_flash_dq.argtypes = [p] * 7 + [i] * 8 + [f, i, p]
-    # q k v g lse delta dk dv | out_f32 bh sq skv d q_off kv_off causal | ...
-    lib.hvd_flash_dkv.argtypes = [p] * 8 + [i] * 8 + [f, i, p]
-    # the bf16 Hopper kernels with their tile choice: K1 ... | bn stages |
-    # stream, K3 ... | stages | stream
-    lib.hvd_flash_fwd_sm90.argtypes = [p] * 5 + [i] * 7 + [f, i, i, p]
-    lib.hvd_flash_dkv_sm90.argtypes = [p] * 8 + [i] * 8 + [f, i, p]
-    for fn in (lib.hvd_flash_fwd, lib.hvd_flash_dq, lib.hvd_flash_dkv,
-               lib.hvd_flash_fwd_sm90, lib.hvd_flash_dkv_sm90):
-        fn.restype = ctypes.c_int
-    lib.hvd_cuda_error_string.argtypes = [i]
-    lib.hvd_cuda_error_string.restype = ctypes.c_char_p
+    for name, (argtypes, restype) in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     _lib = lib
     return lib
 

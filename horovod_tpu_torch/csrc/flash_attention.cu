@@ -1,6 +1,7 @@
-// Flash attention for Hopper (sm_90a): the forward pass (K1), the dQ pass
-// (K2) and the dK/dV pass (K3) of a causal or full softmax attention on
-// [BH, S, D] tensors in bf16 or fp32, with fp32 softmax statistics.
+// Flash attention for Hopper (sm_90a): the C entry points of the forward
+// pass (K1), the dQ pass (K2) and the dK/dV pass (K3) of a causal or full
+// softmax attention on [BH, S, D] tensors in bf16 or fp32, with fp32 softmax
+// statistics, and the fp32 kernels of all three.
 //
 // Semantics (shared with the plain PyTorch versions in
 // horovod_tpu_torch/ops/flash_attention.py):
@@ -15,43 +16,27 @@
 // (m, l, acc) in VMEM from one grid step to the next. Blocks of a CUDA grid
 // run in no order, so the sequential axis becomes a loop inside one CTA:
 //   K1: one CTA per (bh, q tile), looping over K/V tiles up to the causal
-//       diagonal, carrying (m, l) and the fp32 accumulator (in shared
-//       memory here, in registers in the bf16 kernel);
+//       diagonal, carrying (m, l) and the fp32 accumulator;
 //   K2: one CTA per (bh, q tile), looping over K/V tiles, dQ in fp32;
 //   K3: one CTA per (bh, kv tile), looping over q tiles from the diagonal,
 //       dK and dV in fp32.
 // The two backward passes recompute P from (q, k, lse), need no atomics and
 // give the same bits on every run.
 //
-// Products. K1 and K3 in bf16 are the Hopper kernels of flash_fwd_sm90.cu
-// and flash_dkv_sm90.cu: wgmma with register-resident accumulators fed by
-// TMA (their notes say how). This file holds the rest. K2 in bf16 goes
-// through the tensor cores with WMMA 16x16x16 fragments (fp32 accumulate);
-// every product result lands in an fp32 tile in shared memory, where one
-// warp per row does the softmax arithmetic. fp32 tiles, in all three
-// kernels, take a scalar FMA loop (exact fp32, no TF32), with 32-row tiles
-// so that the largest head dim still fits in shared memory: the fp32 path
-// serves parity checks.
-//
-// Bounds at the training shape (B 8, H 12, S 2048, D 64, causal, bf16, on an
-// H100 SXM: 989 TFLOP/s bf16, 3.35 TB/s): every kernel does 2-4 products of
-// S^2*D/2 each per head and moves only O(S*D) bytes per head, so all three
-// are compute-bound (K1 ~52 us, K2 ~78 us, K3 ~104 us at peak). K2's design
-// round-trips every product through shared memory and runs 4 warps per
-// CTA, so it sits well below that bound; the wgmma/TMA design of K1 and K3
-// is the way to close it.
+// Two designs. bf16, the training path, runs the Hopper kernels of
+// flash_fwd_sm90.cu, flash_dq_sm90.cu and flash_dkv_sm90.cu: wgmma with
+// register-resident accumulators fed by TMA (their notes say how). fp32, the
+// exact parity path, runs the kernels of this file: every product a scalar
+// FMA loop (exact fp32, no TF32) over tiles of 32 rows in shared memory, so
+// that the largest head dim still fits, with one warp per row for the
+// softmax arithmetic. They serve parity checks, not speed.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "hopper.cuh"
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 #define HVD_NEG_INF (-1e30f)
 
@@ -63,12 +48,10 @@ constexpr int FPAD = 4;  // fp32 tile row padding (16 bytes)
 
 // Rows per q tile and per kv tile, and the row padding of input tiles.
 template <typename T> struct Tile;
-template <> struct Tile<bf16> { static constexpr int B = 64; static constexpr int PAD = 8; };
 template <> struct Tile<float> { static constexpr int B = 32; static constexpr int PAD = 4; };
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -158,33 +141,10 @@ __device__ void zero(float* dst, int count) {
   for (int i = threadIdx.x; i < count; i += THREADS) dst[i] = 0.f;
 }
 
-// C[M x N] (fp32, row-major, ldc) = (acc ? C : 0) + A[M x K] . B[K x N].
+// C[M x N] (fp32, row-major, ldc) = (acc ? C : 0) + A[M x K] . B[K x N],
+// scalar FMA, one C element per thread at a time.
 // A_COL: A(m, k) lives at A[k * lda + m], else at A[m * lda + k].
 // B_COL: B(k, n) lives at B[n * ldb + k], else at B[k * ldb + n].
-// M, N, K are multiples of 16. bf16: tensor cores, one 16x16 C fragment per
-// warp at a time; fp32: scalar FMA, one C element per thread at a time.
-template <bool A_COL, bool B_COL>
-__device__ void tile_mma(float* C, int ldc, const bf16* A, int lda, const bf16* B, int ldb, int M, int N,
-                         int K, bool acc) {
-  using LA = typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
-  using LB = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-  const int warp = threadIdx.x / 32, tn = N / 16, tiles = (M / 16) * tn;
-  for (int t = warp; t < tiles; t += WARPS) {
-    const int m0 = (t / tn) * 16, n0 = (t % tn) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (acc) wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-    else wmma::fill_fragment(c, 0.f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      wmma::load_matrix_sync(a, A_COL ? A + k0 * lda + m0 : A + m0 * lda + k0, lda);
-      wmma::load_matrix_sync(b, B_COL ? B + n0 * ldb + k0 : B + k0 * ldb + n0, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
-  }
-}
-
 template <bool A_COL, bool B_COL>
 __device__ void tile_mma(float* C, int ldc, const float* A, int lda, const float* B, int ldb, int M, int N,
                          int K, bool acc) {
@@ -328,12 +288,11 @@ __device__ void store_tile(void* dst, bool out_f32, const float* acc, int lda, s
 }
 
 // ---------------------------------------------------------------------------
-// K2: dQ. Replaces _dq_kernel, pass 1 of _flash_bwd_core
-// (horovod_tpu/ops/flash_attention.py:191, :297).
-// Bound at the training shape: Q.K^T, dO.V^T and dS.K, 77.3 GFLOP against
-// 127 MB, compute-bound: 78 us. The design recomputes P from lse rather than
-// reading an S x S matrix, keeps Q, dO and the dQ accumulator on chip for the
-// whole loop, and gives each CTA its own dQ rows, so no atomics.
+// K2 in fp32: dQ. Replaces _dq_kernel, pass 1 of _flash_bwd_core
+// (horovod_tpu/ops/flash_attention.py:191, :297) for fp32 inputs, the exact
+// parity path; bf16 runs flash_dq_sm90.cu. The design recomputes P from lse
+// rather than reading an S x S matrix, keeps Q, dO and the dQ accumulator on
+// chip for the whole loop, and gives each CTA its own dQ rows, so no atomics.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -341,6 +300,7 @@ __global__ void __launch_bounds__(THREADS)
                     const T* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
                     void* __restrict__ dq, int out_f32, int sq, int skv, int d, int dp, int q_off, int kv_off,
                     int causal, float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 K2 is flash_dq_sm90_kernel");
   constexpr int B = Plan<T>::B;
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan<T> pl(dp);
@@ -517,7 +477,8 @@ int hvd_flash_dq(const void* q, const void* k, const void* v, const void* g, con
                  int kv_off, int causal, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_dq<bf16>(q, k, v, g, lse, delta, dq, out_f32, bh, sq, skv, d, q_off, kv_off, causal, scale, s);
+    return hvd_flash_dq_sm90(q, k, v, g, lse, delta, dq, out_f32, bh, sq, skv, d, q_off, kv_off, causal, scale, 0,
+                             0, s);
   return launch_dq<float>(q, k, v, g, lse, delta, dq, out_f32, bh, sq, skv, d, q_off, kv_off, causal, scale, s);
 }
 

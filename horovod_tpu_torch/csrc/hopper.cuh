@@ -310,14 +310,18 @@ inline int make_map(CUtensorMap* map, const void* ptr, int d, int s, int bh, int
 
 }  // namespace hopper
 
-// Launchers of the sm_90a bf16 kernels (flash_fwd_sm90.cu, flash_dkv_sm90.cu),
-// called by the C entry points in flash_attention.cu and, to compare tile
-// configurations, through ctypes. `bn` (K1's keys per kv tile) and `stages`
-// pick the tiles; 0 takes the default. Each returns the CUDA error code of the launch.
+// Launchers of the sm_90a bf16 kernels (flash_fwd_sm90.cu, flash_dq_sm90.cu,
+// flash_dkv_sm90.cu), called by the C entry points in flash_attention.cu and,
+// to compare tile configurations, through ctypes. `bn` (K1's and K2's keys
+// per kv tile) and `stages` pick the tiles; 0 takes the default. Each returns
+// the CUDA error code of the launch.
 extern "C" {
 int hvd_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq, int skv,
                        int d, int q_off, int kv_off, int causal, float scale, int bn, int stages,
                        cudaStream_t stream);
+int hvd_flash_dq_sm90(const void* q, const void* k, const void* v, const void* g, const float* lse,
+                      const float* delta, void* dq, int out_f32, int bh, int sq, int skv, int d, int q_off,
+                      int kv_off, int causal, float scale, int bn, int stages, cudaStream_t stream);
 int hvd_flash_dkv_sm90(const void* q, const void* k, const void* v, const void* g, const float* lse,
                        const float* delta, void* dk, void* dv, int out_f32, int bh, int sq, int skv, int d, int q_off,
                        int kv_off, int causal, float scale, int stages, cudaStream_t stream);

@@ -6,8 +6,8 @@ kernels live in ``csrc/`` and are built at first use (``_build.py``):
 * ``flash_fwd`` (K1): out and the fp32 log-sum-exp rows, the S x S score
   matrix never stored; bf16 in ``flash_fwd_sm90.cu`` (wgmma and TMA),
   fp32 in ``flash_attention.cu``;
-* ``flash_dq`` (K2): dQ, recomputing P from (q, k, lse), in
-  ``flash_attention.cu``;
+* ``flash_dq`` (K2): dQ, recomputing P from (q, k, lse); bf16 in
+  ``flash_dq_sm90.cu`` (wgmma and TMA), fp32 in ``flash_attention.cu``;
 * ``flash_dkv`` (K3): dK and dV, the same recompute; bf16 in
   ``flash_dkv_sm90.cu`` (wgmma and TMA), fp32 in ``flash_attention.cu``.
 
