@@ -3,20 +3,39 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version on the card, checks
-one small LM step on the card against the same step on the CPU, then
-drives the port's main path at full width: ``init()`` over NCCL, the
-12-layer d768 LM at sequence 2048 and batch 8 in bf16 with flash
-attention, trained a few steps through ``DistributedOptimizer``. Any
-failure raises. The last line of output is
+Builds the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc and
+runs these phases; any failure raises:
+
+* 3a: each kernel against its plain PyTorch version on the card;
+* 3b: the kernels at the main paths' shapes, the whole batch (5, 6a)
+  and one of 2 microbatches (6b, 6c): error, planted faults and
+  repeatability at both, times beside the plain version's and the
+  library's at the whole batch;
+* 4: one small LM step on the card against the same step on the CPU;
+* 4b: the same small LM trained 3 steps through ``make_train_step``
+  (2 microbatches, overlapped reduce-scatter pipeline, ZeRO-1) on the
+  card against the CPU;
+* 5: the port's main path at full width: ``init()`` over NCCL, the
+  12-layer d768 LM at sequence 2048 and batch 8 in bf16 with flash
+  attention, trained 5 steps through ``DistributedOptimizer``'s fused
+  allreduce;
+* 6a-6c: the same LM through the rest of the exchange: 6a
+  ``make_lm_train_step`` with ZeRO-1, 6b ``make_train_step`` with 2
+  microbatches, the overlapped pipeline and ZeRO-1, 6c 6b without
+  ZeRO-1.
+
+Phases 4, 4b, 5, 6a, 6b and 6c each count the kernels' launches from 0
+on the card and must launch each kernel once per layer and microbatch
+and step. The
+last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it a JSON object with each kernel's launches on the
-main path, error against its plain version, time, plain time, bound and
-library time. After the timed steps one more step runs under
-``torch.profiler`` for the device's busy share and the time by kernel.
+main path (phase 5), error against its plain version, time, plain time,
+bound and library time. After the timed steps of phases 5 and 6b one
+more step runs under ``torch.profiler`` for the device's busy share and
+the time by layer and by kernel.
 Exits non-zero without printing a result when CUDA is unavailable or the
 package is missing.
 
@@ -33,6 +52,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
@@ -250,16 +271,12 @@ def _planted_faults(fa, torch, q, k, v, g, lse, delta, kw, plain):
             "dv": plain["dv"] - dv_t}
 
 
-def phase_slice_shape(fa, torch, dev, bench):
-    """Each kernel at the shape the main path gives it: error against the
-    plain version, the same check failing planted faults, time, plain
-    time and the library's time."""
-    import torch.nn.functional as F
-    print("== phase 3b: kernels at the main path's shape")
-    b, h, s = LM["batch"], LM["heads"], LM["seq_len"]
-    d = LM["d_model"] // h
-    bh, name = b * h, "bfloat16"
-    dtype = torch.bfloat16
+def _hold_at_shape(fa, torch, dev, bh, s, d):
+    """Each bf16 kernel at causal shape [bh, s, d] against its plain
+    version, twice for the same bits, and planted faults that must fail
+    the same check. Returns each kernel's error and the inputs."""
+    name, dtype = "bfloat16", torch.bfloat16
+    print(f"  shape [{bh}, {s}, {d}]:")
     gen = torch.Generator().manual_seed(1)
     q, k, v, g = (_rand((bh, s, d), dtype, gen, dev) for _ in range(4))
     kw = dict(causal=True, sm_scale=1.0 / d ** 0.5)
@@ -311,6 +328,23 @@ def phase_slice_shape(fa, torch, dev, bench):
                                  "that leaves out a tile")
     del bad, plain, terms
     torch.cuda.empty_cache()
+    return errs, (q, k, v, g, lse, delta, kw)
+
+
+def phase_slice_shape(fa, torch, dev, bench):
+    """Each kernel at the shapes the main paths give it: error against
+    the plain version and the same check failing planted faults at the
+    whole batch (phases 5 and 6a) and at one of 2 microbatches (6b, 6c);
+    at the whole batch also time, plain time and the library's time."""
+    import torch.nn.functional as F
+    print("== phase 3b: kernels at the main path's shape")
+    b, h, s = LM["batch"], LM["heads"], LM["seq_len"]
+    d = LM["d_model"] // h
+    bh, name = b * h, "bfloat16"
+    micro, _ = _hold_at_shape(fa, torch, dev, bh // 2, s, d)
+    errs, (q, k, v, g, lse, delta, kw) = _hold_at_shape(fa, torch, dev, bh,
+                                                         s, d)
+    errs = {kind: max(err, micro[kind]) for kind, err in errs.items()}
 
     calls = {
         "fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
@@ -422,11 +456,19 @@ def phase_tune(fa, torch, dev, bench, lib):
         print(f"  {kind} fastest: {label[best]} ({min(times[best]):.4f} ms)")
 
 
-def phase_parity(torch, dev):
+def _want_launches(fa, label, want):
+    """The kernels' launches since the last reset must be ``want`` each."""
+    launches = dict(fa.LAUNCHES)
+    print(f"  {label} launches: {launches}")
+    if launches != {"fwd": want, "dq": want, "dkv": want}:
+        raise AssertionError(f"{label}: launches {launches}, want {want} "
+                             "of each")
+
+
+def phase_parity(fa, torch, dev):
     """One LM step (loss and gradients, 2 layers, fp32) on the card
     through the kernels and on the CPU through the plain versions, with
     the same weights and tokens."""
-    import numpy as np
     from horovod_tpu_torch import training
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
@@ -441,10 +483,12 @@ def phase_parity(torch, dev):
         0, cfg.vocab_size, size=(2, 384)))
     losses = []
     for model, toks in ((cpu, tokens), (card, tokens.to(dev))):
+        fa.reset_launches()
         loss = training.softmax_cross_entropy(model(toks)[:, :-1],
                                               toks[:, 1:])
         loss.backward()
         losses.append(loss.item())
+    _want_launches(fa, "card step", cfg.num_layers)
     print(f"  loss cpu {losses[0]:.7f} card {losses[1]:.7f}")
     if not abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0]):
         raise AssertionError(f"loss differs: {losses}")
@@ -470,114 +514,270 @@ def _model_flops(lm):
     return 6 * weights * b * s + lm["layers"] * 6 * 2 * pairs * d
 
 
-def phase_full(hvd, fa, torch, bench):
-    import numpy as np
-    print("== phase 5: full-width data-parallel LM training")
-    hvd.init()  # the card and NCCL
-    print(f"  init: rank {hvd.rank()} size {hvd.size()} device "
-          f"{hvd.device()} backend "
-          f"{torch.distributed.get_backend()}")
-    t0 = time.perf_counter()
-    step, model, opt, tokens = bench.make_lm_bench(
-        batch=LM["batch"], seq_len=LM["seq_len"], layers=LM["layers"],
-        d_model=LM["d_model"], heads=LM["heads"], vocab=LM["vocab"],
-        flash=True, dtype=torch.bfloat16, lr=3e-4, weight_decay=1e-4)
-    bench.sync()
-    nparams = sum(p.numel() for p in model.parameters())
-    print(f"  model: {nparams / 1e6:.2f} M params, built and broadcast in "
-          f"{time.perf_counter() - t0:.2f} s")
+def _drive(label, hvd, fa, torch, bench, step, batch, want, per_step_tokens,
+           exchange, profile=False):
+    """Run ``step(*batch)`` STEPS times with the kernels' launch counts
+    set to 0 just before and read just after; print the step time,
+    tokens/s, peak memory, the exchange and the launches; hold the
+    losses (finite, falling) and the launches (``want`` of each kernel).
+    Returns the losses and the launches."""
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()  # count only the main path's launches
+    fa.reset_launches()  # count only this path's launches
     losses, times = [], []
     for _ in range(STEPS):
         t = time.perf_counter()
-        loss = step(tokens)
+        loss = step(*batch)
         bench.sync()
         times.append(time.perf_counter() - t)
         losses.append(float(loss))
     launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     step_ms = 1e3 * float(np.median(times[1:]))
-    ntok = LM["batch"] * LM["seq_len"] * hvd.size()
-    buckets = opt.last_buckets
-    print(f"  losses {[round(x, 5) for x in losses]}")
-    print(f"  step ms {[round(1e3 * x, 2) for x in times]} (first includes "
-          f"warm-up); median of steps 2..{STEPS}: {step_ms:.2f} ms, "
+    ntok = per_step_tokens * hvd.size()
+    print(f"  {label} losses {[round(x, 5) for x in losses]}")
+    print(f"  {label} step ms {[round(1e3 * x, 2) for x in times]} (first "
+          f"includes warm-up); median of steps 2..{STEPS}: {step_ms:.2f} ms, "
           f"{ntok / step_ms * 1e3:.0f} tokens/s")
     rate = _model_flops(LM) / (step_ms / 1e3)  # this rank's FLOP/s
-    print(f"  model FLOPs {_model_flops(LM) / 1e12:.2f} T per step and rank: "
-          f"{rate / 1e12:.1f} TFLOP/s, "
+    print(f"  {label} model FLOPs {_model_flops(LM) / 1e12:.2f} T per step "
+          f"and rank: {rate / 1e12:.1f} TFLOP/s, "
           f"{100 * rate / PEAK_FLOPS['bfloat16']:.2f}% of the bf16 peak")
-    print(f"  peak device memory {peak / 2**30:.2f} GiB")
-    print(f"  fused allreduce: {len(buckets)} buckets, "
-          f"{sum(b.nbytes for b in buckets) / 1e6:.1f} MB per step")
-    print(f"  launches on the main path: {launches}")
+    print(f"  {label} peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  {label} {exchange()}")
+    print(f"  {label} launches: {launches}")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not decrease: {losses}")
-    want = LM["layers"] * STEPS
+        raise AssertionError(f"{label}: loss did not decrease: {losses}")
     if launches != {"fwd": want, "dq": want, "dkv": want}:
-        raise AssertionError(f"launches {launches}, want {want} of each")
-    profile_step(torch, step, tokens, step_ms)
+        raise AssertionError(f"{label}: launches {launches}, want {want} "
+                             "of each")
+    if profile:
+        profile_step(torch, lambda: step(*batch), step_ms)
+    return losses, launches
+
+
+def _schedule_line(schedule):
+    padded = sum(schedule.padded_sizes) * schedule.buckets[0].dtype.itemsize
+    return (f"bucket schedule: {len(schedule.buckets)} buckets, "
+            f"{padded / 1e6:.1f} MB padded, world {schedule.world}")
+
+
+def _lm_bench(bench, torch, **kw):
+    return bench.make_lm_bench(
+        batch=LM["batch"], layers=LM["layers"], d_model=LM["d_model"],
+        heads=LM["heads"], vocab=LM["vocab"], flash=True,
+        dtype=torch.bfloat16, lr=3e-4, weight_decay=1e-4, **kw)
+
+
+def phase_full(hvd, fa, torch, bench):
+    print("== phase 5: full-width data-parallel LM training")
+    hvd.init()  # the card and NCCL
+    print(f"  init: rank {hvd.rank()} size {hvd.size()} device "
+          f"{hvd.device()} backend "
+          f"{torch.distributed.get_backend()}")
+    t0 = time.perf_counter()
+    step, model, opt, tokens = _lm_bench(bench, torch, seq_len=LM["seq_len"])
+    bench.sync()
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"  model: {nparams / 1e6:.2f} M params, built and broadcast in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def exchange():
+        buckets = opt.last_buckets
+        return (f"fused allreduce: {len(buckets)} buckets, "
+                f"{sum(b.nbytes for b in buckets) / 1e6:.1f} MB per step")
+
+    losses, launches = _drive(
+        "5", hvd, fa, torch, bench, step, (tokens,),
+        LM["layers"] * STEPS, LM["batch"] * LM["seq_len"], exchange,
+        profile=True)
     hvd.shutdown()
-    return launches
+    return losses, launches
 
 
-# kernel-name patterns of the step's layers, in the order they are tried
+def phase_parity_exchange(hvd, fa, torch):
+    """The phase-4 LM trained 3 steps through ``make_train_step`` with 2
+    microbatches, the overlapped reduce-scatter pipeline and ZeRO-1
+    AdamW: once on the CPU (gloo, the kernels' plain versions), once on
+    the card (NCCL, the kernels), from the same weights and batch."""
+    from horovod_tpu_torch import convert, training
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    print("== phase 4b: small LM, 2 microbatches, overlap + ZeRO-1, "
+          "card against CPU")
+    cfg = TransformerConfig(vocab_size=512, num_layers=2, num_heads=4,
+                            d_model=256, d_ff=1024, dtype=torch.float32,
+                            flash_attention=True)
+    start = Transformer(cfg, generator=torch.Generator().manual_seed(4))
+    p0 = {n: p.detach().clone() for n, p in start.named_parameters()}
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, size=(4, 385)))
+    # AdamW's update lr m / (sqrt(v) + eps) is near lr sign(g) early on,
+    # so at eps 1e-8 a rounding-level difference in a gradient that
+    # nearly cancels moves its parameter by up to lr |dg| / eps, beyond
+    # the bound below; at eps 1e-4 the update is at most lr / eps = 10
+    # times as sensitive as the gradient, and the check sees the exchange
+    runs = {}
+    for where in ("cpu", "cuda"):
+        hvd.init(device=where)
+        dev = hvd.device()
+        model = Transformer(cfg, device=dev)
+        model.load_state_dict(start.state_dict())
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-3,
+                              betas=(0.9, 0.999), eps=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=convert.flax_named_parameters(model),
+            sharded_update=True)
+        training.create_train_state(model, opt)
+        step = training.make_train_step(model, opt, accum_steps=2,
+                                        overlap_grads=True)
+        x, y = tokens[:, :-1].to(dev), tokens[:, 1:].to(dev)
+        fa.reset_launches()
+        losses = [float(step(x, y)) for _ in range(3)]
+        runs[where] = (losses, {n: p.detach().cpu() for n, p in
+                                model.named_parameters()})
+        print(f"  {where}: {_schedule_line(opt.zero_state.plan.schedule)}; "
+              f"losses {[f'{v:.7f}' for v in losses]}")
+        hvd.shutdown()
+    # the CPU run takes the plain versions; the card's launches each
+    # kernel once per layer, microbatch and step
+    _want_launches(fa, "card", cfg.num_layers * 2 * 3)
+    (cpu_losses, cpu_p), (card_losses, card_p) = runs["cpu"], runs["cuda"]
+    for a, b in zip(cpu_losses, card_losses):
+        if not abs(a - b) <= 1e-5 * abs(a):
+            raise AssertionError(f"loss differs: cpu {cpu_losses}, card "
+                                 f"{card_losses}")
+    worst = 0.0
+    for n, pc in cpu_p.items():
+        err = _err(card_p[n], pc)
+        bound = 1e-6 + 1e-4 * _err(pc, p0[n])
+        worst = max(worst, err / bound)
+        if err > bound:
+            raise AssertionError(f"param {n}: error {err} above {bound}")
+    print(f"  params after 3 steps agree: worst error at {worst:.3f} of "
+          "its tolerance (1e-6 + 1e-4 max|p - p0|)")
+
+
+def phase_exchange_full(hvd, fa, torch, bench, phase5_losses):
+    """The full-width LM through the rest of the exchange: 6a ZeRO-1 in
+    ``make_lm_train_step``; 6b ``make_train_step`` with 2 microbatches,
+    the overlapped pipeline and ZeRO-1 (profiled); 6c 6b without
+    ZeRO-1."""
+    import gc
+    from horovod_tpu_torch import training
+    print("== phase 6: full-width LM through ZeRO-1 and the overlapped "
+          "bucket pipeline")
+    hvd.init()
+    layers, seq = LM["layers"], LM["seq_len"]
+
+    step, model, opt, tokens = _lm_bench(bench, torch, seq_len=seq,
+                                         sharded_update=True)
+    schedule = opt.zero_state.plan.schedule
+    losses, _ = _drive("6a", hvd, fa, torch, bench, step, (tokens,),
+                       layers * STEPS, LM["batch"] * seq,
+                       lambda: "ZeRO-1 " + _schedule_line(schedule))
+    # the same weights and batch as phase 5, and at world 1 the same
+    # math: only the rounding of the update differs (ZeRO-1 adds the
+    # gathered delta (p + u) - p where phase 5 adds u, an fp32 ulp at
+    # most), and in bf16 compute that can move a weight's bf16 cast by
+    # one bf16 step. The loss falls about 10 % over phase 5's steps, so
+    # a bucket's update lost or applied twice moves it far past 1e-3
+    for i, (a, b) in enumerate(zip(losses, phase5_losses)):
+        if not abs(a - b) <= 1e-3 * abs(b):
+            raise AssertionError(f"6a step {i + 1} loss {a} against phase "
+                                 f"5's {b}: beyond 1e-3 relative")
+    print(f"  6a against phase 5: largest relative loss difference "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(losses, phase5_losses)):.3e}"
+          " (bound 1e-3)")
+    del step, model, opt, tokens
+    for label, sharded in (("6b", True), ("6c", False)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, model, opt, tokens = _lm_bench(bench, torch, seq_len=seq + 1,
+                                          sharded_update=sharded)
+        step = training.make_train_step(model, opt, accum_steps=2,
+                                        overlap_grads=True)
+        batch = (tokens[:, :seq], tokens[:, 1:seq + 1])
+        what = "ZeRO-1" if sharded else "all-gather + AdamW"
+        _drive(label, hvd, fa, torch, bench, step, batch,
+               2 * layers * STEPS, LM["batch"] * seq,
+               lambda: (f"2 microbatches, overlapped reduce-scatter, "
+                        f"{what}; {_schedule_line(step.schedule)}"),
+               profile=label == "6b")
+        del step, model, opt, tokens, batch
+    hvd.shutdown()
+
+
+# kernel-name patterns of the step's layers, in the order they are tried;
+# work on any stream but the step's own is NCCL's (below)
+COLLECTIVES = "collectives (NCCL's streams: reduce-scatter, all-gather, " \
+    "allreduce)"
 LAYERS = (("attention kernels", ("flash_",)),
           ("matmuls", ("nvjet", "gemm", "cutlass", "xmma")),
-          ("allreduce", ("nccl",)),
+          (COLLECTIVES, ("nccl",)),
           ("optimizer", ("multi_tensor", "foreach")),
           ("reductions (norms, softmax, loss)", ("reduce", "softmax")),
           ("elementwise and copies", ("elementwise", "copy", "cat",
                                       "Memcpy", "Memset")))
 
 
-def profile_step(torch, step, tokens, step_ms):
-    """Device time by layer and by kernel over one more step, read from
-    the profiler's trace (kernels, copies and memsets only), and the
+def profile_step(torch, run, step_ms):
+    """Device time by layer and by kernel over one more ``run()``, read
+    from the profiler's trace (kernels, copies and memsets only), and the
     device's idle share: 1 - the union of their intervals / the
-    unprofiled median step time."""
+    unprofiled median step time. The stream with the most device time is
+    the step's; NCCL's collectives run on streams of their own (at world
+    1 its reduce-scatters and all-gathers are copies), so work there is
+    attributed to the collectives whatever its name."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(tokens)
+        run()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "step.json"
         prof.export_chrome_trace(str(path))
         trace = json.loads(path.read_text())
-    work = sorted(((e["ts"], e["dur"], e["name"]) for e in trace["traceEvents"]
+    work = sorted(((e["ts"], e["dur"], e["name"],
+                    e.get("args", {}).get("stream"))
+                   for e in trace["traceEvents"]
                    if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK),
                   key=lambda w: w[0])
     busy, end = 0.0, -math.inf  # microseconds, overlaps counted once
-    for ts, dur, _ in work:
+    for ts, dur, _, _ in work:
         busy += max(0.0, ts + dur - max(ts, end))
         end = max(end, ts + dur)
     busy /= 1e3
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
+    per_stream = {}
+    for _, dur, _, stream in work:
+        per_stream[stream] = per_stream.get(stream, 0.0) + dur
+    main_stream = max(per_stream, key=per_stream.get)
     by_name = {}
-    for _, dur, name in work:
-        ms, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + dur / 1e3, n + 1)
+    for _, dur, name, stream in work:
+        key = (name, stream != main_stream)
+        ms, n = by_name.get(key, (0.0, 0))
+        by_name[key] = (ms + dur / 1e3, n + 1)
     total = sum(ms for ms, _ in by_name.values())
     print(f"  profiled step: {busy:.2f} ms of device work "
-          f"({len(by_name)} kinds, {total:.2f} ms summed) in a "
-          f"{step_ms:.2f} ms step: device idle "
-          f"{100 * (1 - busy / step_ms):.1f}%")
+          f"({len(by_name)} kinds, {total:.2f} ms summed, "
+          f"{len(per_stream)} streams) in a {step_ms:.2f} ms step: device "
+          f"idle {100 * (1 - busy / step_ms):.1f}%")
     by_layer = dict.fromkeys([name for name, _ in LAYERS] + ["other"], 0.0)
-    for name, (ms, _) in by_name.items():
-        layer = next((layer for layer, pats in LAYERS
-                      if any(p in name for p in pats)), "other")
+    for (name, side), (ms, _) in by_name.items():
+        layer = COLLECTIVES if side else next(
+            (layer for layer, pats in LAYERS
+             if any(p in name for p in pats)), "other")
         by_layer[layer] += ms
     for layer, ms in by_layer.items():
         print(f"    {ms:9.3f} ms {100 * ms / total:5.1f}%  {layer}")
     top = sorted(by_name.items(), key=lambda item: -item[1][0])[:12]
-    for name, (ms, n) in top:
+    for (name, side), (ms, n) in top:
         print(f"    {ms:9.3f} ms {100 * ms / total:5.1f}%  x{n:<4} "
-              f"{name[:90]}")
+              f"{'[NCCL stream] ' if side else ''}{name[:90]}")
 
 
 def main(argv=None):
@@ -621,8 +821,10 @@ def main(argv=None):
         return 0
     phase_kernels(fa, torch, dev)
     rows = phase_slice_shape(fa, torch, dev, bench)
-    phase_parity(torch, dev)
-    launches = phase_full(hvd, fa, torch, bench)
+    phase_parity(fa, torch, dev)
+    phase_parity_exchange(hvd, fa, torch)
+    losses, launches = phase_full(hvd, fa, torch, bench)
+    phase_exchange_full(hvd, fa, torch, bench, losses)
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):

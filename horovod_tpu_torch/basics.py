@@ -139,3 +139,7 @@ def device():
 
 def fusion_threshold():
     return _cfg().fusion_threshold
+
+
+def wire_dtype():
+    return _cfg().wire_dtype

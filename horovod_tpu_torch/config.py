@@ -1,6 +1,6 @@
-"""Environment-variable configuration: the launcher's rank contract and
-the fusion threshold, under the same ``HOROVOD_*`` names as the JAX
-package (``horovod_tpu/config.py``)."""
+"""Environment-variable configuration: the launcher's rank contract, the
+fusion threshold and the wire format, under the same ``HOROVOD_*`` names
+as the JAX package (``horovod_tpu/config.py``)."""
 
 import dataclasses
 import os
@@ -34,6 +34,9 @@ class Config:
     rendezvous_addr: str = None
     rendezvous_port: int = 0
     fusion_threshold: int = DEFAULT_FUSION_THRESHOLD
+    # the default wire format of DistributedOptimizer(compression=None);
+    # only uncompressed ("none" or unset) is ported
+    wire_dtype: str = None
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -50,4 +53,5 @@ class Config:
                                      _env_int("MASTER_PORT", 0)),
             fusion_threshold=_env_int("HOROVOD_FUSION_THRESHOLD",
                                       DEFAULT_FUSION_THRESHOLD),
+            wire_dtype=_env_str("HOROVOD_WIRE_DTYPE"),
         )

@@ -1,73 +1,141 @@
-"""Carry transformer weights between the flax parameter tree of
-``horovod_tpu.models.transformer.Transformer`` and the ``state_dict`` of
-``horovod_tpu_torch.models.transformer.Transformer``.
+"""Carry weights between the flax parameter trees of the JAX package's
+models and the parameters of the port's: the transformer LM
+(``models/transformer.py``), the ``MLP`` and the ``MNISTConvNet``
+(``models/simple.py``).
 
 The flax tree is plain nested dicts of numpy arrays (no flax import
-here). Layouts:
+here). One table per model maps each flax leaf path to a torch
+parameter name and a layout:
 
-* ``block_i/attn/{query,key,value}/kernel`` [d_model, H, D] ->
-  ``blocks.i.attn.{query,key,value}.weight`` [H*D, d_model];
-* ``block_i/attn/out/kernel`` [H, D, d_model] -> ``...attn.out.weight``
+* ``same``: the same array (``embed/embedding`` -> ``embed.weight``, a
+  norm's ``scale`` -> its ``weight``, a ``bias``);
+* ``linear``: a Dense kernel [in, out] -> an ``nn.Linear`` weight
+  [out, in];
+* ``heads_in``: ``attn/{query,key,value}/kernel`` [d_model, H, D] ->
+  ``attn.{query,key,value}.weight`` [H*D, d_model];
+* ``heads_out``: ``attn/out/kernel`` [H, D, d_model] -> ``attn.out.weight``
   [d_model, H*D];
-* ``Dense_0``/``Dense_1``/``lm_head`` kernels [in, out] -> ``nn.Linear``
-  weights [out, in];
-* ``embed/embedding`` [vocab, d_model] -> ``embed.weight``;
-* ``RMSNorm_0``/``RMSNorm_1`` of a block and the top-level ``RMSNorm_0``
-  (the final norm) ``scale`` -> ``norm1``/``norm2``/``norm`` ``weight``.
+* ``conv``: a Conv kernel [kh, kw, in, out] -> a ``Conv2d`` weight
+  [out, in, kh, kw].
+
+``flax_named_parameters`` walks the same table in the order of
+``jax.tree_util.tree_leaves`` on the flax tree (paths sorted key by key),
+which is the order the JAX package packs its fusion buckets in. Within a
+leaf the elements keep torch's layout; every optimizer of the port is
+elementwise, so that does not change a result.
 """
 
 import numpy as np
 import torch
 
+from horovod_tpu_torch.models.simple import MLP, MNISTConvNet
+from horovod_tpu_torch.models.transformer import Transformer, TransformerConfig
 
-def params_from_flax(params, cfg):
-    """flax params (nested dict of arrays) -> torch ``state_dict`` (fp32)."""
-    d = cfg.d_model
 
-    def t(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32))
-
-    sd = {"embed.weight": t(params["embed"]["embedding"]),
-          "norm.weight": t(params["RMSNorm_0"]["scale"]),
-          "lm_head.weight": t(params["lm_head"]["kernel"]).T.contiguous()}
+def _transformer_table(cfg):
+    rows = [(("embed", "embedding"), "embed.weight", "same"),
+            (("RMSNorm_0", "scale"), "norm.weight", "same"),
+            (("lm_head", "kernel"), "lm_head.weight", "linear")]
     for i in range(cfg.num_layers):
-        blk, pre = params[f"block_{i}"], f"blocks.{i}."
-        attn = blk["attn"]
+        blk, pre = f"block_{i}", f"blocks.{i}."
         for name in ("query", "key", "value"):
-            sd[pre + f"attn.{name}.weight"] = (
-                t(attn[name]["kernel"]).reshape(d, d).T.contiguous())
-        sd[pre + "attn.out.weight"] = (
-            t(attn["out"]["kernel"]).reshape(d, d).T.contiguous())
-        sd[pre + "norm1.weight"] = t(blk["RMSNorm_0"]["scale"])
-        sd[pre + "norm2.weight"] = t(blk["RMSNorm_1"]["scale"])
-        sd[pre + "mlp_in.weight"] = t(blk["Dense_0"]["kernel"]).T.contiguous()
-        sd[pre + "mlp_out.weight"] = t(blk["Dense_1"]["kernel"]).T.contiguous()
+            rows.append(((blk, "attn", name, "kernel"),
+                         pre + f"attn.{name}.weight", "heads_in"))
+        rows += [((blk, "attn", "out", "kernel"), pre + "attn.out.weight",
+                  "heads_out"),
+                 ((blk, "RMSNorm_0", "scale"), pre + "norm1.weight", "same"),
+                 ((blk, "RMSNorm_1", "scale"), pre + "norm2.weight", "same"),
+                 ((blk, "Dense_0", "kernel"), pre + "mlp_in.weight",
+                  "linear"),
+                 ((blk, "Dense_1", "kernel"), pre + "mlp_out.weight",
+                  "linear")]
+    return rows
+
+
+def _dense_rows(flax_name, torch_name):
+    return [((flax_name, "bias"), torch_name + ".bias", "same"),
+            ((flax_name, "kernel"), torch_name + ".weight", "linear")]
+
+
+def _table(spec):
+    """The mapping rows of a model (or a ``TransformerConfig``)."""
+    if isinstance(spec, Transformer):
+        spec = spec.cfg
+    if isinstance(spec, TransformerConfig):
+        return _transformer_table(spec)
+    if isinstance(spec, MLP):
+        return [row for i in range(len(spec.layers))
+                for row in _dense_rows(f"Dense_{i}", f"layers.{i}")]
+    if isinstance(spec, MNISTConvNet):
+        rows = []
+        for i in range(2):
+            rows += [((f"Conv_{i}", "bias"), f"conv{i}.bias", "same"),
+                     ((f"Conv_{i}", "kernel"), f"conv{i}.weight", "conv")]
+        return rows + _dense_rows("Dense_0", "fc0") + _dense_rows(
+            "Dense_1", "fc1")
+    raise TypeError(f"no flax layout for {type(spec).__name__}")
+
+
+def _heads(spec):
+    cfg = spec.cfg if isinstance(spec, Transformer) else spec
+    return cfg.num_heads, cfg.d_model // cfg.num_heads
+
+
+def _to_torch(x, layout):
+    if layout == "linear":
+        return x.T
+    if layout == "heads_in":
+        return x.reshape(x.shape[0], -1).T
+    if layout == "heads_out":
+        return x.reshape(-1, x.shape[-1]).T
+    if layout == "conv":
+        return x.permute(3, 2, 0, 1)
+    return x
+
+
+def _to_flax(x, layout, spec):
+    if layout == "linear":
+        return x.T
+    if layout == "heads_in":
+        h, hd = _heads(spec)
+        return x.T.reshape(x.shape[1], h, hd)
+    if layout == "heads_out":
+        h, hd = _heads(spec)
+        return x.T.reshape(h, hd, x.shape[0])
+    if layout == "conv":
+        return x.transpose(2, 3, 1, 0)
+    return x
+
+
+def params_from_flax(params, spec):
+    """flax params (nested dict of arrays) -> torch ``state_dict`` (fp32).
+    ``spec`` is the torch model, or a ``TransformerConfig``."""
+    sd = {}
+    for path, name, layout in _table(spec):
+        x = params
+        for key in path:
+            x = x[key]
+        x = torch.from_numpy(np.array(x, dtype=np.float32))
+        sd[name] = _to_torch(x, layout).contiguous()
     return sd
 
 
-def flax_from_params(state_dict, cfg):
+def flax_from_params(state_dict, spec):
     """torch ``state_dict`` -> flax params (nested dict of numpy fp32)."""
-    d, h = cfg.d_model, cfg.num_heads
-    hd = d // h
-
-    def n(key):
-        return state_dict[key].detach().float().cpu().numpy()
-
-    params = {"embed": {"embedding": n("embed.weight")},
-              "RMSNorm_0": {"scale": n("norm.weight")},
-              "lm_head": {"kernel": n("lm_head.weight").T.copy()}}
-    for i in range(cfg.num_layers):
-        pre = f"blocks.{i}."
-        attn = {name: {"kernel": n(pre + f"attn.{name}.weight").T
-                       .reshape(d, h, hd).copy()}
-                for name in ("query", "key", "value")}
-        attn["out"] = {"kernel": n(pre + "attn.out.weight").T
-                       .reshape(h, hd, d).copy()}
-        params[f"block_{i}"] = {
-            "attn": attn,
-            "RMSNorm_0": {"scale": n(pre + "norm1.weight")},
-            "RMSNorm_1": {"scale": n(pre + "norm2.weight")},
-            "Dense_0": {"kernel": n(pre + "mlp_in.weight").T.copy()},
-            "Dense_1": {"kernel": n(pre + "mlp_out.weight").T.copy()},
-        }
+    params = {}
+    for path, name, layout in _table(spec):
+        x = state_dict[name].detach().float().cpu().numpy()
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _to_flax(x, layout, spec).copy()
     return params
+
+
+def flax_named_parameters(model):
+    """``(flax_path, parameter)`` of ``model``, in the order
+    ``jax.tree_util.tree_leaves`` gives the leaves of its flax tree: pass
+    it as ``DistributedOptimizer(named_parameters=...)`` so the port packs
+    its buckets leaf for leaf as the JAX package does."""
+    for path, name, _ in sorted(_table(model)):
+        yield "/".join(path), model.get_parameter(name)

@@ -1,64 +1,164 @@
-"""User-facing API: DistributedOptimizer and the startup broadcasts.
+"""User-facing API: DistributedOptimizer, the startup broadcasts, metric
+averaging and Join.
 
 The port of ``horovod_tpu/hvd_jax.py``'s ``DistributedOptimizer``,
-``broadcast_variables`` and ``broadcast_optimizer_state`` in Horovod's
-PyTorch form: ``DistributedOptimizer`` wraps a ``torch.optim`` optimizer,
-and its ``step()`` averages the parameters' ``.grad`` across ranks through
-the fused buckets before the inner step. Unlike the JAX optimizer, which
-returns new state, everything here updates in place: the gradients, the
-parameters and the inner optimizer's state.
+``broadcast_variables``, ``broadcast_optimizer_state``,
+``allreduce_metrics`` and ``join`` in Horovod's PyTorch form:
+``DistributedOptimizer`` wraps a ``torch.optim`` optimizer, and its
+``step()`` exchanges the parameters' ``.grad`` across ranks before the
+inner step. Unlike the JAX optimizer, which returns new state,
+everything here updates in place: the gradients, the parameters and the
+inner optimizer's state.
 """
 
 import torch
 import torch.distributed as dist
+from torch.utils import _pytree
 
+from horovod_tpu_torch import basics
 from horovod_tpu_torch.ops import collective, fusion
-from horovod_tpu_torch.ops.reduction import Average
+from horovod_tpu_torch.ops.reduction import Average, Sum
 from horovod_tpu_torch.parallel import mesh as mesh_lib
+from horovod_tpu_torch.parallel import zero
+
+
+def _check_uncompressed(compression, source):
+    name = getattr(compression, "name", compression)
+    if name is not None and str(name).lower() != "none":
+        raise NotImplementedError(
+            f"wire compression {name!r} ({source}) is not ported yet "
+            "(ROADMAP Queue 1 item 5); pass compression=None or 'none'")
 
 
 class DistributedOptimizer:
-    """Wrap ``optimizer`` so every ``step()`` first allreduces (``op``,
-    Average by default) the gradients of ``named_parameters`` (by default
-    every parameter of the optimizer, in its order) in fused buckets of
-    at most ``HOROVOD_FUSION_THRESHOLD`` bytes. A parameter without a
-    gradient takes part with zeros, so every rank sends the same buckets.
+    """Wrap ``optimizer`` so every ``step()`` first reduces (``op``,
+    Average by default) the gradients of ``named_parameters`` across
+    ranks. ``named_parameters`` (by default every parameter of the
+    optimizer, in its order) fixes the order the buckets pack; pass
+    ``convert.flax_named_parameters(model)`` to pack as the JAX package
+    does. A parameter without a gradient takes part with zeros, so every
+    rank sends the same buckets.
 
-    ``last_buckets`` holds the buckets of the latest exchange."""
+    * The default exchange is one allreduce per fused bucket of at most
+      ``threshold_bytes`` (``HOROVOD_FUSION_THRESHOLD`` when None);
+      ``last_buckets`` holds the buckets of the latest one.
+    * ``sharded_update=True`` is ZeRO stage 1 (``parallel/zero.py``):
+      reduce-scatter per bucket of the reverse-order schedule, the inner
+      optimizer's class and hyperparameters over this rank's 1/N chunk
+      (``zero_state``), and an all-gather of the parameter deltas. Sum or
+      Average only, one param group only; ``init()`` must have run.
+    * ``backward_passes_per_step=k`` keeps a running mean of the
+      gradients over k ``step()`` calls (``optax.MultiSteps``'s
+      ``acc + (g - acc) / (n + 1)``) and exchanges and steps on every
+      k-th; the other calls leave the parameters as they are.
+    * ``compression`` must be None or ``"none"``: wire compression is
+      not ported. As in the JAX package, ``"none"`` pins the exchange
+      uncompressed whatever the config says, and None defers to
+      ``HOROVOD_WIRE_DTYPE``, read at use (``check_uncompressed``): a
+      compressed format there raises in every exchange, the overlapped
+      pipeline of ``training.make_train_step`` included."""
 
-    def __init__(self, optimizer, named_parameters=None, op=Average):
+    def __init__(self, optimizer, named_parameters=None, op=Average,
+                 compression=None, threshold_bytes=None,
+                 backward_passes_per_step=1, sharded_update=False):
+        _check_uncompressed(compression, "compression=")
+        if backward_passes_per_step < 1:
+            raise ValueError("backward_passes_per_step must be >= 1, got "
+                             f"{backward_passes_per_step}")
+        if sharded_update:
+            if op not in (Sum, Average):
+                raise ValueError(
+                    f"sharded_update supports Sum or Average, got {op!r}")
+            if backward_passes_per_step > 1:
+                raise ValueError(
+                    "sharded_update accumulates via make_train_step("
+                    "accum_steps=...); backward_passes_per_step>1 would "
+                    "stack a second accumulator on top")
         self.optimizer = optimizer
         self.op = op
+        self.threshold_bytes = threshold_bytes
+        self.backward_passes_per_step = backward_passes_per_step
+        self.sharded_update = sharded_update
+        self._wire_pinned = compression is not None
+        owned = [p for group in optimizer.param_groups
+                 for p in group["params"]]
         if named_parameters is None:
-            params = [p for group in optimizer.param_groups
-                      for p in group["params"]]
+            params = owned
         else:
             params = [p for _, p in named_parameters]
-        owned = {id(p) for group in optimizer.param_groups
-                 for p in group["params"]}
-        if any(id(p) not in owned for p in params):
-            raise ValueError("named_parameters holds a parameter the "
-                             "optimizer does not update")
-        self._params = params
+        if {id(p) for p in params} != {id(p) for p in owned}:
+            raise ValueError("named_parameters must name exactly the "
+                             "parameters the optimizer updates")
+        self.params = params
         self.last_buckets = ()
+        self.zero_state = None
+        if sharded_update:
+            self.zero_state = zero.init(optimizer, params, zero.make_plan(
+                params, op=op, threshold_bytes=threshold_bytes))
+        self._acc, self._mini_step = None, 0
+
+    def check_uncompressed(self):
+        """Resolve the wire format at use: uncompressed when
+        ``compression`` was given, else ``HOROVOD_WIRE_DTYPE``'s, which
+        must be unset or ``"none"`` (no compressed exchange is ported)."""
+        if not self._wire_pinned:
+            _check_uncompressed(basics.wire_dtype(), "HOROVOD_WIRE_DTYPE")
 
     def zero_grad(self, set_to_none=True):
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
+    def _grads(self):
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in self.params]
+
     @torch.no_grad()
     def synchronize(self):
         """Allreduce the gradients in place."""
-        for p in self._params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        for p, g in zip(self.params, self._grads()):
+            p.grad = g
         self.last_buckets = tuple(fusion.fused_allreduce_(
-            [p.grad for p in self._params], op=self.op))
+            [p.grad for p in self.params], op=self.op,
+            threshold_bytes=self.threshold_bytes))
+
+    @torch.no_grad()
+    def _accumulate(self):
+        """Fold this call's gradients into the running mean; on the k-th
+        call hand the mean to ``.grad`` and return True."""
+        grads = self._grads()
+        if self._acc is None:
+            self._acc = [torch.zeros_like(g) for g in grads]
+        n = self._mini_step
+        for acc, g in zip(self._acc, grads):
+            acc.add_((g - acc) / (n + 1))
+        self._mini_step += 1
+        if self._mini_step < self.backward_passes_per_step:
+            return False
+        for p, acc in zip(self.params, self._acc):
+            p.grad = acc
+        self._acc, self._mini_step = None, 0
+        return True
 
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("DistributedOptimizer.step takes no closure: "
                              "compute the loss and backward first")
+        self.check_uncompressed()
+        if self.backward_passes_per_step > 1 and not self._accumulate():
+            return None
+        if self.zero_state is not None:
+            zero.sharded_update(self.zero_state, self._grads())
+            return None
         self.synchronize()
+        return self.optimizer.step()
+
+    def update_preaveraged(self):
+        """The inner step on gradients that are already reduced across
+        ranks (the overlap pipeline of ``training.make_train_step``
+        reduce-scatters and all-gathers them itself)."""
+        if self.sharded_update or self.backward_passes_per_step > 1:
+            raise ValueError("update_preaveraged is the plain-optimizer "
+                             "tail of the overlap pipeline")
+        self.check_uncompressed()
         return self.optimizer.step()
 
 
@@ -95,3 +195,55 @@ def broadcast_optimizer_state(optimizer, root_rank=0):
             collective.broadcast_(tmp, root_rank=root_rank)
             if tmp is not v:
                 v.copy_(tmp)
+
+
+def _numeric(x):
+    if isinstance(x, (bool, int, float)):
+        return True
+    if torch.is_tensor(x):
+        return True
+    dtype = getattr(x, "dtype", None)  # numpy arrays and scalars
+    return getattr(dtype, "kind", None) in ("b", "i", "u", "f")
+
+
+@torch.no_grad()
+def allreduce_metrics(metrics, op=Average):
+    """Reduce scalar metrics across ranks (Horovod's
+    ``MetricAverageCallback``). ``metrics`` is any nest of dicts, lists and
+    tuples; each numeric leaf comes back as a tensor on this process's
+    device: fp32 under Average (an averaged count is a float), its own
+    dtype under Sum for integers. Other leaves (strings, None) pass
+    through unchanged."""
+    m = mesh_lib.get_mesh()
+
+    def one(x):
+        if not _numeric(x):
+            return x
+        t = torch.as_tensor(x, device=m.device)
+        if t.dtype == torch.bool:
+            t = t.long()
+        if op == Average or t.is_floating_point():
+            t = t.float()
+        return collective.allreduce(t, op=op)
+
+    return _pytree.tree_map(one, metrics)
+
+
+@torch.no_grad()
+def join(grads, is_active, op=Average):
+    """Join-aware gradient allreduce for uneven data: a rank whose data
+    is exhausted passes ``is_active=False`` and contributes zeros, and the
+    mean is over the active ranks only. Returns ``(reduced grads, number
+    of active ranks)``; ``grads`` is any nest of tensors."""
+    m = mesh_lib.get_mesh()
+    active = torch.as_tensor(is_active, dtype=torch.float32,
+                             device=m.device)
+    n_active = collective.allreduce(active, op=Sum).clamp_min(1.0)
+
+    def one(g):
+        summed = collective.allreduce(g * active.to(g.dtype), op=Sum)
+        if op == Average:
+            summed = summed / n_active.to(summed.dtype)
+        return summed
+
+    return _pytree.tree_map(one, grads), n_active

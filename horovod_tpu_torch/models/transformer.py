@@ -73,13 +73,18 @@ def _trunc_normal_(w, std, generator):
     return w
 
 
+def lecun_normal_(w, fan_in, generator):
+    """flax's default kernel initializer: truncated normal with variance
+    1/fan_in (std corrected for the truncation)."""
+    return _trunc_normal_(w, math.sqrt(1.0 / fan_in) / .87962566103423978,
+                          generator)
+
+
 def _lecun_linear(in_features, out_features, generator):
     """``nn.Linear`` without bias, drawn like flax's default Dense /
-    DenseGeneral kernel: truncated normal with variance 1/fan_in
-    (std corrected for the truncation)."""
+    DenseGeneral kernel."""
     lin = skip_init(nn.Linear, in_features, out_features, bias=False)
-    std = math.sqrt(1.0 / in_features) / .87962566103423978
-    _trunc_normal_(lin.weight, std, generator)
+    lecun_normal_(lin.weight, in_features, generator)
     return lin
 
 

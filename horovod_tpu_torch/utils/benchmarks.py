@@ -13,13 +13,15 @@ def sync():
 
 
 def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
-                  dtype=torch.bfloat16, lr=3e-4, weight_decay=1e-4, seed=0):
+                  dtype=torch.bfloat16, lr=3e-4, weight_decay=1e-4, seed=0,
+                  sharded_update=False):
     """The LM benchmark: the transformer LM at the given widths, AdamW
-    through ``DistributedOptimizer`` on the data axis, and a seeded batch
-    of this rank's ``batch`` sequences. ``init()`` must have run.
+    through ``DistributedOptimizer`` on the data axis (its buckets packed
+    in the flax leaf order; ZeRO-1 with ``sharded_update``), and a seeded
+    batch of this rank's ``batch`` sequences. ``init()`` must have run.
     Returns ``(step, model, optimizer, tokens)``; ``step(tokens)``
     returns the averaged loss."""
-    from horovod_tpu_torch import basics, hvd_torch, training
+    from horovod_tpu_torch import basics, convert, hvd_torch, training
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
 
@@ -35,7 +37,8 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
                               betas=(0.9, 0.999), eps=1e-8,
                               weight_decay=weight_decay)
     opt = hvd_torch.DistributedOptimizer(
-        inner, named_parameters=model.named_parameters())
+        inner, named_parameters=convert.flax_named_parameters(model),
+        sharded_update=sharded_update)
     training.create_train_state(model, opt)
     rng = np.random.default_rng(seed + basics.rank())
     tokens = torch.from_numpy(
