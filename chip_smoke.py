@@ -22,7 +22,21 @@ runs these phases; any failure raises:
 * 6a-6c: the same LM through the rest of the exchange: 6a
   ``make_lm_train_step`` with ZeRO-1, 6b ``make_train_step`` with 2
   microbatches, the overlapped pipeline and ZeRO-1, 6c 6b without
-  ZeRO-1.
+  ZeRO-1;
+* 3c: the wire quantizer (int8, fp8_e4m3, fp8_e5m2) on the card against
+  the CPU, bit for bit;
+* 4c: a small BatchNorm ResNet trained 3 steps through ``make_train_step``
+  (2 microbatches, overlap, ZeRO-1, int8 wire with error feedback) on the
+  card against the CPU;
+* 7a: ``bench.py``'s headline, ResNet-101 at 256 images of 224x224 in
+  bf16 on fp32 parameters, SGD with momentum through the fused
+  allreduce: img/s, MFU, memory, buckets, and a profile by layer;
+* 7b: ``bench.py --overlap --compression``: the same ResNet-101 through
+  4 microbatches, the overlapped pipeline, ZeRO-1 and AdamW at each wire
+  (none, bf16, fp8_e4m3, int8, with error feedback): step time, memory,
+  wire bytes, the quantizer's cost and losses held to ``WIRE_EPSILON`` of
+  the uncompressed run's;
+* 7c: VGG-16 at 64 images of 224x224 through the fused allreduce.
 
 Phases 4, 4b, 5, 6a, 6b and 6c each count the kernels' launches from 0
 on the card and must launch each kernel once per layer and microbatch
@@ -65,6 +79,16 @@ PEAK_BYTES = 3.35e12
 LM = dict(layers=12, d_model=768, heads=12, vocab=32000, seq_len=2048,
           batch=8)
 STEPS = 5
+# bench.py's image workloads: the headline (--model resnet101
+# --batch-size 256 --image-size 224), its --overlap --compression matrix
+# (adamw, --accum-steps 4) and --model vgg16 at batch 64
+RESNET = dict(model="resnet101", batch=256, image_size=224)
+OVERLAP_ACCUM = 4
+WIRES = ("none", "bf16", "fp8_e4m3", "int8")
+VGG = dict(model="vgg16", batch=64, image_size=224, steps=3)
+# the JAX package's compressed-vs-exact contract (__graft_entry__.py
+# WIRE_EPSILON, WIRE_EPSILON_FLOOR): every step's loss within 5 %
+WIRE_EPSILON, WIRE_EPSILON_FLOOR = 0.05, 1e-3
 
 CSRC = "horovod_tpu_torch/csrc/"
 KERNELS = {  # name -> (wrapper, TPU kernel it replaces, bf16 source, design)
@@ -710,6 +734,359 @@ def phase_exchange_full(hvd, fa, torch, bench, phase5_losses):
     hvd.shutdown()
 
 
+def _quantizer_input(torch):
+    """Rows of 1000 elements: a zero chunk, a tail of 232, spikes of
+    +-3e38 beside values of 1e-30, a row of one sign, a constant row."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((5, 1000)) * np.exp(rng.uniform(-12, 12,
+                                                            (5, 1000)))
+    x[0, :256] = 0.0
+    x[1, 300], x[1, 301] = 3e38, -3e38
+    x[2, 5:9] = [1e-30, -1e-30, 0.0, 5e-31]
+    x[3] = np.abs(x[3])
+    x[4] = 0.5
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def phase_quantizer(torch, dev):
+    """Each chunked wire format on the card against the CPU, at chunk 256
+    and at a clamped chunk: the same wire bytes, scales and decoded values,
+    bit for bit."""
+    from horovod_tpu_torch.ops import compression as comp
+    print("== phase 3c: wire quantizer, card against CPU")
+    x = _quantizer_input(torch)
+    for name in ("int8", "fp8_e4m3", "fp8_e5m2"):
+        for chunk in (256, 100):
+            q = comp.by_name(name).for_length(chunk)
+            want = q.roundtrip(x)
+            got = [t.cpu() for t in q.roundtrip(x.to(dev))]
+            dec = q.decompress_flat(got[0].to(dev), got[1].to(dev),
+                                    torch.bfloat16, n=x.shape[-1]).cpu()
+            want_dec = q.decompress_flat(want[0], want[1], torch.bfloat16,
+                                         n=x.shape[-1])
+            parts = {"wire": torch.equal(got[0].view(torch.uint8),
+                                         want[0].view(torch.uint8)),
+                     "scales": torch.equal(got[1], want[1]),
+                     "round trip": torch.equal(got[2], want[2]),
+                     "bf16 decode": torch.equal(dec.view(torch.int16),
+                                                want_dec.view(torch.int16))}
+            differ = [k for k, same in parts.items() if not same]
+            print(f"  {name:<9} chunk {q.chunk:>3}: wire {tuple(got[0].shape)}"
+                  f", scales {tuple(got[1].shape)}, round trip, bf16 decode:"
+                  f" {'DIFFER: ' + ', '.join(differ) if differ else 'identical bits'}")
+            if differ:
+                raise AssertionError(f"{name} chunk {chunk}: the card's "
+                                     f"{', '.join(differ)} differ from the "
+                                     "CPU's")
+
+
+def phase_parity_resnet(hvd, torch):
+    """A small BatchNorm ResNet trained 3 steps through
+    ``make_train_step`` (2 microbatches, the overlapped pipeline, ZeRO-1,
+    an int8 wire with error feedback, 64 KB buckets) on the CPU (gloo)
+    and on the card (NCCL), in fp32 from the same weights and batch; and
+    once more on the CPU from the weights perturbed by 1e-6 relative, to
+    measure how far rounding alone moves this net.
+
+    The bound of each element of a tensor (parameters and BatchNorm
+    statistics) is 1e-6 + 1e-4 max|x - x0| + 4 max|x_perturbed - x|, and
+    of each loss 1e-5 |loss| + 4 |loss_perturbed - loss|. The last term is
+    the net's own sensitivity: BatchNorm over 4 images amplifies a
+    rounding-level change of a gradient whose terms cancel. The card's
+    summation order differs from the CPU's by rounding, so it may part
+    from the CPU as far as rounding parts the CPU from itself. Besides, an
+    int8 element that rounding moves across a rounding boundary moves by
+    one quantization step, its chunk's absmax / 127, which can be far
+    more than its own tensor moved (a BatchNorm bias beside a large
+    gradient): at most 1 in 1000 elements may exceed the bound, and each
+    only by 2 max|x - x0| / 127 over its group (the largest movement
+    bounds every chunk's absmax). A stream race (a residual read before
+    its encode, a bucket decoded before it arrived) moves whole buckets
+    by their whole update."""
+    from horovod_tpu_torch import convert, training
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.utils import benchmarks as bench
+    print("== phase 4c: small BatchNorm ResNet, 2 microbatches, overlap + "
+          "ZeRO-1 + int8 wire with error feedback, card against CPU")
+    kw = dict(num_filters=8, num_classes=10, dtype=torch.float32)
+    start = resnet.ResNet18(generator=torch.Generator().manual_seed(5),
+                            **kw)
+    s0 = {n: t.clone() for n, t in start.state_dict().items()}
+    images, labels = bench.synthetic_batch(8, 32, seed=5, num_classes=10)
+    runs = {}
+    for label, where, jitter in (("cpu", "cpu", False),
+                                 ("cpu perturbed", "cpu", True),
+                                 ("card", "cuda", False)):
+        hvd.init(device=where)
+        dev = hvd.device()
+        model = resnet.ResNet18(**kw)
+        model.load_state_dict(start.state_dict())
+        if jitter:
+            gen = torch.Generator().manual_seed(9)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=gen))
+        model.to(dev)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=convert.flax_named_parameters(model),
+            sharded_update=True, compression="int8", threshold_bytes=1 << 16)
+        step = training.make_train_step(model, opt, accum_steps=2,
+                                        overlap_grads=True)
+        losses = [float(step(images.to(dev), labels.to(dev)))
+                  for _ in range(3)]
+        runs[label] = (losses, {n: t.detach().cpu().clone()
+                                for n, t in model.state_dict().items()})
+        print(f"  {label}: {_schedule_line(step.schedule)}, wire "
+              f"{step.wire.name}; losses {[f'{v:.7f}' for v in losses]}")
+        hvd.shutdown()
+    (cpu_l, cpu), (pert_l, pert), (card_l, card) = (
+        runs["cpu"], runs["cpu perturbed"], runs["card"])
+    for a, p, b in zip(cpu_l, pert_l, card_l):
+        if not abs(a - b) <= 1e-5 * abs(a) + 4 * abs(p - a):
+            raise AssertionError(f"loss differs: cpu {cpu_l}, card {card_l}"
+                                 f", cpu perturbed {pert_l}")
+    print(f"  losses: card against cpu "
+          f"{max(abs(a - b) for a, b in zip(cpu_l, card_l)):.3e}, cpu "
+          f"perturbed against cpu "
+          f"{max(abs(a - p) for a, p in zip(cpu_l, pert_l)):.3e}")
+    params = {n for n, _ in start.named_parameters()}
+    for group, names in (("params", [n for n in cpu if n in params]),
+                         ("BatchNorm statistics",
+                          [n for n in cpu if n not in params
+                           and cpu[n].is_floating_point()])):
+        # the largest movement in the group bounds an int8 step: no chunk's
+        # absmax exceeds the largest gradient (or delta), which moved its
+        # element about that far
+        step = 2 * max(float((cpu[n] - s0[n]).abs().max())
+                       for n in names) / 127
+        worst, flips, worst_flip, total = 0.0, 0, 0.0, 0
+        for name in names:
+            want, got = cpu[name], card[name]
+            err = (got - want).abs()
+            tight = 1e-6 + 1e-4 * float((want - s0[name]).abs().max())
+            bound = tight + 4 * float((pert[name] - want).abs().max())
+            over = err > bound
+            if not bool(got.isfinite().all()) or \
+                    bool((err[over] > tight + step).any()):
+                raise AssertionError(
+                    f"{name}: card against cpu {float(err.max())}, bound "
+                    f"{bound}, and {tight + step} for a rounding flip")
+            total += want.numel()
+            flips += int(over.sum())
+            if bool(over.any()):
+                worst_flip = max(worst_flip, float(err[over].max()) / step)
+            if bool((~over).any()):
+                worst = max(worst, float(err[~over].max()) / bound)
+        if flips > total // 1000:
+            raise AssertionError(f"{group}: {flips} of {total} elements past "
+                                 "their bound: more than rounding flips")
+        print(f"  {group} after 3 steps: worst element at {worst:.3f} of its "
+              f"tensor's bound; {flips} of {total} past it (int8 rounding "
+              f"flips), the largest at {worst_flip:.3f} of 2 max|x - x0| / "
+              "127")
+    for name, want in cpu.items():
+        if not want.is_floating_point() and not torch.equal(card[name],
+                                                            want):
+            raise AssertionError(f"{name}: {card[name]} != {want}")
+
+
+def _conv_macs(torch, model, image_size):
+    """Multiply-adds of one image's forward: every convolution's output
+    elements times its input channels and window, counted by hooks on a
+    one-image forward, plus every fully connected layer's weights."""
+    from horovod_tpu_torch.models.resnet import Conv
+    macs = []
+
+    def hook(mod, _inp, out):
+        k = mod.weight.shape
+        macs.append(out[0].numel() * k[1] * k[2] * k[3])
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, Conv)]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 3, image_size, image_size,
+                              device=next(model.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was_training)
+    dense = sum(m.weight.numel() for m in model.modules()
+                if isinstance(m, torch.nn.Linear))
+    return sum(macs) + dense
+
+
+def _drive_images(label, torch, bench, step, batch, steps, flops, exchange,
+                  layers=None):
+    """Run ``step(*batch)`` ``steps`` times; print the losses, the step
+    times, img/s, MFU, peak memory and the exchange; hold the losses
+    (finite, and the last below the first). With ``layers``, profile one
+    more step. Returns the losses and the median step ms of steps 2.."""
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        loss = step(*batch)
+        bench.sync()
+        times.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = 1e3 * float(np.median(times[1:]))
+    images = batch[0].shape[0]
+    rate = flops / (step_ms / 1e3)
+    print(f"  {label} losses {[round(x, 5) for x in losses]}")
+    print(f"  {label} step ms {[round(1e3 * x, 2) for x in times]} (first "
+          f"includes warm-up); median of steps 2..{steps}: {step_ms:.2f} "
+          f"ms, {images / step_ms * 1e3:.1f} img/s")
+    print(f"  {label} model FLOPs {flops / 1e12:.2f} T per step: "
+          f"{rate / 1e12:.1f} TFLOP/s, {100 * rate / PEAK_FLOPS['bfloat16']:.2f}"
+          "% of the bf16 peak (MFU)")
+    print(f"  {label} peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  {label} {exchange()}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not decrease: {losses}")
+    if layers is not None:
+        profile_step(torch, lambda: step(*batch), step_ms, layers)
+    return losses, step_ms
+
+
+def _wire_bytes(schedule, wire, reduce_scatters):
+    """``(logical, wire)`` bytes one rank sends in a step of the
+    overlapped pipeline: ``reduce_scatters`` reduce-scatters and one
+    all-gather of every bucket, ``world`` rows of a shard each, at
+    ``wire``'s ``wire_bytes`` (a chunked format pays its row padding and
+    scales), as the JAX package's telemetry counts them."""
+    logical = on_wire = 0
+    for bucket, shard in zip(schedule.buckets, schedule.shard_sizes):
+        q = wire.for_length(shard) if wire is not None and wire.chunked \
+            else wire
+        width = (shard * bucket.dtype.itemsize if q is None
+                 else q.wire_bytes(shard, bucket.dtype))
+        passes = (reduce_scatters + 1) * schedule.world
+        logical += passes * shard * bucket.dtype.itemsize
+        on_wire += passes * width
+    return logical, on_wire
+
+
+def _quantize_ms(torch, bench, schedule, wire, dev):
+    """Card ms of one microbatch's encode of every bucket (the
+    ``[world, shard]`` rows with error feedback: add the residual, round
+    trip, new residual) plus the decode of what arrives, on a seeded
+    gradient: the compression's own cost in the reduce-scatter."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flats = [torch.randn(n, generator=gen, device=dev)
+             for n in schedule.padded_sizes]
+    res = [torch.zeros_like(f) for f in flats]
+
+    def run():
+        for f, r, shard in zip(flats, res, schedule.shard_sizes):
+            q = wire.for_length(shard) if wire.chunked else wire
+            rows = (f + r).view(schedule.world, shard)
+            w, scales, deq = q.roundtrip(rows)
+            r.copy_((rows - deq).view(-1))
+            q.decompress_flat(w, scales, torch.float32, n=shard).sum(0)
+
+    return bench.cuda_time_ms(run, iters=5, warmup=1)
+
+
+def phase_resnet(hvd, torch, bench):
+    """7a: ``bench.py``'s headline; 7b: its overlap x compression matrix;
+    7c: VGG-16."""
+    import gc
+    from horovod_tpu_torch.ops import compression as comp
+    # as upstream's pytorch_synthetic_benchmark.py: cuDNN picks each
+    # convolution's algorithm by timing them at the first step
+    torch.backends.cudnn.benchmark = True
+    hvd.init()
+    dev = hvd.device()
+    print("== phase 7a: ResNet-101, 256 images of 224x224, bf16 on fp32 "
+          "parameters, SGD(0.01, momentum 0.9), fused allreduce")
+    t0 = time.perf_counter()
+    step, model, opt, batch = bench.make_resnet_bench(**RESNET)
+    bench.sync()
+    nparams = sum(p.numel() for p in model.parameters())
+    macs = _conv_macs(torch, model, RESNET["image_size"])
+    flops = 6 * macs * RESNET["batch"]
+    print(f"  model: {nparams / 1e6:.2f} M params, {macs / 1e9:.3f} G "
+          f"multiply-adds an image forward, built and broadcast in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def exchange():
+        buckets = opt.last_buckets
+        return (f"fused allreduce: {len(buckets)} buckets "
+                f"{[round(b.nbytes / 1e6, 1) for b in buckets]} MB, "
+                f"{sum(b.nbytes for b in buckets) / 1e6:.1f} MB per step")
+
+    _drive_images("7a", torch, bench, step, batch, STEPS, flops, exchange,
+                  layers=RESNET_LAYERS)
+    del step, model, opt, batch
+    print(f"== phase 7b: ResNet-101, {OVERLAP_ACCUM} microbatches, "
+          "overlapped pipeline, ZeRO-1, AdamW(1e-3, weight decay 1e-4), "
+          "error feedback, at each wire")
+    runs = {}
+    for name in WIRES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        step, model, opt, batch = bench.make_resnet_bench(
+            **RESNET, optimizer="adamw", accum_steps=OVERLAP_ACCUM,
+            overlap_grads=True, sharded_update=True, compression=name)
+        wire = comp.by_name(name)
+        if step.wire is not wire:
+            raise AssertionError(f"7b {name}: the step was built with "
+                                 f"{step.wire!r}")
+        logical, on_wire = _wire_bytes(step.schedule, wire, OVERLAP_ACCUM)
+
+        def exchange():
+            return (f"{_schedule_line(step.schedule)}; wire bytes a step "
+                    f"({OVERLAP_ACCUM} reduce-scatters, 1 all-gather): "
+                    f"logical {logical / 1e6:.1f} MB, wire "
+                    f"{on_wire / 1e6:.1f} MB, ratio "
+                    f"{logical / on_wire:.3f}")
+
+        losses, step_ms = _drive_images(
+            f"7b {name}", torch, bench, step, batch, STEPS, flops, exchange,
+            layers=RESNET_LAYERS)
+        if wire is not None:
+            ms = _quantize_ms(torch, bench, step.schedule, wire, dev)
+            print(f"  7b {name} quantizer: {ms:.3f} ms a microbatch to "
+                  "encode every bucket with its residual and decode it, "
+                  f"{OVERLAP_ACCUM * ms:.3f} ms a step")
+        runs[name] = losses
+        del step, model, opt, batch
+    exact = np.asarray(runs["none"])
+    for name in WIRES[1:]:
+        rel = float(np.max(np.abs(np.asarray(runs[name]) - exact)
+                           / np.maximum(np.abs(exact), WIRE_EPSILON_FLOOR)))
+        print(f"  7b {name} against none: largest relative loss "
+              f"difference {rel:.3e} (bound {WIRE_EPSILON})")
+        if not rel <= WIRE_EPSILON:
+            raise AssertionError(f"7b {name}: losses {runs[name]} beyond "
+                                 f"{WIRE_EPSILON} of {runs['none']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("== phase 7c: VGG-16, 64 images of 224x224, bf16 on fp32 "
+          "parameters, SGD(0.01, momentum 0.9), fused allreduce")
+    step, model, opt, batch = bench.make_resnet_bench(
+        model=VGG["model"], batch=VGG["batch"],
+        image_size=VGG["image_size"])
+    macs = _conv_macs(torch, model, VGG["image_size"])
+    print(f"  model: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}"
+          f" M params, {macs / 1e9:.3f} G multiply-adds an image forward")
+    _drive_images("7c", torch, bench, step, batch, VGG["steps"],
+                  6 * macs * VGG["batch"],
+                  lambda: f"fused allreduce: {len(opt.last_buckets)} buckets,"
+                  f" {sum(b.nbytes for b in opt.last_buckets) / 1e6:.1f} MB"
+                  " per step")
+    del step, model, opt, batch
+    hvd.shutdown()
+
+
+
 # kernel-name patterns of the step's layers, in the order they are tried;
 # work on any stream but the step's own is NCCL's (below)
 COLLECTIVES = "collectives (NCCL's streams: reduce-scatter, all-gather, " \
@@ -721,9 +1098,22 @@ LAYERS = (("attention kernels", ("flash_",)),
           ("reductions (norms, softmax, loss)", ("reduce", "softmax")),
           ("elementwise and copies", ("elementwise", "copy", "cat",
                                       "Memcpy", "Memset")))
+# the image models' layers: BatchNorm's kernels before the convolutions'
+# (cuDNN's names), the optimizer's, then the rest of the elementwise work
+# (ReLU, casts, padding, residual adds, the quantizer, the packing)
+RESNET_LAYERS = (("BatchNorm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
+                 ("convolutions and matmuls (cuDNN, cuBLAS)",
+                  ("conv", "xmma", "implicit", "gemm", "cutlass", "nvjet",
+                   "dgrad", "wgrad", "fprop", "cudnn", "sm90_", "nhwc",
+                   "nchw")),
+                 (COLLECTIVES, ("nccl",)),
+                 ("optimizer", ("multi_tensor", "foreach")),
+                 ("other elementwise, reductions and copies",
+                  ("elementwise", "reduce", "copy", "cat", "pad",
+                   "max_pool", "Memcpy", "Memset")))
 
 
-def profile_step(torch, run, step_ms):
+def profile_step(torch, run, step_ms, layers=LAYERS):
     """Device time by layer and by kernel over one more ``run()``, read
     from the profiler's trace (kernels, copies and memsets only), and the
     device's idle share: 1 - the union of their intervals / the
@@ -766,10 +1156,10 @@ def profile_step(torch, run, step_ms):
           f"({len(by_name)} kinds, {total:.2f} ms summed, "
           f"{len(per_stream)} streams) in a {step_ms:.2f} ms step: device "
           f"idle {100 * (1 - busy / step_ms):.1f}%")
-    by_layer = dict.fromkeys([name for name, _ in LAYERS] + ["other"], 0.0)
+    by_layer = dict.fromkeys([name for name, _ in layers] + ["other"], 0.0)
     for (name, side), (ms, _) in by_name.items():
         layer = COLLECTIVES if side else next(
-            (layer for layer, pats in LAYERS
+            (layer for layer, pats in layers
              if any(p in name for p in pats)), "other")
         by_layer[layer] += ms
     for layer, ms in by_layer.items():
@@ -821,10 +1211,13 @@ def main(argv=None):
         return 0
     phase_kernels(fa, torch, dev)
     rows = phase_slice_shape(fa, torch, dev, bench)
+    phase_quantizer(torch, dev)
     phase_parity(fa, torch, dev)
     phase_parity_exchange(hvd, fa, torch)
+    phase_parity_resnet(hvd, torch)
     losses, launches = phase_full(hvd, fa, torch, bench)
     phase_exchange_full(hvd, fa, torch, bench, losses)
+    phase_resnet(hvd, torch, bench)
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):

@@ -34,8 +34,8 @@ class Config:
     rendezvous_addr: str = None
     rendezvous_port: int = 0
     fusion_threshold: int = DEFAULT_FUSION_THRESHOLD
-    # the default wire format of DistributedOptimizer(compression=None);
-    # only uncompressed ("none" or unset) is ported
+    # the default wire format of DistributedOptimizer(compression=None),
+    # a name of ops/compression.by_name
     wire_dtype: str = None
 
     @classmethod

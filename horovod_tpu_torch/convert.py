@@ -1,7 +1,10 @@
 """Carry weights between the flax parameter trees of the JAX package's
 models and the parameters of the port's: the transformer LM
 (``models/transformer.py``), the ``MLP`` and the ``MNISTConvNet``
-(``models/simple.py``).
+(``models/simple.py``), the ResNets (``models/resnet.py``) and VGG-16
+(``models/vgg.py``); and the ResNets' BatchNorm statistics between the
+flax ``batch_stats`` tree and the running buffers
+(``batch_stats_from_flax``, ``flax_from_batch_stats``).
 
 The flax tree is plain nested dicts of numpy arrays (no flax import
 here). One table per model maps each flax leaf path to a torch
@@ -15,8 +18,8 @@ parameter name and a layout:
   ``attn.{query,key,value}.weight`` [H*D, d_model];
 * ``heads_out``: ``attn/out/kernel`` [H, D, d_model] -> ``attn.out.weight``
   [d_model, H*D];
-* ``conv``: a Conv kernel [kh, kw, in, out] -> a ``Conv2d`` weight
-  [out, in, kh, kw].
+* ``conv``: a Conv kernel [kh, kw, in, out] (HWIO) -> a ``Conv2d``
+  weight [out, in, kh, kw] (OIHW).
 
 ``flax_named_parameters`` walks the same table in the order of
 ``jax.tree_util.tree_leaves`` on the flax tree (paths sorted key by key),
@@ -28,8 +31,10 @@ elementwise, so that does not change a result.
 import numpy as np
 import torch
 
+from horovod_tpu_torch.models.resnet import ResNet
 from horovod_tpu_torch.models.simple import MLP, MNISTConvNet
 from horovod_tpu_torch.models.transformer import Transformer, TransformerConfig
+from horovod_tpu_torch.models.vgg import VGG16
 
 
 def _transformer_table(cfg):
@@ -57,6 +62,49 @@ def _dense_rows(flax_name, torch_name):
             ((flax_name, "kernel"), torch_name + ".weight", "linear")]
 
 
+def _norm_rows(flax_name, torch_name):
+    return [((flax_name, "bias"), torch_name + ".bias", "same"),
+            ((flax_name, "scale"), torch_name + ".weight", "same")]
+
+
+def _resnet_blocks(model):
+    """``(flax block name, torch module name, block)`` of each block: flax
+    numbers the blocks of one class across the whole model."""
+    name = model.block_cls.__name__
+    return [(f"{name}_{k}", f"blocks.{k}", blk)
+            for k, blk in enumerate(model.blocks)]
+
+
+def _resnet_table(model):
+    rows = [(("conv_init", "kernel"), "conv_init.weight", "conv")]
+    rows += _norm_rows("bn_init", "bn_init") + _dense_rows("head", "head")
+    for flax_blk, pre, blk in _resnet_blocks(model):
+        n = 3 if hasattr(blk, "conv3") else 2
+        for i in range(n):
+            rows.append(((flax_blk, f"Conv_{i}", "kernel"),
+                         f"{pre}.conv{i + 1}.weight", "conv"))
+            rows += [((flax_blk,) + path, name, layout)
+                     for path, name, layout in _norm_rows(
+                         f"BatchNorm_{i}", f"{pre}.bn{i + 1}")]
+        if blk.proj_conv is not None:
+            rows.append(((flax_blk, "conv_proj", "kernel"),
+                         f"{pre}.proj_conv.weight", "conv"))
+            rows += [((flax_blk,) + path, name, layout)
+                     for path, name, layout in _norm_rows(
+                         "norm_proj", f"{pre}.proj_bn")]
+    return rows
+
+
+def _vgg_table(model):
+    rows = []
+    for i in range(len(model.convs)):
+        rows += [((f"Conv_{i}", "bias"), f"convs.{i}.bias", "same"),
+                 ((f"Conv_{i}", "kernel"), f"convs.{i}.weight", "conv")]
+    for i in range(3):
+        rows += _dense_rows(f"Dense_{i}", f"fc{i}")
+    return rows
+
+
 def _table(spec):
     """The mapping rows of a model (or a ``TransformerConfig``)."""
     if isinstance(spec, Transformer):
@@ -73,6 +121,10 @@ def _table(spec):
                      ((f"Conv_{i}", "kernel"), f"conv{i}.weight", "conv")]
         return rows + _dense_rows("Dense_0", "fc0") + _dense_rows(
             "Dense_1", "fc1")
+    if isinstance(spec, ResNet):
+        return _resnet_table(spec)
+    if isinstance(spec, VGG16):
+        return _vgg_table(spec)
     raise TypeError(f"no flax layout for {type(spec).__name__}")
 
 
@@ -139,3 +191,42 @@ def flax_named_parameters(model):
     its buckets leaf for leaf as the JAX package does."""
     for path, name, _ in sorted(_table(model)):
         yield "/".join(path), model.get_parameter(name)
+
+
+def _stats_table(model):
+    """``(flax batch_stats path, torch buffer name)`` of each BatchNorm
+    running average of a ResNet: ``mean`` and ``var``."""
+    if not isinstance(model, ResNet):
+        raise TypeError(f"no flax batch_stats for {type(model).__name__}")
+    rows = []
+    for path, name, _ in _resnet_table(model):
+        if path[-1] == "scale":
+            pre = name[:-len("weight")]
+            rows += [(path[:-1] + ("mean",), pre + "running_mean"),
+                     (path[:-1] + ("var",), pre + "running_var")]
+    return rows
+
+
+def batch_stats_from_flax(batch_stats, model):
+    """flax ``batch_stats`` (nested dict of arrays) -> the running buffers
+    of ``model``'s BatchNorm layers, as a partial ``state_dict`` (fp32):
+    ``model.load_state_dict(..., strict=False)`` takes it."""
+    sd = {}
+    for path, name in _stats_table(model):
+        x = batch_stats
+        for key in path:
+            x = x[key]
+        sd[name] = torch.from_numpy(np.array(x, dtype=np.float32))
+    return sd
+
+
+def flax_from_batch_stats(state_dict, model):
+    """The running buffers of ``state_dict`` -> flax ``batch_stats``
+    (nested dict of numpy fp32)."""
+    stats = {}
+    for path, name in _stats_table(model):
+        node = stats
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = state_dict[name].detach().float().cpu().numpy()
+    return stats

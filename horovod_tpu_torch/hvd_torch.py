@@ -11,23 +11,18 @@ everything here updates in place: the gradients, the parameters and the
 inner optimizer's state.
 """
 
+import warnings
+
 import torch
 import torch.distributed as dist
 from torch.utils import _pytree
 
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.ops import collective, fusion
+from horovod_tpu_torch.ops import compression as compression_lib
 from horovod_tpu_torch.ops.reduction import Average, Sum
 from horovod_tpu_torch.parallel import mesh as mesh_lib
 from horovod_tpu_torch.parallel import zero
-
-
-def _check_uncompressed(compression, source):
-    name = getattr(compression, "name", compression)
-    if name is not None and str(name).lower() != "none":
-        raise NotImplementedError(
-            f"wire compression {name!r} ({source}) is not ported yet "
-            "(ROADMAP Queue 1 item 5); pass compression=None or 'none'")
 
 
 class DistributedOptimizer:
@@ -51,17 +46,20 @@ class DistributedOptimizer:
       gradients over k ``step()`` calls (``optax.MultiSteps``'s
       ``acc + (g - acc) / (n + 1)``) and exchanges and steps on every
       k-th; the other calls leave the parameters as they are.
-    * ``compression`` must be None or ``"none"``: wire compression is
-      not ported. As in the JAX package, ``"none"`` pins the exchange
-      uncompressed whatever the config says, and None defers to
-      ``HOROVOD_WIRE_DTYPE``, read at use (``check_uncompressed``): a
-      compressed format there raises in every exchange, the overlapped
-      pipeline of ``training.make_train_step`` included."""
+    * ``compression`` is the wire format of the exchange: a compressor
+      of ``ops/compression.py`` or its name (``"bf16"``, ``"fp8_e4m3"``,
+      ``"int8"``, ...). ``"none"`` or ``Compression.none`` pins it
+      uncompressed whatever ``HOROVOD_WIRE_DTYPE`` says; None defers to
+      ``HOROVOD_WIRE_DTYPE``, read at use (the ``compression``
+      property). A chunked format (fp8, int8) composes with Sum and
+      Average only: given here with another op it raises, from the
+      environment it is ignored with one warning. ``step()`` compresses
+      statelessly; ``training.make_train_step(overlap_grads=True)``
+      carries error feedback."""
 
     def __init__(self, optimizer, named_parameters=None, op=Average,
                  compression=None, threshold_bytes=None,
                  backward_passes_per_step=1, sharded_update=False):
-        _check_uncompressed(compression, "compression=")
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1, got "
                              f"{backward_passes_per_step}")
@@ -79,7 +77,14 @@ class DistributedOptimizer:
         self.threshold_bytes = threshold_bytes
         self.backward_passes_per_step = backward_passes_per_step
         self.sharded_update = sharded_update
-        self._wire_pinned = compression is not None
+        # None defers to HOROVOD_WIRE_DTYPE at use; an explicit "none"
+        # pins the exchange uncompressed
+        wire = compression_lib.resolve(compression)
+        self._wire_forced_off = compression is not None and wire is None
+        if wire is not None:
+            self._check_wire(wire)
+        self._compression = wire
+        self._config_wire_warned = False
         owned = [p for group in optimizer.param_groups
                  for p in group["params"]]
         if named_parameters is None:
@@ -97,12 +102,39 @@ class DistributedOptimizer:
                 params, op=op, threshold_bytes=threshold_bytes))
         self._acc, self._mini_step = None, 0
 
-    def check_uncompressed(self):
-        """Resolve the wire format at use: uncompressed when
-        ``compression`` was given, else ``HOROVOD_WIRE_DTYPE``'s, which
-        must be unset or ``"none"`` (no compressed exchange is ported)."""
-        if not self._wire_pinned:
-            _check_uncompressed(basics.wire_dtype(), "HOROVOD_WIRE_DTYPE")
+    def _check_wire(self, wire):
+        if wire.chunked and self.op not in (Sum, Average):
+            raise ValueError(
+                f"chunked wire format {wire.name!r} only composes with "
+                f"Sum/Average reductions (got {self.op!r}): per-chunk "
+                "scales cannot ride a Min, Max or Adasum reduction. Use a "
+                "bf16/float16 (cast) wire or no compression.")
+
+    @property
+    def compression(self):
+        """The resolved wire format, or None for uncompressed: the
+        explicit argument if one was given, else ``HOROVOD_WIRE_DTYPE``
+        read now (an unknown name raises ``ValueError``). A format from
+        the environment that this optimizer's op cannot take is ignored
+        with one warning; only an explicit argument raises for it."""
+        if self._compression is not None or self._wire_forced_off:
+            return self._compression
+        cfg = basics._state.config
+        if cfg is None or not cfg.wire_dtype:
+            return None
+        wire = compression_lib.by_name(cfg.wire_dtype)
+        if wire is None:
+            return None
+        try:
+            self._check_wire(wire)
+        except ValueError as e:
+            if not self._config_wire_warned:
+                self._config_wire_warned = True
+                warnings.warn(f"ignoring HOROVOD_WIRE_DTYPE="
+                              f"{cfg.wire_dtype!r} for this optimizer "
+                              f"(op={self.op!r}): {e}", stacklevel=2)
+            return None
+        return wire
 
     def zero_grad(self, set_to_none=True):
         self.optimizer.zero_grad(set_to_none=set_to_none)
@@ -113,12 +145,14 @@ class DistributedOptimizer:
 
     @torch.no_grad()
     def synchronize(self):
-        """Allreduce the gradients in place."""
+        """Allreduce the gradients in place, at the resolved wire
+        format."""
         for p, g in zip(self.params, self._grads()):
             p.grad = g
         self.last_buckets = tuple(fusion.fused_allreduce_(
             [p.grad for p in self.params], op=self.op,
-            threshold_bytes=self.threshold_bytes))
+            threshold_bytes=self.threshold_bytes,
+            compression=self.compression))
 
     @torch.no_grad()
     def _accumulate(self):
@@ -142,11 +176,11 @@ class DistributedOptimizer:
         if closure is not None:
             raise ValueError("DistributedOptimizer.step takes no closure: "
                              "compute the loss and backward first")
-        self.check_uncompressed()
         if self.backward_passes_per_step > 1 and not self._accumulate():
             return None
         if self.zero_state is not None:
-            zero.sharded_update(self.zero_state, self._grads())
+            zero.sharded_update(self.zero_state, self._grads(),
+                                wire=self.compression)
             return None
         self.synchronize()
         return self.optimizer.step()
@@ -154,11 +188,11 @@ class DistributedOptimizer:
     def update_preaveraged(self):
         """The inner step on gradients that are already reduced across
         ranks (the overlap pipeline of ``training.make_train_step``
-        reduce-scatters and all-gathers them itself)."""
+        reduce-scatters and all-gathers them itself, at its own wire
+        format), so nothing here is compressed."""
         if self.sharded_update or self.backward_passes_per_step > 1:
             raise ValueError("update_preaveraged is the plain-optimizer "
                              "tail of the overlap pipeline")
-        self.check_uncompressed()
         return self.optimizer.step()
 
 

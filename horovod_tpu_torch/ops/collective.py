@@ -12,6 +12,7 @@ in every collective that splits or concatenates along it.
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.ops import compression as compression_lib
 from horovod_tpu_torch.ops.reduction import Adasum, Average, Max, Min, Sum
 from horovod_tpu_torch.parallel import mesh as mesh_lib
 
@@ -36,9 +37,26 @@ def allreduce_(x, op=Average):
     return x
 
 
-def allreduce(x, op=Average):
-    """Out-of-place ``allreduce_``."""
-    return allreduce_(x.clone(), op=op)
+def allreduce(x, op=Average, compression=None):
+    """Out-of-place ``allreduce_``. ``compression`` (a compressor or a
+    wire name, ``ops/compression.py``) casts ``x`` to a narrow wire dtype,
+    reduces at that dtype and casts back. Only cast wires sum on the wire:
+    a chunked quantizer raises, since its per-chunk scales cannot be summed
+    in flight (``fusion.fused_allreduce_`` exchanges and then reduces)."""
+    compression = compression_lib.resolve(compression)
+    if compression is None:
+        return allreduce_(x.clone(), op=op)
+    if compression.chunked:
+        raise ValueError(
+            f"{compression.name} is a chunked quantizer: its per-chunk "
+            "scales cannot be summed on the wire, so a plain allreduce "
+            "cannot carry it. Use fusion.fused_allreduce_(...) or "
+            "DistributedOptimizer(compression=...), which exchange the "
+            "compressed chunks and reduce after decoding.")
+    wire, ctx = compression.compress(x)
+    if wire is x:
+        wire = x.clone()
+    return compression.decompress(allreduce_(wire, op=op), ctx)
 
 
 def mesh_size():
@@ -52,31 +70,41 @@ def mesh_rank():
 
 
 class Pending:
-    """A reduce-scatter issued with ``async_op=True``: ``wait()`` blocks
-    (on the card: makes the current stream wait) until it has ended and
-    returns its output. It holds the input until then, so the buffer
-    outlives the collective that reads it."""
+    """A collective issued with ``async_op=True``: ``wait()`` blocks (on
+    the card: makes the current stream wait) until its works have ended
+    and returns ``finish()``, the output. It holds ``keep`` (the input
+    buffers) until then, so they outlive the collective that reads them."""
 
-    def __init__(self, work, out, inp, divisor):
-        self._work, self._out, self._inp = work, out, inp
-        self._divisor = divisor
+    def __init__(self, works, finish, keep=()):
+        self._works, self._finish, self._keep = works, finish, keep
 
     def wait(self):
-        self._work.wait()
-        self._inp = None
-        if self._divisor > 1:
-            self._out.div_(self._divisor)
-        return self._out
+        for work in self._works:
+            work.wait()
+        self._works, self._keep = (), ()
+        return self._finish()
 
 
-def allgather(x):
-    """Concatenate ``x`` from all ranks along dim 0 (equal shapes)."""
+# fp8 payloads cross the wire as their bytes: gloo has no fp8 type, and
+# nothing is summed at fp8
+_AS_BYTES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def _wire_view(x):
+    return x.view(torch.uint8) if x.dtype in _AS_BYTES else x
+
+
+def allgather(x, async_op=False):
+    """Concatenate ``x`` from all ranks along dim 0 (equal shapes). With
+    ``async_op`` returns a ``Pending``."""
     m = mesh_lib.get_mesh()
     x = x.contiguous()
     out = torch.empty((m.size * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x, group=m.group)
-    return out
+    work = dist.all_gather_into_tensor(_wire_view(out), _wire_view(x),
+                                       group=m.group, async_op=True)
+    pending = Pending((work,), lambda: out, (x,))
+    return pending if async_op else pending.wait()
 
 
 def reducescatter(x, op=Sum, async_op=False):
@@ -95,21 +123,28 @@ def reducescatter(x, op=Sum, async_op=False):
                       dtype=x.dtype, device=x.device)
     work = dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
                                       group=m.group, async_op=True)
-    pending = Pending(work, out, x, m.size if op == Average else 1)
+
+    def finish():
+        return out.div_(m.size) if op == Average and m.size > 1 else out
+
+    pending = Pending((work,), finish, (x,))
     return pending if async_op else pending.wait()
 
 
-def alltoall(x):
+def alltoall(x, async_op=False):
     """Split dim 0 into world-size chunks, send chunk ``i`` to rank
-    ``i``, and concatenate what arrives along dim 0 in rank order."""
+    ``i``, and concatenate what arrives along dim 0 in rank order. With
+    ``async_op`` returns a ``Pending``."""
     m = mesh_lib.get_mesh()
     if x.shape[0] % m.size:
         raise ValueError(f"alltoall: dim 0 ({x.shape[0]}) does not divide "
                          f"by the world size {m.size}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=m.group)
-    return out
+    work = dist.all_to_all_single(_wire_view(out), _wire_view(x),
+                                  group=m.group, async_op=True)
+    pending = Pending((work,), lambda: out, (x,))
+    return pending if async_op else pending.wait()
 
 
 def broadcast_(x, root_rank=0):

@@ -1,7 +1,7 @@
 """Tensor fusion: pack many small tensors into few big collectives.
 
-The port of the uncompressed, single-level branch of
-``horovod_tpu/ops/fusion.py``: tensors are grouped by dtype and packed in
+The port of the single-level branch of ``horovod_tpu/ops/fusion.py``,
+wire compression included: tensors are grouped by dtype and packed in
 order into flat buckets of at most ``fusion_threshold`` bytes (default
 64 MB), one collective per bucket. The plan is the same greedy packing as
 the JAX package's ``plan_buckets``, so the same leaves give the same
@@ -16,7 +16,9 @@ Two exchanges use it:
   owns flat chunk ``r`` of every bucket. ``reduce_scatter_bucket`` deposits
   that chunk's reduced gradient on it, ``all_gather_bucket`` inverts it.
   ZeRO-1 (``parallel/zero.py``) partitions the optimizer state by the same
-  chunks.
+  chunks. ``reduce_scatter_bucket_compressed`` and
+  ``all_gather_bucket_compressed`` are the same exchange at a wire format
+  of ``ops/compression.py``, with an optional error-feedback residual.
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ import torch
 
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.ops import collective
+from horovod_tpu_torch.ops import compression as compression_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,14 +96,48 @@ def _unpack(bucket, flat):
     return out
 
 
-def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None):
+def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
+                     compression=None):
     """Allreduce every tensor of the list in place through fused flat
     buckets: pack, one collective per bucket, unpack. Returns the
-    buckets, so a caller can account what went over the wire."""
+    buckets, so a caller can account what went over the wire.
+
+    ``compression`` is a compressor or a wire name (``ops/compression.py``).
+    A cast wire narrows each float bucket and reduces at the wire dtype,
+    at any world size. A chunked quantizer (fp8, int8) sends each float
+    bucket through the compressed reduce-scatter and all-gather pair,
+    statelessly (no error feedback); it composes with Sum and Average
+    only, and at world 1, where there is no wire, it is dropped.
+    Non-float buckets always take the exact path."""
+    compression = compression_lib.resolve(compression)
     buckets = plan_buckets(tensors, _threshold(threshold_bytes))
+    chunked = compression is not None and compression.chunked
+    if chunked:
+        if op not in (collective.Sum, collective.Average):
+            raise ValueError(
+                f"chunked wire format {compression.name!r} only composes "
+                f"with Sum/Average (got {op!r}): Adasum/Min/Max reductions "
+                "have no exchange-then-reduce form")
+        world = collective.mesh_size()
+        if world == 1:
+            compression, chunked = None, False  # no wire to compress
     for bucket in buckets:
-        flat = _pack(bucket, tensors)
-        collective.allreduce_(flat, op=op)
+        if chunked and bucket.dtype.is_floating_point:
+            size = sum(bucket.sizes)
+            sched1 = BucketSchedule(buckets=(bucket,),
+                                    padded_sizes=(size + (-size) % world,),
+                                    world=world)
+            shard, _ = reduce_scatter_bucket_compressed(
+                sched1, 0, tensors, compression, op=op)
+            flat, _ = all_gather_bucket_compressed(sched1, 0, shard,
+                                                   compression)
+        else:
+            flat = _pack(bucket, tensors)
+            if compression is not None:
+                flat, ctx = compression.compress(flat)
+            collective.allreduce_(flat, op=op)
+            if compression is not None:
+                flat = compression.decompress(flat, ctx)
         for i, part in _unpack(bucket, flat).items():
             tensors[i].copy_(part)
     return buckets
@@ -158,6 +195,119 @@ def all_gather_bucket(schedule, idx, shard):
         raise ValueError(f"bucket {idx}: shard of {shard.numel()} elements, "
                          f"scheduled {schedule.shard_sizes[idx]}")
     return collective.allgather(shard)
+
+
+def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
+                                     op=collective.Average, residual=None,
+                                     async_op=False):
+    """``reduce_scatter_bucket`` at ``wire``'s width. Returns ``(shard,
+    new_residual)``, or with ``async_op`` ``(Pending, new_residual)``:
+    the residual is ready at once, the shard at ``wait()``.
+
+    * A cast wire (bf16, float16) narrows the bucket and reduce-scatters
+      it at the wire dtype.
+    * A chunked quantizer (fp8, int8) quantizes the ``[world, shard]``
+      rows with ``wire.for_length(shard)`` (no chunk straddles two rows),
+      all-to-alls the rows and their scales, so each rank receives every
+      rank's contribution to its own shard, and decodes and sums them in
+      fp32 after ``wait()``.
+
+    ``residual`` (fp32, the padded bucket's size) is the error-feedback
+    carry: it is added to the bucket in fp32 before encoding, and the new
+    quantization error ``values - decode(encode(values))`` is returned.
+    With ``residual=None`` the exchange is stateless and ``new_residual``
+    is None. A non-float bucket takes the exact path and passes the
+    residual through unchanged."""
+    if not schedule.buckets[idx].dtype.is_floating_point:
+        return reduce_scatter_bucket(schedule, idx, leaves, op=op,
+                                     async_op=async_op), residual
+    flat = pack_padded(schedule, idx, leaves)
+    grad_dtype = flat.dtype
+    world, shard = schedule.world, schedule.shard_sizes[idx]
+    if residual is not None:
+        # in fp32: at a bf16 gradient's width the carry, at or below its
+        # ulp, would round away
+        flat = flat.float() + residual.reshape(flat.shape)
+    if wire.chunked:
+        q = wire.for_length(shard)
+        rows = flat.reshape(world, shard)
+        if residual is not None:
+            wire_rows, scales, deq = q.roundtrip(rows)
+            new_residual = (rows - deq).reshape(flat.shape)
+        else:
+            wire_rows, scales = q.compress_flat(rows)
+            new_residual = None
+        # row r of what arrives is rank r's contribution to this shard
+        recv_rows = collective.alltoall(wire_rows, async_op=True)
+        recv_scales = collective.alltoall(scales, async_op=True)
+
+        def finish():
+            vals = q.decompress_flat(recv_rows.wait(), recv_scales.wait(),
+                                     torch.float32, n=shard)
+            out = vals.sum(dim=0)
+            if op == collective.Average:
+                out = out / world
+            return out.to(grad_dtype)
+
+        pending = collective.Pending((), finish)
+    else:
+        if residual is not None:
+            wire_flat, _, deq = wire.roundtrip(flat)
+            new_residual = flat - deq
+        else:
+            wire_flat, _ = wire.compress_flat(flat)
+            new_residual = None
+        reduced = collective.reducescatter(wire_flat, op=op, async_op=True)
+        pending = collective.Pending(
+            (), lambda: reduced.wait().to(grad_dtype))
+    return (pending if async_op else pending.wait()), new_residual
+
+
+def all_gather_bucket_compressed(schedule, idx, shard_vals, wire,
+                                 residual=None):
+    """``all_gather_bucket`` at ``wire``'s width: this rank narrows its
+    shard of bucket ``idx`` (cast, or chunked-quantized with its scales
+    riding along), all-gathers the payload and decodes every rank's part
+    into the full padded flat bucket. Returns ``(flat, new_residual)``.
+
+    ``residual`` (fp32, the shard's size) is this direction's
+    error-feedback carry: added before encoding, the new quantization
+    error returned. In ZeRO-1 the gathered payload is the parameter delta,
+    so every rank applies the same decoded delta and the residual makes
+    the applied deltas add up to the exact ones. A non-float shard takes
+    the exact path."""
+    if not shard_vals.dtype.is_floating_point:
+        return all_gather_bucket(schedule, idx, shard_vals), residual
+    world, shard = schedule.world, schedule.shard_sizes[idx]
+    if shard_vals.numel() != shard:
+        raise ValueError(f"bucket {idx}: shard of {shard_vals.numel()} "
+                         f"elements, scheduled {shard}")
+    out_dtype = shard_vals.dtype
+    x = shard_vals
+    if residual is not None:
+        x = x.float() + residual.reshape(x.shape)
+    if wire.chunked:
+        q = wire.for_length(shard)
+        if residual is not None:
+            wire_shard, scales, deq = q.roundtrip(x)
+            new_residual = x - deq
+        else:
+            wire_shard, scales = q.compress_flat(x)
+            new_residual = None
+        gathered = collective.allgather(wire_shard)
+        g_scales = collective.allgather(scales)
+        flat = q.decompress_flat(
+            gathered.reshape(world, -1), g_scales.reshape(world, -1),
+            out_dtype, n=shard).reshape(world * shard)
+    else:
+        if residual is not None:
+            wire_shard, _, deq = wire.roundtrip(x)
+            new_residual = x - deq
+        else:
+            wire_shard, _ = wire.compress_flat(x)
+            new_residual = None
+        flat = collective.allgather(wire_shard).to(out_dtype)
+    return flat, new_residual
 
 
 def unpack_bucket(schedule, idx, flat, leaves):

@@ -104,11 +104,17 @@ def _local_param_rows(schedule, params):
 
 
 @torch.no_grad()
-def apply_shards(zstate, grad_shards):
+def apply_shards(zstate, grad_shards, wire=None, ag_residuals=None):
     """The sharded-update tail: step the inner optimizer on this rank's
     reduced gradient shards (one per bucket, in schedule order), then
     all-gather the parameter deltas and add them to the parameters in
-    place."""
+    place.
+
+    ``wire`` (an ``ops.compression`` compressor) narrows the delta
+    all-gather; ``ag_residuals`` (one fp32 shard-sized tensor per bucket)
+    turns on its error feedback: this rank's quantization error of each
+    delta shard is carried into the next step's. Returns the new
+    residuals (None without ``ag_residuals``)."""
     schedule = zstate.plan.schedule
     if len(grad_shards) != len(schedule.buckets):
         raise ValueError(f"{len(grad_shards)} gradient shards for "
@@ -119,24 +125,42 @@ def apply_shards(zstate, grad_shards):
         row.copy_(start)
         row.grad = grad.to(row.dtype)
     zstate.inner.step()
+    new_residuals = (list(ag_residuals) if ag_residuals is not None
+                     else None)
     for i, (row, start) in enumerate(zip(zstate.rows, before)):
         row.grad = None
-        flat = fusion.all_gather_bucket(schedule, i, row - start)
+        if wire is None:
+            flat = fusion.all_gather_bucket(schedule, i, row - start)
+        else:
+            flat, res = fusion.all_gather_bucket_compressed(
+                schedule, i, row - start, wire,
+                residual=None if ag_residuals is None else ag_residuals[i])
+            if new_residuals is not None:
+                new_residuals[i] = res
         for j, delta in fusion.unpack_bucket(schedule, i, flat,
                                              zstate.params).items():
             zstate.params[j].add_(delta)
+    return new_residuals
 
 
 @torch.no_grad()
-def sharded_update(zstate, grads):
+def sharded_update(zstate, grads, wire=None):
     """The full ZeRO-1 exchange for one accumulated gradient list (in the
     order of ``zstate.params``): per-bucket reduce-scatter, then
-    ``apply_shards``."""
+    ``apply_shards``. ``wire`` compresses both halves statelessly: this
+    entry point has no step-to-step carry, so no error feedback
+    (``training.make_train_step``'s pipeline threads the residuals)."""
     schedule = zstate.plan.schedule
-    shards = [fusion.reduce_scatter_bucket(schedule, i, grads,
-                                           op=zstate.plan.op)
-              for i in range(len(schedule.buckets))]
-    apply_shards(zstate, shards)
+    shards = []
+    for i in range(len(schedule.buckets)):
+        if wire is None:
+            shard = fusion.reduce_scatter_bucket(schedule, i, grads,
+                                                 op=zstate.plan.op)
+        else:
+            shard, _ = fusion.reduce_scatter_bucket_compressed(
+                schedule, i, grads, wire, op=zstate.plan.op)
+        shards.append(shard)
+    apply_shards(zstate, shards, wire=wire)
 
 
 def local_state_bytes(zstate):

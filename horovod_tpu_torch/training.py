@@ -6,12 +6,13 @@ microbatch loop and overlapped reduce-scatter pipeline) and
 ``make_lm_train_step`` (the data-parallel path without sequence
 sharding). The JAX step is a pure function returning a new
 ``TrainState``; here the step runs eagerly on this process's shard of
-the batch and updates the model's parameters and the optimizer's state
-in place.
+the batch and updates the model's parameters, its BatchNorm statistics
+and the optimizer's state in place.
 """
 
 import hashlib
 import inspect
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -47,8 +48,19 @@ def _dropout_generator(device, *ints):
     return gen
 
 
+def _batch_stats(model):
+    """The floating running-statistics buffers of the model's BatchNorm
+    layers, in module order (integer counters such as
+    ``num_batches_tracked`` are left out)."""
+    return [b for m in model.modules()
+            if isinstance(m, nn.modules.batchnorm._BatchNorm)
+            for b in (m.running_mean, m.running_var)
+            if b is not None and b.is_floating_point()]
+
+
 def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
-                    dropout_seed=0, accum_steps=1, overlap_grads=False):
+                    dropout_seed=0, accum_steps=1, overlap_grads=False,
+                    error_feedback=True):
     """Build a classification train step over the data axis.
     ``step(inputs, labels)`` takes this rank's shard of the batch, puts
     the model in training mode, runs forward, backward and the optimizer
@@ -67,11 +79,25 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
     scaled by 1/K, then feed either the ZeRO-1 update
     (``DistributedOptimizer(sharded_update=True)``) or one all-gather per
     bucket and the inner optimizer. ``accum_steps > 1`` and
-    ``overlap_grads`` need a ``DistributedOptimizer``; a model with
-    BatchNorm layers is not supported yet (its statistics would need
-    averaging across ranks). The overlapped pipeline resolves the wire
-    format here, once, as the JAX step does: a compressed
-    ``HOROVOD_WIRE_DTYPE`` default raises.
+    ``overlap_grads`` need a ``DistributedOptimizer``.
+
+    BatchNorm: each microbatch's forward updates the running statistics
+    in place, in microbatch order; after the optimizer step every
+    floating statistics buffer is averaged over ranks (each rank
+    normalizes over its own sub-batch, as Horovod's ranks do).
+
+    Wire compression (``DistributedOptimizer(compression=...)`` or
+    ``HOROVOD_WIRE_DTYPE``) in the overlapped pipeline narrows every
+    bucket collective: the reduce-scatter of gradient rows and the
+    all-gather of gradient shards or of ZeRO-1's parameter deltas. The
+    format is resolved here, once; if ``optimizer.compression`` later
+    resolves to another, the step warns once and keeps its own. With
+    ``error_feedback=True`` one fp32 residual per bucket and direction
+    carries each exchange's quantization error into the next: allocated
+    at the first step, kept outside the optimizer state, dropped by
+    ``step.reset_error_feedback()`` (call it after restoring an earlier
+    state) and by a step that raises. Without overlap, ``optimizer.step()``
+    compresses statelessly.
 
     A model whose ``forward`` takes ``dropout_generator`` (such as
     ``models.simple.MNISTConvNet``) is given a generator seeded from
@@ -91,14 +117,16 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
             raise ValueError(
                 "accum_steps and backward_passes_per_step are two "
                 "accumulators for the same thing; use accum_steps")
-    if any(isinstance(m, nn.modules.batchnorm._BatchNorm)
-           for m in model.modules()):
+    if any(isinstance(m, nn.SyncBatchNorm) for m in model.modules()):
         raise NotImplementedError(
-            "make_train_step does not average BatchNorm statistics across "
-            "ranks yet (ROADMAP Queue 1 item 7)")
+            "SyncBatchNorm: synchronized BatchNorm statistics come with "
+            "the GSPMD path (ROADMAP Queue 1 item 9); use per-rank "
+            "BatchNorm, whose running statistics this step averages")
     mesh = mesh_lib.get_mesh()
-    if overlap_grads:
-        optimizer.check_uncompressed()
+    # the wire format of the overlapped pipeline's bucket collectives,
+    # resolved once; the other paths compress inside optimizer.step()
+    wire = optimizer.compression if (is_hvd and overlap_grads) else None
+    use_ef = wire is not None and error_feedback
     takes_rng = "dropout_generator" in inspect.signature(
         model.forward).parameters
     sharded = is_hvd and optimizer.sharded_update
@@ -114,6 +142,35 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         optimizer.op if is_hvd else None)
     inv_k = 1.0 / accum_steps
     steps_done = 0
+    residuals = None  # {"rs": [...], "ag": [...]}, allocated lazily
+    drift_warned = False
+
+    def check_wire_drift():
+        nonlocal drift_warned
+        if not overlap_grads or drift_warned:
+            return
+        now = optimizer.compression
+        if now is not wire:
+            drift_warned = True
+            warnings.warn(
+                f"optimizer.compression resolves to "
+                f"{getattr(now, 'name', None)!r} but this train step was "
+                f"built with {getattr(wire, 'name', None)!r}: the wire "
+                "format is fixed when make_train_step runs. Rebuild the "
+                "step for the new format to take effect.", stacklevel=3)
+
+    def new_residuals():
+        """Zero fp32 residuals: ``rs`` the padded bucket (every
+        ``[world, shard]`` row this rank encodes), ``ag`` the shard; a
+        non-float bucket, never quantized, gets a zero-width one."""
+        def zeros(i, n):
+            floating = schedule.buckets[i].dtype.is_floating_point
+            return torch.zeros(n if floating else 0, dtype=torch.float32,
+                               device=mesh.device)
+        return {"rs": [zeros(i, n)
+                       for i, n in enumerate(schedule.padded_sizes)],
+                "ag": [zeros(i, n)
+                       for i, n in enumerate(schedule.shard_sizes)]}
 
     def forward(x, k):
         if not takes_rng:
@@ -121,20 +178,47 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         return model(x, dropout_generator=_dropout_generator(
             mesh.device, dropout_seed, steps_done, mesh.rank, k))
 
-    def reduce_scatter():
+    def reduce_scatter(res):
         """Issue every bucket of this microbatch's gradients, in schedule
-        order, then drop the gradients: the packed copies carry them."""
+        order, then drop the gradients: the packed copies carry them.
+        Each encode reads the residual the previous one wrote, on this
+        stream, before its collective is issued."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        issued = [fusion.reduce_scatter_bucket(schedule, i, grads, op=rs_op,
-                                               async_op=True)
-                  for i in range(len(schedule.buckets))]
+        issued = []
+        for i in range(len(schedule.buckets)):
+            if wire is None:
+                issued.append(fusion.reduce_scatter_bucket(
+                    schedule, i, grads, op=rs_op, async_op=True))
+                continue
+            pending, new_r = fusion.reduce_scatter_bucket_compressed(
+                schedule, i, grads, wire, op=rs_op,
+                residual=res["rs"][i] if res else None, async_op=True)
+            if res:
+                res["rs"][i] = new_r
+            issued.append(pending)
         for p in params:
             p.grad = None
         return issued
 
-    def step(inputs, labels):
-        nonlocal steps_done
+    def all_gather(shards, res):
+        """One all-gather per bucket into the gradients, then the inner
+        optimizer (the replicated tail of the overlapped pipeline)."""
+        for i, s in enumerate(shards):
+            if wire is None:
+                flat = fusion.all_gather_bucket(schedule, i, s)
+            else:
+                flat, new_r = fusion.all_gather_bucket_compressed(
+                    schedule, i, s, wire,
+                    residual=res["ag"][i] if res else None)
+                if res:
+                    res["ag"][i] = new_r
+            for j, g in fusion.unpack_bucket(schedule, i, flat,
+                                             params).items():
+                params[j].grad = g
+        optimizer.update_preaveraged()
+
+    def run(inputs, labels, res):
         model.train()
         inputs, labels = inputs.to(mesh.device), labels.to(mesh.device)
         if inputs.shape[0] % accum_steps:
@@ -150,7 +234,7 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
             loss_k.backward()
             loss_sum = loss_sum + loss_k.detach()
             if overlap_grads:
-                issued = reduce_scatter()
+                issued = reduce_scatter(res)
                 if pending is not None:
                     shards = _add_waited(shards, pending)
                 pending = issued
@@ -158,24 +242,48 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
             if overlap_grads:
                 shards = [s * inv_k for s in _add_waited(shards, pending)]
                 if sharded:
-                    zero.apply_shards(optimizer.zero_state, shards)
+                    new_ag = zero.apply_shards(
+                        optimizer.zero_state, shards, wire=wire,
+                        ag_residuals=res["ag"] if res else None)
+                    if res:
+                        res["ag"] = new_ag
                 else:
-                    for i, s in enumerate(shards):
-                        flat = fusion.all_gather_bucket(schedule, i, s)
-                        for j, g in fusion.unpack_bucket(
-                                schedule, i, flat, params).items():
-                            params[j].grad = g
-                    optimizer.update_preaveraged()
+                    all_gather(shards, res)
             else:
                 if pipelined:
                     for p in params:
                         if p.grad is not None:
                             p.grad.mul_(inv_k)
                 optimizer.step()
-            steps_done += 1
+            stats = _batch_stats(model)
+            if stats:
+                fusion.fused_allreduce_(stats, op=Average)
             return collective.allreduce_(loss_sum * inv_k, op=Average)
 
+    def step(inputs, labels):
+        nonlocal steps_done, residuals
+        check_wire_drift()
+        if use_ef and residuals is None:
+            residuals = new_residuals()
+        try:
+            loss = run(inputs, labels, residuals)
+        except BaseException:
+            # a failed step may have consumed some residuals and not
+            # others: restart the compensation from zeros
+            residuals = None
+            raise
+        steps_done += 1
+        return loss
+
+    def reset_error_feedback():
+        """Drop the carried residuals; the next step starts from zeros."""
+        nonlocal residuals
+        residuals = None
+
     step.schedule = schedule
+    step.wire = wire
+    step.reset_error_feedback = reset_error_feedback
+    step.residuals = lambda: residuals
     return step
 
 

@@ -1,9 +1,44 @@
-"""The LM benchmark workload, built one way (the port of
-``horovod_tpu/utils/benchmarks.py``'s ``make_lm_bench`` and ``sync``),
-and timing on the card with CUDA events."""
+"""The benchmark workloads, each built one way (the port of
+``horovod_tpu/utils/benchmarks.py``'s ``model_registry``, ``make_model``,
+``synthetic_batch``, ``make_lm_bench`` and ``sync``; ``make_resnet_bench``
+builds ``bench.py``'s image-model step), and timing on the card with CUDA
+events."""
 
 import numpy as np
 import torch
+
+
+def model_registry():
+    """The image models of ``bench.py --model``, by name."""
+    from horovod_tpu_torch.models import resnet, vgg
+    return {"resnet18": resnet.ResNet18, "resnet50": resnet.ResNet50,
+            "resnet101": resnet.ResNet101, "vgg16": vgg.VGG16}
+
+
+def make_model(name, dtype=torch.bfloat16, num_classes=1000, seed=0,
+               device=None, image_size=224):
+    """Model ``name`` of the registry at compute ``dtype`` (bf16 by
+    default, the card's tensor-core type), weights from ``seed``. VGG-16's
+    first fully connected layer is sized for ``image_size``."""
+    kw = dict(num_classes=num_classes, dtype=dtype, device=device,
+              generator=torch.Generator().manual_seed(seed))
+    if name == "vgg16":
+        kw["image_size"] = image_size
+    return model_registry()[name](**kw)
+
+
+def synthetic_batch(global_batch, image_size, seed=0, num_classes=1000,
+                    device=None):
+    """The JAX package's synthetic batch: the same
+    ``np.random.default_rng(seed)`` draws of NHWC images and int labels,
+    the images permuted to NCHW, in fp32 (the model casts them to its
+    compute dtype). Returns ``(images, labels)``."""
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((global_batch, image_size, image_size, 3))
+    labels = rng.integers(0, num_classes, size=(global_batch,))
+    images = torch.from_numpy(images).float().permute(0, 3, 1, 2)
+    return (images.contiguous().to(device),
+            torch.from_numpy(labels).long().to(device))
 
 
 def sync():
@@ -45,6 +80,41 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
         rng.integers(0, vocab, size=(batch, seq_len)).astype(np.int64)
     ).to(device)
     return training.make_lm_train_step(model, opt), model, opt, tokens
+
+
+def make_resnet_bench(*, model="resnet101", batch=256, image_size=224,
+                      optimizer="sgd", accum_steps=1, overlap_grads=False,
+                      sharded_update=False, compression=None, seed=0):
+    """``bench.py``'s image-model step on this rank: ``model`` (1000
+    classes) in bf16 on fp32 parameters, ``DistributedOptimizer`` over
+    ``optimizer`` (``"sgd"``: SGD(0.01, momentum 0.9), the headline's;
+    ``"adamw"``: AdamW(1e-3) with optax's decay 1e-4, the ``--overlap``
+    matrix's) with the buckets packed in the flax leaf order, and
+    ``make_train_step`` with ``accum_steps`` and ``overlap_grads``. The
+    batch is ``synthetic_batch`` of ``batch`` images at the seed plus this
+    rank. ``init()`` must have run. Returns ``(step, model, optimizer,
+    (images, labels))``."""
+    from horovod_tpu_torch import basics, convert, hvd_torch, training
+
+    device = basics.device()
+    net = make_model(model, seed=seed, device=device, image_size=image_size)
+    if optimizer == "sgd":
+        inner = torch.optim.SGD(net.parameters(), lr=0.01, momentum=0.9)
+    elif optimizer == "adamw":
+        inner = torch.optim.AdamW(net.parameters(), lr=1e-3,
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=1e-4)
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    opt = hvd_torch.DistributedOptimizer(
+        inner, named_parameters=convert.flax_named_parameters(net),
+        sharded_update=sharded_update, compression=compression)
+    training.create_train_state(net, opt)
+    step = training.make_train_step(net, opt, accum_steps=accum_steps,
+                                    overlap_grads=overlap_grads)
+    batch = synthetic_batch(batch, image_size, seed=seed + basics.rank(),
+                            device=device)
+    return step, net, opt, batch
 
 
 def cuda_time_ms(fn, iters=10, warmup=2):

@@ -351,16 +351,22 @@ def _wire_env_overlap(sharded):
 
 
 def _wire_env_preaveraged(model):
+    """``update_preaveraged`` exchanges nothing, so it does not resolve
+    the wire format; the next exchange does."""
     opt = _opt(model)
     model(torch.zeros(2, IN)).sum().backward()
     opt.update_preaveraged()
+    opt.step()
 
 
 class _BatchNormNet(torch.nn.Module):
+    """Synchronized BatchNorm comes with the GSPMD path; per-rank
+    BatchNorm is averaged by the step."""
+
     def __init__(self):
         super().__init__()
         self.lin = torch.nn.Linear(IN, 3)
-        self.bn = torch.nn.BatchNorm1d(3)
+        self.bn = torch.nn.SyncBatchNorm(3)
 
 
 REJECTED = {
@@ -372,17 +378,16 @@ REJECTED = {
         ValueError, "backward_passes_per_step"),
     "no-backward-pass": (lambda m: _opt(m, backward_passes_per_step=0),
                          ValueError, ">= 1"),
-    "compression": (lambda m: _opt(m, compression="int8"),
-                    NotImplementedError, "item 5"),
-    "wire-dtype-env": (_wire_env_step, NotImplementedError,
-                       "HOROVOD_WIRE_DTYPE"),
-    "wire-dtype-env-overlap": (_wire_env_overlap(False), NotImplementedError,
-                               "HOROVOD_WIRE_DTYPE"),
-    "wire-dtype-env-overlap-sharded": (_wire_env_overlap(True),
-                                       NotImplementedError,
-                                       "HOROVOD_WIRE_DTYPE"),
-    "wire-dtype-env-preaveraged": (_wire_env_preaveraged,
-                                   NotImplementedError, "HOROVOD_WIRE_DTYPE"),
+    "compression": (lambda m: _opt(m, compression="int8", op=hvd_t.Adasum),
+                    ValueError, "chunked wire format"),
+    # HOROVOD_WIRE_DTYPE is read at use; an unknown name raises there
+    "wire-dtype-env": (_wire_env_step, ValueError, "unknown wire dtype"),
+    "wire-dtype-env-overlap": (_wire_env_overlap(False), ValueError,
+                               "unknown wire dtype"),
+    "wire-dtype-env-overlap-sharded": (_wire_env_overlap(True), ValueError,
+                                       "unknown wire dtype"),
+    "wire-dtype-env-preaveraged": (_wire_env_preaveraged, ValueError,
+                                   "unknown wire dtype"),
     "unnamed-parameter": (
         lambda m: _opt(m, named_parameters=list(m.named_parameters())[:1]),
         ValueError, "exactly the parameters"),
@@ -428,7 +433,7 @@ def test_rejects(monkeypatch, name):
     exchange than the one asked for."""
     fn, exc, match = REJECTED[name]
     if name.startswith("wire-dtype-env"):
-        monkeypatch.setenv("HOROVOD_WIRE_DTYPE", "int8")
+        monkeypatch.setenv("HOROVOD_WIRE_DTYPE", "int4")
     hvd_t.shutdown()
     hvd_t.init(device="cpu")
     try:
