@@ -36,9 +36,24 @@ runs these phases; any failure raises:
   (none, bf16, fp8_e4m3, int8, with error feedback): step time, memory,
   wire bytes, the quantizer's cost and losses held to ``WIRE_EPSILON`` of
   the uncompressed run's;
-* 7c: VGG-16 at 64 images of 224x224 through the fused allreduce.
+* 7c: VGG-16 at 64 images of 224x224 through the fused allreduce;
+* 8a: 6b's LM fed by ``make_train_step(loader=...)`` from a prefetch
+  loader: 4 steps unbroken (twice) against 2 steps, an
+  ``AsyncCheckpointer`` save, a fresh model, optimizer, step and loader
+  restored from it (state and cursor) and 2 more steps: losses and
+  parameters bit for bit, or within twice the unbroken runs' own
+  difference; the state's bytes, each save's blocking ms (a first save
+  makes the pinned buffers, the second reuses them: the making and the
+  device-to-host copy apart), the background write and commit, and the
+  restore;
+* 8b: 7b's ResNet-101 state (ZeRO-1 AdamW rows, BatchNorm statistics)
+  saved and restored into a fresh model: every tensor bit for bit, and
+  the next step's loss against the unbroken run's.
 
-Phases 4, 4b, 5, 6a, 6b and 6c each count the kernels' launches from 0
+6b and 7b also time the bucket packing and unpacking with each leaf in
+its flax layout beside torch's own layout.
+
+Phases 4, 4b, 5, 6a, 6b, 6c and 8a each count the kernels' launches from 0
 on the card and must launch each kernel once per layer and microbatch
 and step. The
 last line of output is
@@ -730,6 +745,8 @@ def phase_exchange_full(hvd, fa, torch, bench, phase5_losses):
                lambda: (f"2 microbatches, overlapped reduce-scatter, "
                         f"{what}; {_schedule_line(step.schedule)}"),
                profile=label == "6b")
+        if label == "6b":
+            _layout_cost("6b", torch, bench, step.schedule, opt)
         del step, model, opt, tokens, batch
     hvd.shutdown()
 
@@ -1057,6 +1074,8 @@ def phase_resnet(hvd, torch, bench):
                   "encode every bucket with its residual and decode it, "
                   f"{OVERLAP_ACCUM * ms:.3f} ms a step")
         runs[name] = losses
+        if name == "none":
+            _layout_cost("7b", torch, bench, step.schedule, opt)
         del step, model, opt, batch
     exact = np.asarray(runs["none"])
     for name in WIRES[1:]:
@@ -1085,6 +1104,309 @@ def phase_resnet(hvd, torch, bench):
     del step, model, opt, batch
     hvd.shutdown()
 
+
+
+def _layout_cost(label, torch, bench, schedule, opt):
+    """What the flax layouts cost the buckets: packing every bucket of
+    ``schedule`` (each leaf in its flax layout, one copy) and unpacking
+    it into the parameters' shapes and adding it to them (ZeRO-1's delta
+    add), beside the same with each leaf in torch's own layout. Each as
+    the card's time and the host's (``_costs``): a pack runs once a
+    microbatch, an unpack once a step."""
+    from horovod_tpu_torch.ops import fusion
+    leaves = [p.detach() for p in opt.params]
+    plain = fusion.bucket_schedule(leaves, schedule.world,
+                                   threshold_bytes=opt.threshold_bytes)
+    scratch = [torch.zeros_like(p) for p in leaves]
+    out = {}
+    for name, sched in (("flax", schedule), ("torch", plain)):
+        flats = [fusion.pack_padded(sched, i, leaves)
+                 for i in range(len(sched.buckets))]
+
+        def pack(sched=sched):
+            for i in range(len(sched.buckets)):
+                fusion.pack_padded(sched, i, leaves)
+
+        def unpack(sched=sched, flats=flats):
+            for i, flat in enumerate(flats):
+                for j, part in fusion.unpack_bucket(sched, i, flat,
+                                                    leaves).items():
+                    scratch[j].add_(part)
+
+        out[name] = [_costs(torch, bench, fn) for fn in (pack, unpack)]
+        del flats
+    print(f"  {label} buckets ({len(schedule.buckets)}), device ms / host "
+          "ms: pack, flax layout "
+          f"{out['flax'][0][0]:.3f} / {out['flax'][0][1]:.3f}, torch layout "
+          f"{out['torch'][0][0]:.3f} / {out['torch'][0][1]:.3f}; unpack + "
+          f"add, flax layout {out['flax'][1][0]:.3f} / "
+          f"{out['flax'][1][1]:.3f}, torch layout {out['torch'][1][0]:.3f} "
+          f"/ {out['torch'][1][1]:.3f}")
+
+
+def _costs(torch, bench, fn):
+    """``(device ms, host ms)`` of one ``fn()`` after a warm-up call, each
+    the median of 3: the host's wall time from an idle card to the end of
+    the work, and the card's time between two events around ``fn()``
+    queued behind a spin of about twice that wall time, so the host has
+    issued all of it before the card starts it and no launch gap of the
+    host's counts."""
+    fn()
+    bench.sync()
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        fn()
+        bench.sync()
+        walls.append(time.perf_counter() - t)
+    host = 1e3 * float(np.median(walls))
+    devs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(4e6 * (host + 1)))  # ~2 GHz: 2 (host + 1) ms
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        devs.append(start.elapsed_time(end))
+    return float(np.median(devs)), host
+
+
+def _flat_tensors(leaves):
+    """The tensors of a flat train state, ZeRO rows included."""
+    from horovod_tpu_torch import ckpt
+    out = []
+    for leaf in leaves:
+        if isinstance(leaf, ckpt.ZeroLeaf):
+            for _, bucket, value in leaf.entries:
+                out += list(value.values()) if bucket is not None else [value]
+        else:
+            out.append(leaf)
+    return out
+
+
+def _state_copy(torch, leaves):
+    """A device copy of every tensor of a flat train state (numpy counts
+    as they are)."""
+    return [t.detach().clone() if torch.is_tensor(t) else np.array(t)
+            for t in _flat_tensors(leaves)]
+
+
+def _state_diff(torch, a, b):
+    """The largest absolute difference between two state copies."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        if torch.is_tensor(x):
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+        else:
+            worst = max(worst, float(np.abs(np.asarray(x, np.float64)
+                                            - np.asarray(y, np.float64))
+                                     .max()))
+    return worst
+
+
+def _hold_repeat(label, got, repeat):
+    """``got``, the resumed run's distance from the unbroken one, is 0
+    when two unbroken runs repeat bit for bit (``repeat`` 0), and
+    otherwise within twice their difference."""
+    bound = 2 * repeat
+    print(f"  {label}: resumed against unbroken {got:.3e}, two unbroken "
+          f"runs {repeat:.3e} (bound {bound:.3e}"
+          f"{', bit for bit' if repeat == 0 else ''})")
+    if not got <= bound:
+        raise AssertionError(f"{label}: the resumed run is {got} from the "
+                             f"unbroken one, beyond {bound}")
+
+
+def _timed_save(torch, saver, step_no, leaves, meta):
+    """Save ``leaves`` through ``saver`` and wait for the commit; prints
+    the state's bytes, ``save()``'s blocking ms (of it: making the
+    pinned buffers, and the device-to-host copy) and the background
+    write and commit ms."""
+    blocking = saver.save(step_no, leaves, meta=meta)
+    saver.flush()
+    tensor_bytes = sum(t.numel() * t.element_size() if torch.is_tensor(t)
+                       else np.asarray(t).nbytes
+                       for t in _flat_tensors(leaves))
+    print(f"  save of step {step_no}: state {tensor_bytes / 1e6:.1f} MB in "
+          f"tensors, shard file {saver.last_bytes / 1e6:.1f} MB; save() "
+          f"blocked {1e3 * blocking:.1f} ms (pinned buffers made "
+          f"{1e3 * saver.last_pin_s:.1f} ms, device-to-host copy "
+          f"{1e3 * saver.last_copy_s:.1f} ms), background write + commit "
+          f"{1e3 * (saver.last_save_s - blocking):.1f} ms")
+
+
+def _timed_restore(bench, root, step_no, rebuild):
+    """Restore the newest checkpoint under ``root`` into the state
+    ``rebuild()`` returns (``(flat_fn, load_fn)``); prints the restore's
+    ms and returns the saved ``meta``."""
+    from horovod_tpu_torch import ckpt
+    flat_fn, load_fn = rebuild()
+    bench.sync()
+    t0 = time.perf_counter()
+    got_step, restored, got_meta = ckpt.restore_sharded(root, flat_fn())
+    load_fn(restored)
+    bench.sync()
+    restore_s = time.perf_counter() - t0
+    if got_step != step_no:
+        raise AssertionError(f"restored step {got_step}, saved {step_no}")
+    print(f"  restore of step {step_no}: {1e3 * restore_s:.1f} ms")
+    return got_meta
+
+
+def phase_resume(hvd, fa, torch, bench):
+    """8a: phase 6b's LM (2 microbatches, overlap, ZeRO-1, AdamW) fed by
+    ``make_train_step(loader=...)`` from an ``ArraySource`` of seeded
+    tokens: 4 steps unbroken, twice; then 2 steps, each followed by a
+    save through ``AsyncCheckpointer``, a fresh model, optimizer, step
+    and loader, the state and the loader's cursor restored from the
+    second save, and 2 more steps. Losses and
+    parameters equal the unbroken run's, bit for bit when two unbroken
+    runs repeat bit for bit, else within twice their difference."""
+    import gc
+    import tempfile
+    from horovod_tpu_torch import ckpt, convert, data, training
+    print("== phase 8a: full-width LM, 4 steps unbroken against 2 + save + "
+          "restore + 2, fed by the prefetch loader")
+    hvd.init()
+    layers, seq, batch = LM["layers"], LM["seq_len"], LM["batch"]
+    toks = np.random.default_rng(8).integers(
+        0, LM["vocab"], size=(4 * batch, seq + 1)).astype(np.int64)
+    source = data.ArraySource((toks[:, :seq], toks[:, 1:]))
+
+    def build():
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, model, opt, _ = _lm_bench(bench, torch, seq_len=seq + 1,
+                                     sharded_update=True)
+        loader = data.PrefetchLoader(source, batch, seed=8)
+        step = training.make_train_step(model, opt, accum_steps=2,
+                                        overlap_grads=True, loader=loader)
+        return model, opt, step, loader
+
+    fa.reset_launches()  # count only this path's launches
+    runs = []
+    for _ in range(2):
+        model, opt, step, loader = build()
+        losses = [float(step()) for _ in range(4)]
+        runs.append((losses, _state_copy(torch, convert.train_state_to_flat(
+            model, opt, step.state))))
+        loader.close()
+        del model, opt, step, loader
+    model, opt, step, loader = build()
+    holder = {}
+
+    def rebuild():
+        holder["run"] = build()
+        m, o, s, _ = holder["run"]
+        return (lambda: convert.train_state_to_flat(m, o, s.state),
+                lambda flat: convert.train_state_from_flat(m, o, s.state,
+                                                           flat))
+
+    losses = []
+    with tempfile.TemporaryDirectory() as root:
+        # a save after each step: the first makes the pinned buffers,
+        # the second reuses them (a job's steady state)
+        saver = ckpt.AsyncCheckpointer(root, keep=2)
+        for step_no in (1, 2):
+            losses.append(float(step()))
+            _timed_save(torch, saver, step_no, convert.train_state_to_flat(
+                model, opt, step.state), {"data_cursor": loader.cursor()})
+        saver.close()
+        loader.close()
+        del model, opt, step, loader, saver
+        meta = _timed_restore(bench, root, 2, rebuild)
+    model, opt, step, loader = holder.pop("run")
+    loader.set_cursor(meta["data_cursor"])
+    if step.state.step != 2:
+        raise AssertionError(f"restored step count {step.state.step}")
+    losses += [float(step()) for _ in range(2)]
+    state = _state_copy(torch, convert.train_state_to_flat(model, opt,
+                                                           step.state))
+    loader.close()
+    del model, opt, step, loader
+    want = 2 * layers * (4 + 4 + 2 + 2)
+    _want_launches(fa, "8a", want)
+    (l1, s1), (l2, s2) = runs
+    print(f"  8a losses unbroken {[round(x, 6) for x in l1]}, again "
+          f"{[round(x, 6) for x in l2]}, resumed "
+          f"{[round(x, 6) for x in losses]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"8a: non-finite loss: {losses}")
+    _hold_repeat("8a losses", max(abs(a - b) for a, b in zip(losses, l1)),
+                 max(abs(a - b) for a, b in zip(l1, l2)))
+    _hold_repeat("8a state after 4 steps", _state_diff(torch, state, s1),
+                 _state_diff(torch, s1, s2))
+    del runs, state, s1, s2
+    gc.collect()
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+
+
+def phase_resume_resnet(hvd, torch, bench):
+    """8b: phase 7b's ResNet-101 state (4 microbatches, overlap, ZeRO-1,
+    AdamW rows, BatchNorm statistics) after 2 steps, saved and restored
+    into a fresh model and optimizer: every restored tensor equals the
+    saved one bit for bit, and the next step's loss equals the unbroken
+    run's (bit for bit when the step repeats bit for bit from the same
+    state, else within twice its repeat difference)."""
+    import gc
+    import tempfile
+    from horovod_tpu_torch import ckpt, convert
+    print("== phase 8b: ResNet-101 (7b's AdamW over ZeRO-1 rows and "
+          "BatchNorm statistics), save and restore")
+    hvd.init()
+
+    def build():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return bench.make_resnet_bench(
+            **RESNET, optimizer="adamw", accum_steps=OVERLAP_ACCUM,
+            overlap_grads=True, sharded_update=True, compression="none")
+
+    step, model, opt, batch = build()
+    for _ in range(2):
+        step(*batch)
+    flat = convert.train_state_to_flat(model, opt, step.state)
+    saved = _state_copy(torch, flat)
+    holder = {}
+
+    def rebuild():
+        holder["run"] = build()
+        s, m, o, _ = holder["run"]
+        return (lambda: convert.train_state_to_flat(m, o, s.state),
+                lambda f: convert.train_state_from_flat(m, o, s.state, f))
+
+    with tempfile.TemporaryDirectory() as root:
+        saver = ckpt.AsyncCheckpointer(root, keep=2)
+        _timed_save(torch, saver, 2, flat, None)
+        saver.close()
+        _timed_restore(bench, root, 2, rebuild)
+        unbroken = float(step(*batch))
+        # the same step again from the same state: its own repeat
+        _, restored, _ = ckpt.restore_sharded(
+            root, convert.train_state_to_flat(model, opt, step.state))
+        convert.train_state_from_flat(model, opt, step.state, restored)
+        again = float(step(*batch))
+    del step, model, opt, batch, flat
+    step, model, opt, batch = holder.pop("run")
+    got = _state_copy(torch, convert.train_state_to_flat(model, opt,
+                                                         step.state))
+    diff = _state_diff(torch, got, saved)
+    print(f"  8b restored tensors against saved: largest difference "
+          f"{diff:.3e} over {len(saved)} tensors")
+    if diff != 0:
+        raise AssertionError(f"8b: the restore is {diff} from the save")
+    resumed = float(step(*batch))
+    print(f"  8b next loss: unbroken {unbroken:.7f}, again {again:.7f}, "
+          f"resumed {resumed:.7f}")
+    _hold_repeat("8b next loss", abs(resumed - unbroken),
+                 abs(again - unbroken))
+    del step, model, opt, batch, got, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    hvd.shutdown()
 
 
 # kernel-name patterns of the step's layers, in the order they are tried;
@@ -1218,6 +1540,8 @@ def main(argv=None):
     losses, launches = phase_full(hvd, fa, torch, bench)
     phase_exchange_full(hvd, fa, torch, bench, losses)
     phase_resnet(hvd, torch, bench)
+    phase_resume(hvd, fa, torch, bench)
+    phase_resume_resnet(hvd, torch, bench)
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):

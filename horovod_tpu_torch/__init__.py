@@ -4,10 +4,12 @@ Horovod's contract on an NVIDIA GPU: ``init()``, the rank/size identity
 from the launcher's env, ``DistributedOptimizer`` averaging gradients
 through fused buckets over NCCL (allreduce, or ZeRO-1's reduce-scatter
 and all-gather), startup broadcasts, and ``training.make_train_step``'s
-microbatched, overlapped bucket pipeline. The attention of
-the transformer LM runs through hand-written CUDA kernels
-(``ops/flash_attention.py``). The JAX package ``horovod_tpu`` is the
-reference; this package imports neither it nor JAX.
+microbatched, overlapped bucket pipeline, fed by the prefetch loader
+of ``data``; checkpoints (``ckpt``, ``checkpoint``) on the JAX package's
+disk format. The attention of the transformer LM runs through
+hand-written CUDA kernels (``ops/flash_attention.py``). The JAX package
+``horovod_tpu`` is the reference; this package imports neither it nor
+JAX.
 """
 
 from horovod_tpu_torch.basics import (cross_rank, cross_size, device, init,

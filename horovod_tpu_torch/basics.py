@@ -8,12 +8,20 @@ device and joins the world process group that carries the data plane:
 * with ``device="cpu"``: the CPU and gloo (the tests run so).
 
 A single-process job rendezvous through an in-process store, so it binds
-no port; a multi-process job through a TCP store at the rendezvous
-address of the env (``HOROVOD_GLOO_RENDEZVOUS_ADDR/PORT`` or
-``MASTER_ADDR/PORT``).
+no port. A multi-process job joins a torch TCP store:
+
+* under the launcher, ``HOROVOD_GLOO_RENDEZVOUS_ADDR/PORT`` name its HTTP
+  key-value store (``horovod_tpu/run/rendezvous.py``): rank 0 binds the
+  TCP store on a free port and publishes ``host:port`` there, and the
+  other ranks wait for it (``run/rendezvous.py``, signed with
+  ``HOROVOD_SECRET_KEY``);
+* otherwise the TCP store is at ``MASTER_ADDR/MASTER_PORT``, torch's own
+  convention.
 """
 
 import datetime
+import os
+import socket
 import threading
 
 import torch
@@ -30,9 +38,11 @@ class _State:
         self.initialized = False
         self.config = None
         self.mesh = None
+        self.kv_inits = 0  # inits through the launcher's KV store
 
 
 _state = _State()
+_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def _resolve_device(device, cfg):
@@ -57,9 +67,42 @@ def _store(cfg):
         raise RuntimeError(
             "a multi-process job needs a rendezvous address: set "
             "HOROVOD_GLOO_RENDEZVOUS_ADDR/PORT or MASTER_ADDR/MASTER_PORT")
+    if cfg.kv_store:
+        return _kv_store(cfg)
     return dist.TCPStore(cfg.rendezvous_addr, cfg.rendezvous_port,
                          world_size=cfg.size, is_master=cfg.rank == 0,
-                         timeout=datetime.timedelta(seconds=300))
+                         timeout=_TIMEOUT)
+
+
+def _own_addr(peer):
+    """This host's address on the route to ``peer`` (no packet is sent)."""
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.connect((peer, 9))
+        return s.getsockname()[0]
+
+
+def _kv_store(cfg):
+    """The TCP store of a job under the launcher, found through its HTTP
+    key-value store: rank 0 binds a free port and publishes it under this
+    init's key, the others wait for it. The key carries the elastic epoch
+    and the count of this process's inits, so a later init never reads
+    an earlier one's address."""
+    from horovod_tpu_torch.run import rendezvous
+    _state.kv_inits += 1
+    key = (f"torch_store/{os.environ.get('HOROVOD_ELASTIC_EPOCH', '0')}/"
+           f"{_state.kv_inits}")
+    addr, port = cfg.rendezvous_addr, cfg.rendezvous_port
+    if cfg.rank == 0:
+        host = _own_addr(addr)
+        store = dist.TCPStore(host, 0, world_size=cfg.size, is_master=True,
+                              timeout=_TIMEOUT, wait_for_workers=False)
+        rendezvous.kv_put(addr, port, key, f"{host}:{store.port}".encode())
+        return store
+    value = rendezvous.kv_wait(addr, port, key,
+                               timeout=_TIMEOUT.total_seconds())
+    host, store_port = value.decode().rsplit(":", 1)
+    return dist.TCPStore(host, int(store_port), world_size=cfg.size,
+                         is_master=False, timeout=_TIMEOUT)
 
 
 def init(device=None):

@@ -29,10 +29,12 @@ class Config:
     local_size: int = 1
     cross_rank: int = 0
     cross_size: int = 1
-    # rendezvous of a multi-process job (HOROVOD_GLOO_RENDEZVOUS_ADDR/PORT,
-    # or torch's MASTER_ADDR/MASTER_PORT)
+    # rendezvous of a multi-process job: the launcher's HTTP key-value
+    # store (HOROVOD_GLOO_RENDEZVOUS_ADDR/PORT, kv_store True), or else a
+    # torch TCP store at MASTER_ADDR/MASTER_PORT
     rendezvous_addr: str = None
     rendezvous_port: int = 0
+    kv_store: bool = False
     fusion_threshold: int = DEFAULT_FUSION_THRESHOLD
     # the default wire format of DistributedOptimizer(compression=None),
     # a name of ops/compression.by_name
@@ -51,6 +53,7 @@ class Config:
                                      _env_str("MASTER_ADDR")),
             rendezvous_port=_env_int("HOROVOD_GLOO_RENDEZVOUS_PORT",
                                      _env_int("MASTER_PORT", 0)),
+            kv_store=_env_str("HOROVOD_GLOO_RENDEZVOUS_ADDR") is not None,
             fusion_threshold=_env_int("HOROVOD_FUSION_THRESHOLD",
                                       DEFAULT_FUSION_THRESHOLD),
             wire_dtype=_env_str("HOROVOD_WIRE_DTYPE"),

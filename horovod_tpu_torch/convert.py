@@ -23,10 +23,22 @@ parameter name and a layout:
 
 ``flax_named_parameters`` walks the same table in the order of
 ``jax.tree_util.tree_leaves`` on the flax tree (paths sorted key by key),
-which is the order the JAX package packs its fusion buckets in. Within a
-leaf the elements keep torch's layout; every optimizer of the port is
-elementwise, so that does not change a result.
+which is the order the JAX package packs its fusion buckets in, and
+names each leaf's layout; ``flax_perm`` gives a layout's dim order, with
+which ZeRO-1's rows and a chunked quantizer's buckets hold each leaf as
+its flax array flattens (``ops/fusion.py``).
+
+``train_state_to_flat`` and ``train_state_from_flat`` carry the whole
+training state (parameters, optimizer state, BatchNorm statistics and
+the step count) to and from the flat leaf list that
+``jax.tree_util.tree_flatten`` gives for the JAX package's
+``TrainState(params, opt_state, batch_stats, step)`` with a
+``DistributedOptimizer`` over ``optax.adamw`` or ``optax.sgd``, ZeRO-1's
+``ZeroState`` a leaf of its own (``ckpt.ZeroLeaf``), in flax layout: the
+list a checkpoint stores leaf by leaf (``ckpt/sharded.py``).
 """
+
+import warnings
 
 import numpy as np
 import torch
@@ -133,29 +145,44 @@ def _heads(spec):
     return cfg.num_heads, cfg.d_model // cfg.num_heads
 
 
+# each layout: the torch tensor's dims in the order of the flax array's
+# dims, and which dim of that permuted array flax splits into
+# (heads, head_dim); a split keeps the flat order, so the permutation
+# alone says how a leaf flattens (``flax_perm``)
+LAYOUTS = {"same": (None, None), "linear": ((1, 0), None),
+           "heads_in": ((1, 0), 1), "heads_out": ((1, 0), 0),
+           "conv": ((2, 3, 1, 0), None)}
+
+
+def flax_perm(layout):
+    """The dim order of ``layout``'s flax array in the torch tensor's
+    dims (None: the same array; ``layout`` None too)."""
+    return LAYOUTS[layout or "same"][0]
+
+
 def _to_torch(x, layout):
-    if layout == "linear":
-        return x.T
-    if layout == "heads_in":
-        return x.reshape(x.shape[0], -1).T
-    if layout == "heads_out":
-        return x.reshape(-1, x.shape[-1]).T
-    if layout == "conv":
-        return x.permute(3, 2, 0, 1)
-    return x
+    """The flax-layout tensor ``x`` as its torch parameter (a view)."""
+    perm, split = LAYOUTS[layout or "same"]
+    if perm is None:
+        return x
+    if split is not None:
+        shape = list(x.shape)
+        shape[split:split + 2] = [shape[split] * shape[split + 1]]
+        x = x.reshape(shape)
+    return x.permute([perm.index(d) for d in range(len(perm))])
 
 
 def _to_flax(x, layout, spec):
-    if layout == "linear":
-        return x.T
-    if layout == "heads_in":
-        h, hd = _heads(spec)
-        return x.T.reshape(x.shape[1], h, hd)
-    if layout == "heads_out":
-        h, hd = _heads(spec)
-        return x.T.reshape(h, hd, x.shape[0])
-    if layout == "conv":
-        return x.transpose(2, 3, 1, 0)
+    """The torch tensor or numpy array ``x`` in its flax layout: a view
+    where the strides allow one, as for every parameter."""
+    perm, split = LAYOUTS[layout or "same"]
+    if perm is None:
+        return x
+    x = x.permute(perm) if torch.is_tensor(x) else x.transpose(perm)
+    if split is not None:
+        shape = list(x.shape)
+        shape[split:split + 1] = _heads(spec)
+        x = x.reshape(shape)
     return x
 
 
@@ -185,12 +212,13 @@ def flax_from_params(state_dict, spec):
 
 
 def flax_named_parameters(model):
-    """``(flax_path, parameter)`` of ``model``, in the order
+    """``(flax_path, parameter, layout)`` of ``model``, in the order
     ``jax.tree_util.tree_leaves`` gives the leaves of its flax tree: pass
     it as ``DistributedOptimizer(named_parameters=...)`` so the port packs
-    its buckets leaf for leaf as the JAX package does."""
-    for path, name, _ in sorted(_table(model)):
-        yield "/".join(path), model.get_parameter(name)
+    its buckets leaf for leaf, and each leaf element for element, as the
+    JAX package does."""
+    for path, name, layout in sorted(_table(model)):
+        yield "/".join(path), model.get_parameter(name), layout
 
 
 def _stats_table(model):
@@ -230,3 +258,366 @@ def flax_from_batch_stats(state_dict, model):
             node = node.setdefault(key, {})
         node[path[-1]] = state_dict[name].detach().float().cpu().numpy()
     return stats
+
+
+# -- the train state as the JAX TrainState's flat leaf list -----------------
+
+class _Named:
+    """An optax state namedtuple: its fields, in order, as ``(name,
+    child)`` (an ``EmptyState`` has none)."""
+
+    def __init__(self, *fields):
+        self.fields = fields
+
+
+class _Slot:
+    """One leaf of the train state: ``get()`` its live value in flax
+    layout (a view where the state holds a tensor, no copy),
+    ``set(array)`` writes a flax-layout array into the live state."""
+
+    def __init__(self, get, set):
+        self.get, self.set = get, set
+
+
+def _walk(node, path=""):
+    """``(key path, leaf)`` in ``jax.tree_util.tree_flatten`` order, the
+    key path as ``jax.tree_util.keystr`` writes it."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            yield from _walk(node[k], f"{path}[{k!r}]")
+    elif isinstance(node, tuple):
+        for i, child in enumerate(node):
+            yield from _walk(child, f"{path}[{i}]")
+    elif isinstance(node, _Named):
+        for name, child in node.fields:
+            yield from _walk(child, f"{path}.{name}")
+    else:
+        yield path, node
+
+
+def _state_dict(node):
+    """flax ``serialization.to_state_dict`` of the same tree."""
+    if isinstance(node, dict):
+        return {k: _state_dict(node[k]) for k in sorted(node)}
+    if isinstance(node, tuple):
+        return {str(i): _state_dict(c) for i, c in enumerate(node)}
+    if isinstance(node, _Named):
+        return {name: _state_dict(c) for name, c in node.fields}
+    return node
+
+
+def _nest(rows):
+    """``[(path tuple, leaf)]`` -> nested dicts."""
+    tree = {}
+    for path, leaf in rows:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _load(dst, arr, layout):
+    """Write the flax-layout array ``arr`` into the tensor ``dst``: the
+    array goes to ``dst``'s device as it is and is permuted there."""
+    with warnings.catch_warnings():
+        # a restored array may be read-only; it is only read here
+        warnings.simplefilter("ignore", UserWarning)
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+    src = src.to(dst.device)
+    with torch.no_grad():
+        dst.copy_(_to_torch(src, layout))
+
+
+def _scalar_dtype():
+    # torch.optim's own choice for a per-parameter ``step``
+    return (torch.float64 if torch.get_default_dtype() == torch.float64
+            else torch.float32)
+
+
+def _opt_kind(inner):
+    if isinstance(inner, torch.optim.AdamW):
+        if inner.param_groups[0].get("amsgrad"):
+            raise NotImplementedError("AdamW(amsgrad=True) keeps a state "
+                                      "that optax.adamw has not")
+        return "adamw"
+    if type(inner) is torch.optim.SGD:
+        return "sgd"
+    raise NotImplementedError(
+        f"no optax state mapping for {type(inner).__name__}: the "
+        "checkpoint carries torch.optim.AdamW (optax.adamw) and "
+        "torch.optim.SGD (optax.sgd)")
+
+
+def _count_slot(inner, params):
+    """optax's int32 ``count`` <-> torch's per-parameter float ``step``
+    (the same count: both increment before the bias correction)."""
+    def get():
+        steps = {int(inner.state[p]["step"]) for p in params
+                 if "step" in inner.state.get(p, {})}
+        if len(steps) > 1:
+            raise ValueError(f"parameters at different steps: {steps}")
+        return np.asarray(steps.pop() if steps else 0, np.int32)
+
+    def set(arr):
+        group = inner.param_groups[0]
+        on_device = group.get("capturable") or group.get("fused")
+        for p in params:
+            inner.state[p]["step"] = torch.tensor(
+                float(np.asarray(arr)), dtype=_scalar_dtype(),
+                device=p.device if on_device else "cpu")
+
+    return _Slot(get, set)
+
+
+def _moment_slot(inner, p, key, layout, spec):
+    """A per-parameter state tensor (AdamW's ``exp_avg``/``exp_avg_sq``,
+    SGD's ``momentum_buffer``) in flax layout; zeros where torch has
+    none yet (optax's initial state)."""
+    def get():
+        v = inner.state.get(p, {}).get(key)
+        if v is None:
+            v = torch.zeros_like(p)
+        return _to_flax(v.detach(), layout, spec)
+
+    def set(arr):
+        buf = torch.empty_like(p, memory_format=torch.contiguous_format)
+        _load(buf, arr, layout)
+        inner.state[p][key] = buf
+
+    return _Slot(get, set)
+
+
+def _optax_state(inner, params, layouts, spec, tree):
+    """The optax state of ``optax.adamw`` or ``optax.sgd`` over
+    ``params`` (each with its flax path and layout), as ``tree`` nests
+    the per-parameter pieces: a ``_Named`` chain of the same fields."""
+    kind = _opt_kind(inner)
+    empty = _Named()
+    if kind == "adamw":
+        mu = tree([_moment_slot(inner, p, "exp_avg", lay, spec)
+                   for p, lay in zip(params, layouts)])
+        nu = tree([_moment_slot(inner, p, "exp_avg_sq", lay, spec)
+                   for p, lay in zip(params, layouts)])
+        return (_Named(("count", _count_slot(inner, params)), ("mu", mu),
+                       ("nu", nu)), empty, empty)
+    if not inner.param_groups[0].get("momentum"):
+        return (empty, empty)
+    trace = tree([_moment_slot(inner, p, "momentum_buffer", lay, spec)
+                  for p, lay in zip(params, layouts)])
+    return (_Named(("trace", trace)), empty)
+
+
+def _hvd_optimizer(optimizer):
+    from horovod_tpu_torch.hvd_torch import DistributedOptimizer
+    if not isinstance(optimizer, DistributedOptimizer):
+        raise TypeError("the train state's optimizer is a "
+                        "DistributedOptimizer (the JAX TrainState holds "
+                        "its chained state)")
+    if optimizer.backward_passes_per_step > 1:
+        raise NotImplementedError(
+            "backward_passes_per_step > 1 is optax.MultiSteps state in "
+            "the JAX package, which the checkpoint does not map")
+    return optimizer
+
+
+class _ZeroSlots:
+    """ZeRO-1's state as the JAX ``ZeroState``: the row optimizer's optax
+    state over ``{"b<i>": [world, shard]}``, of which this rank holds
+    row ``rank`` of each bucket."""
+
+    def __init__(self, optimizer):
+        from horovod_tpu_torch.parallel import mesh as mesh_lib
+        zs = optimizer.zero_state
+        self.schedule = zs.plan.schedule
+        self.rank = mesh_lib.get_mesh().rank
+        keyed = {f"b{i}": row for i, row in enumerate(zs.rows)}
+        names = sorted(keyed)
+        rows = [keyed[k] for k in names]
+        self.inner = _optax_state(zs.inner, rows, [None] * len(rows), None,
+                                  lambda slots: dict(zip(names, slots)))
+        self.entries = []
+        for key, slot in _walk(self.inner):
+            bucket = None
+            if key.endswith("']") and "['b" in key:
+                bucket = int(key.rsplit("['b", 1)[1][:-2])
+            self.entries.append((key, bucket, slot))
+
+    def resolve(self):
+        """A ``ckpt.ZeroLeaf`` of live views: ``{rank: row}`` for each
+        bucket leaf, the value for each replicated one."""
+        from horovod_tpu_torch import ckpt
+        return ckpt.ZeroLeaf(self.schedule, self.rank, [
+            (key, b, slot.get() if b is None else {self.rank: slot.get()})
+            for key, b, slot in self.entries])
+
+    def load(self, leaf):
+        """Write a restored ``ckpt.ZeroLeaf`` (each bucket leaf the whole
+        ``[world, shard]`` array of this world) into the rows."""
+        got = {key: value for key, _, value in leaf.entries}
+        for key, bucket, slot in self.entries:
+            if key not in got:
+                raise ValueError(f"the ZeRO-1 state has no leaf {key!r}")
+            value = got[key]
+            if bucket is not None:
+                value = np.asarray(value)[self.rank]
+            slot.set(value)
+
+    def state_tree(self):
+        """The ``[world, shard]`` tree of flax's ``to_state_dict``, for the
+        single-file checkpoint: only a world of one holds every row."""
+        if self.schedule.world != 1:
+            raise NotImplementedError(
+                "a ZeRO-1 state in one file needs every row on one "
+                "process: save it at world > 1 with ckpt.save_sharded")
+        return _state_dict(self.inner)
+
+
+def _train_state_tree(model, optimizer, step_state):
+    """The JAX ``TrainState``'s four children as trees of ``_Slot``s (a
+    ``ZeroLeaf`` for ZeRO-1's state)."""
+    table = sorted(_table(model))
+    params = [model.get_parameter(name) for _, name, _ in table]
+    layouts = [layout for _, _, layout in table]
+    paths = [path for path, _, _ in table]
+    if optimizer is not None:
+        optimizer = _hvd_optimizer(optimizer)
+    if optimizer is not None and \
+            [id(p) for p in params] != [id(p) for p in optimizer.params]:
+        raise ValueError("the optimizer must pack the model's parameters "
+                         "in flax order: DistributedOptimizer(named_"
+                         "parameters=convert.flax_named_parameters(model))")
+
+    def param_slot(p, layout):
+        return _Slot(lambda: _to_flax(p.detach(), layout, model),
+                     lambda arr: _load(p, arr, layout))
+
+    def tree(slots):
+        return _nest(list(zip(paths, slots)))
+
+    p_tree = tree([param_slot(p, lay) for p, lay in zip(params, layouts)])
+    if optimizer is None:
+        opt = {}
+    elif optimizer.zero_state is not None:
+        opt = _ZeroSlots(optimizer)
+    else:
+        opt = (_Named(), _optax_state(optimizer.optimizer, params, layouts,
+                                      model, tree))
+    stats = {}
+    if isinstance(model, ResNet):
+        def stat_slot(buf):
+            return _Slot(lambda: buf.detach(),
+                         lambda arr: _load(buf, arr, "same"))
+        stats = _nest([(path, stat_slot(model.get_buffer(name)))
+                       for path, name in _stats_table(model)])
+
+    def step_set(arr):
+        step_state.step = int(np.asarray(arr))
+
+    step = _Slot(lambda: np.asarray(getattr(step_state, "step", 0),
+                                    np.int32), step_set)
+    return p_tree, opt, stats, step
+
+
+def _flat_slots(model, optimizer, step_state):
+    out = []
+    for i, child in enumerate(_train_state_tree(model, optimizer,
+                                                step_state)):
+        out += list(_walk(child, f"[<flat index {i}>]"))
+    return out
+
+
+def train_state_paths(model, optimizer):
+    """The key path of each leaf of ``train_state_to_flat``, as
+    ``jax.tree_util.keystr`` writes the JAX ``TrainState``'s."""
+    class _Step:
+        step = 0
+    return [path for path, _ in _flat_slots(model, optimizer, _Step())]
+
+
+def train_state_to_flat(model, optimizer, step_state):
+    """The port's training state as the JAX ``TrainState(params,
+    opt_state, batch_stats, step)``'s flat leaf list: ``model``'s
+    parameters in flax order and layout, ``optimizer``'s state (a
+    ``DistributedOptimizer`` over ``torch.optim.AdamW`` or ``SGD``:
+    ``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState(),
+    EmptyState()))`` or ``(EmptyState(), (TraceState(trace),
+    EmptyState()))``; under ZeRO-1 one ``ckpt.ZeroLeaf``), a ResNet's
+    BatchNorm statistics and ``step_state.step`` as an int32 scalar.
+    Tensors come back as live views (the checkpoint's snapshot copies
+    them); counts as numpy int32 scalars."""
+    leaves = []
+    for _, slot in _flat_slots(model, optimizer, step_state):
+        if isinstance(slot, _Slot):
+            leaves.append(slot.get())
+        else:  # a ZeroLeaf of slots
+            leaves.append(slot.resolve())
+    return leaves
+
+
+def train_state_from_flat(model, optimizer, step_state, leaves):
+    """Write the flat leaf list (``train_state_to_flat``'s form, or what
+    ``ckpt.restore_sharded`` returns for it) into ``model``, ``optimizer``
+    and ``step_state``, in place."""
+    slots = _flat_slots(model, optimizer, step_state)
+    if len(leaves) != len(slots):
+        raise ValueError(f"{len(leaves)} leaves for a train state of "
+                         f"{len(slots)}")
+    for (path, slot), leaf in zip(slots, leaves):
+        if isinstance(slot, _Slot):
+            slot.set(leaf)
+        else:
+            slot.load(leaf)
+
+
+def train_state_trees(model, optimizer=None, step_state=None):
+    """``(params, opt_state)`` as flax ``serialization.to_state_dict``
+    writes the JAX ``TrainState``'s (the single-file ``checkpoint.py``'s
+    two trees; ``{}`` for no optimizer), each leaf a live view in flax
+    layout."""
+    p_tree, opt, _, _ = _train_state_tree(model, optimizer, step_state)
+    opt = ({"inner": _rows_tree(opt.state_tree())}
+           if isinstance(opt, _ZeroSlots) else _state_dict(opt))
+
+    def get(node):
+        if isinstance(node, dict):
+            return {k: get(v) for k, v in node.items()}
+        return node.get()
+
+    return get(_state_dict(p_tree)), get(opt)
+
+
+def load_train_state_trees(model, optimizer, step_state, params,
+                           opt_state=None):
+    """Write ``train_state_trees``' two trees (numpy, flax layout) into
+    the live state."""
+    p_tree, opt, _, _ = _train_state_tree(model, optimizer, step_state)
+    opt = ({"inner": _rows_tree(opt.state_tree())}
+           if isinstance(opt, _ZeroSlots) else _state_dict(opt))
+
+    def put(node, value, where):
+        if isinstance(node, dict):
+            if set(node) != set(value):
+                raise ValueError(f"{where}: keys {sorted(value)}, expected "
+                                 f"{sorted(node)}")
+            for k in node:
+                put(node[k], value[k], f"{where}/{k}")
+        else:
+            node.set(value)
+
+    put(_state_dict(p_tree), params, "params")
+    put(opt, {} if opt_state is None else opt_state, "opt_state")
+
+
+def _rows_tree(node):
+    """A world-of-one ZeRO state tree whose bucket leaves (``b<i>`` keys)
+    read and write ``[1, shard]`` arrays, as the JAX rows are shaped."""
+    if not isinstance(node, dict):
+        return node
+    out = {}
+    for k, v in node.items():
+        if k.startswith("b") and k[1:].isdigit() and isinstance(v, _Slot):
+            v = _Slot(lambda v=v: v.get()[None],
+                      lambda arr, v=v: v.set(np.asarray(arr)[0]))
+        out[k] = _rows_tree(v)
+    return out

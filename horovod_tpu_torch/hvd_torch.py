@@ -8,7 +8,12 @@ The port of ``horovod_tpu/hvd_jax.py``'s ``DistributedOptimizer``,
 ``step()`` exchanges the parameters' ``.grad`` across ranks before the
 inner step. Unlike the JAX optimizer, which returns new state,
 everything here updates in place: the gradients, the parameters and the
-inner optimizer's state.
+inner optimizer's state. It is a ``torch.optim.Optimizer`` whose
+``param_groups``, ``state``, ``defaults``, ``state_dict`` and
+``load_state_dict`` are the inner optimizer's, as Horovod's torch
+optimizer (``horovod_tpu/torch/__init__.py``) delegates them, so a
+learning-rate scheduler or a callback that writes
+``optimizer.param_groups`` drives it.
 """
 
 import warnings
@@ -17,7 +22,7 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree
 
-from horovod_tpu_torch import basics
+from horovod_tpu_torch import basics, convert
 from horovod_tpu_torch.ops import collective, fusion
 from horovod_tpu_torch.ops import compression as compression_lib
 from horovod_tpu_torch.ops.reduction import Average, Sum
@@ -25,14 +30,18 @@ from horovod_tpu_torch.parallel import mesh as mesh_lib
 from horovod_tpu_torch.parallel import zero
 
 
-class DistributedOptimizer:
+class DistributedOptimizer(torch.optim.Optimizer):
     """Wrap ``optimizer`` so every ``step()`` first reduces (``op``,
     Average by default) the gradients of ``named_parameters`` across
     ranks. ``named_parameters`` (by default every parameter of the
-    optimizer, in its order) fixes the order the buckets pack; pass
+    optimizer, in its order) fixes the order the buckets pack: pairs
+    ``(name, parameter)``, or triples ``(name, parameter, layout)``. Pass
     ``convert.flax_named_parameters(model)`` to pack as the JAX package
-    does. A parameter without a gradient takes part with zeros, so every
-    rank sends the same buckets.
+    does: leaf for leaf, and element for element (each parameter as its
+    flax array flattens) where the order inside a bucket changes a
+    result, ZeRO-1's rows and a chunked quantizer's scales. A parameter
+    without a gradient takes part with zeros, so every rank sends the
+    same buckets.
 
     * The default exchange is one allreduce per fused bucket of at most
       ``threshold_bytes`` (``HOROVOD_FUSION_THRESHOLD`` when None);
@@ -55,7 +64,13 @@ class DistributedOptimizer:
       Average only: given here with another op it raises, from the
       environment it is ignored with one warning. ``step()`` compresses
       statelessly; ``training.make_train_step(overlap_grads=True)``
-      carries error feedback."""
+      carries error feedback.
+
+    Under ``sharded_update``, ``state_dict()`` also carries this rank's
+    ZeRO-1 rows' state (``"zero"``: the rank, the world and the row
+    optimizer's ``state_dict``), and ``load_state_dict`` restores it;
+    the row optimizer takes the user's hyperparameters at every step, so
+    a scheduler's learning rate reaches it on the next step."""
 
     def __init__(self, optimizer, named_parameters=None, op=Average,
                  compression=None, threshold_bytes=None,
@@ -87,20 +102,76 @@ class DistributedOptimizer:
         self._config_wire_warned = False
         owned = [p for group in optimizer.param_groups
                  for p in group["params"]]
+        perms = None
         if named_parameters is None:
             params = owned
         else:
-            params = [p for _, p in named_parameters]
+            named = [tuple(item) for item in named_parameters]
+            params = [item[1] for item in named]
+            if any(len(item) > 2 for item in named):
+                perms = tuple(convert.flax_perm(item[2] if len(item) > 2
+                                                else None)
+                              for item in named)
         if {id(p) for p in params} != {id(p) for p in owned}:
             raise ValueError("named_parameters must name exactly the "
                              "parameters the optimizer updates")
         self.params = params
+        # each parameter's flax dim order, for the buckets where the order
+        # of elements changes a result (None: torch's own layout)
+        self.perms = perms
         self.last_buckets = ()
         self.zero_state = None
         if sharded_update:
             self.zero_state = zero.init(optimizer, params, zero.make_plan(
-                params, op=op, threshold_bytes=threshold_bytes))
+                params, op=op, threshold_bytes=threshold_bytes,
+                perms=perms))
         self._acc, self._mini_step = None, 0
+
+    # the torch.optim.Optimizer surface is the inner optimizer's
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    @property
+    def state(self):
+        return self.optimizer.state
+
+    @property
+    def defaults(self):
+        return self.optimizer.defaults
+
+    def state_dict(self):
+        sd = self.optimizer.state_dict()
+        if self.zero_state is not None:
+            m = mesh_lib.get_mesh()
+            sd["zero"] = {"rank": m.rank, "world": m.size,
+                          "state": self.zero_state.inner.state_dict()}
+        return sd
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        rows = state_dict.pop("zero", None)
+        if (rows is None) != (self.zero_state is None):
+            raise ValueError(
+                "the state dict was saved with"
+                + ("out" if rows is None else "")
+                + " ZeRO-1 rows; this optimizer has sharded_update="
+                f"{self.zero_state is not None}")
+        if rows is not None:
+            m = mesh_lib.get_mesh()
+            if (rows["rank"], rows["world"]) != (m.rank, m.size):
+                raise ValueError(
+                    f"ZeRO-1 rows of rank {rows['rank']} of "
+                    f"{rows['world']} cannot load into rank {m.rank} of "
+                    f"{m.size}: restore through horovod_tpu_torch.ckpt, "
+                    "which reshards")
+            self.zero_state.inner.load_state_dict(rows["state"])
+        self.optimizer.load_state_dict(state_dict)
+
+    def add_param_group(self, param_group):
+        raise ValueError("DistributedOptimizer packs a fixed parameter "
+                         "list: add the group to the inner optimizer "
+                         "before wrapping it")
 
     def _check_wire(self, wire):
         if wire.chunked and self.op not in (Sum, Average):
@@ -152,7 +223,7 @@ class DistributedOptimizer:
         self.last_buckets = tuple(fusion.fused_allreduce_(
             [p.grad for p in self.params], op=self.op,
             threshold_bytes=self.threshold_bytes,
-            compression=self.compression))
+            compression=self.compression, perms=self.perms))
 
     @torch.no_grad()
     def _accumulate(self):

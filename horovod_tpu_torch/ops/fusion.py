@@ -37,17 +37,35 @@ class _Bucket:
     leaf_indices: tuple  # indices into the tensor list
     sizes: tuple         # element count per packed tensor
     shapes: tuple        # original shape per packed tensor
+    perms: tuple         # per packed tensor: its flax dim order, or None
 
     @property
     def nbytes(self):
         return sum(self.sizes) * self.dtype.itemsize
 
 
-def plan_buckets(leaves, threshold_bytes, reverse=False):
+def _check_perms(leaves, perms):
+    if perms is None:
+        return [None] * len(leaves)
+    if len(perms) != len(leaves):
+        raise ValueError(f"{len(perms)} dim orders for {len(leaves)} leaves")
+    for leaf, perm in zip(leaves, perms):
+        if perm is not None and sorted(perm) != list(range(leaf.dim())):
+            raise ValueError(f"dim order {perm} of a leaf of shape "
+                             f"{tuple(leaf.shape)}")
+    return list(perms)
+
+
+def plan_buckets(leaves, threshold_bytes, reverse=False, perms=None):
     """Greedy packing of ``leaves`` into dtype-homogeneous buckets of at
     most ``threshold_bytes`` (a single tensor larger than the threshold
     gets its own bucket). ``reverse=True`` packs in reverse order, the
-    order in which backward makes the gradients ready."""
+    order in which backward makes the gradients ready. ``perms`` (per
+    leaf, the order of its dims in the packed array, or None for its
+    own) packs each leaf as that array flattens: the port passes a
+    leaf's flax layout (``convert.flax_perm``) where the order inside a
+    bucket changes a result, ZeRO-1's rows and a quantizer's chunks."""
+    perms = _check_perms(leaves, perms)
     by_dtype = {}
     order = range(len(leaves) - 1, -1, -1) if reverse else range(len(leaves))
     for i in order:
@@ -58,19 +76,20 @@ def plan_buckets(leaves, threshold_bytes, reverse=False):
         for i in idxs:
             nbytes = leaves[i].numel() * dtype.itemsize
             if cur and cur_bytes + nbytes > threshold_bytes:
-                buckets.append(_make_bucket(dtype, cur, leaves))
+                buckets.append(_make_bucket(dtype, cur, leaves, perms))
                 cur, cur_bytes = [], 0
             cur.append(i)
             cur_bytes += nbytes
         if cur:
-            buckets.append(_make_bucket(dtype, cur, leaves))
+            buckets.append(_make_bucket(dtype, cur, leaves, perms))
     return buckets
 
 
-def _make_bucket(dtype, idxs, leaves):
+def _make_bucket(dtype, idxs, leaves, perms):
     return _Bucket(dtype=dtype, leaf_indices=tuple(idxs),
                    sizes=tuple(leaves[i].numel() for i in idxs),
-                   shapes=tuple(tuple(leaves[i].shape) for i in idxs))
+                   shapes=tuple(tuple(leaves[i].shape) for i in idxs),
+                   perms=tuple(perms[i] for i in idxs))
 
 
 def _threshold(threshold_bytes):
@@ -79,25 +98,68 @@ def _threshold(threshold_bytes):
     return basics.fusion_threshold()
 
 
+def _flax_strides(shape, perm):
+    """The strides, in torch's dim order, of a leaf of torch shape
+    ``shape`` stored as its flax array (dims in ``perm`` order),
+    contiguous."""
+    strides, step = [0] * len(shape), 1
+    for d in reversed(perm):
+        strides[d] = step
+        step *= shape[d]
+    return strides
+
+
 def _pack(bucket, tensors, pad=0):
-    parts = [tensors[i].reshape(-1) for i in bucket.leaf_indices]
+    """The bucket's tensors flat, in order, then ``pad`` zeros: one copy.
+    A run of leaves in torch's own layout is one ``torch.cat``; a leaf
+    with a flax layout is copied into the bucket through a view of its
+    slot in torch's dim order with the flax array's strides."""
+    if not any(bucket.perms):
+        parts = [tensors[i].reshape(-1) for i in bucket.leaf_indices]
+        if pad:
+            parts.append(parts[0].new_zeros(pad))
+        return torch.cat(parts)
+    first = tensors[bucket.leaf_indices[0]]
+    out = first.new_empty(sum(bucket.sizes) + pad)
+    offset, run, run_start = 0, [], 0
+    for i, size, shape, perm in zip(bucket.leaf_indices, bucket.sizes,
+                                    bucket.shapes, bucket.perms):
+        if perm is None:
+            if not run:
+                run_start = offset
+            run.append(tensors[i].reshape(-1))
+        else:
+            if run:
+                torch.cat(run, out=out[run_start:offset])
+                run = []
+            out.as_strided(shape, _flax_strides(shape, perm),
+                           offset).copy_(tensors[i])
+        offset += size
+    if run:
+        torch.cat(run, out=out[run_start:offset])
     if pad:
-        parts.append(parts[0].new_zeros(pad))
-    return torch.cat(parts)
+        out[offset:].zero_()
+    return out
 
 
 def _unpack(bucket, flat):
-    """``{leaf index: view of flat}`` (the padding tail ignored)."""
-    out, offset = {}, 0
-    for i, size, shape in zip(bucket.leaf_indices, bucket.sizes,
-                              bucket.shapes):
-        out[i] = flat[offset:offset + size].view(shape)
+    """``{leaf index: view of flat}`` in each leaf's torch shape (a leaf
+    with a flax layout as a view with its flax strides; the padding tail
+    ignored)."""
+    out, offset, base = {}, 0, flat.storage_offset()
+    for i, size, shape, perm in zip(bucket.leaf_indices, bucket.sizes,
+                                    bucket.shapes, bucket.perms):
+        if perm is None:
+            out[i] = flat[offset:offset + size].view(shape)
+        else:
+            out[i] = flat.as_strided(shape, _flax_strides(shape, perm),
+                                     base + offset)
         offset += size
     return out
 
 
 def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
-                     compression=None):
+                     compression=None, perms=None):
     """Allreduce every tensor of the list in place through fused flat
     buckets: pack, one collective per bucket, unpack. Returns the
     buckets, so a caller can account what went over the wire.
@@ -108,9 +170,11 @@ def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
     bucket through the compressed reduce-scatter and all-gather pair,
     statelessly (no error feedback); it composes with Sum and Average
     only, and at world 1, where there is no wire, it is dropped.
-    Non-float buckets always take the exact path."""
+    Non-float buckets always take the exact path. ``perms`` orders each
+    tensor's elements in the buckets (``plan_buckets``) under a chunked
+    quantizer, whose chunks they decide; an exact or cast reduction is
+    elementwise, so it packs each tensor as it lies."""
     compression = compression_lib.resolve(compression)
-    buckets = plan_buckets(tensors, _threshold(threshold_bytes))
     chunked = compression is not None and compression.chunked
     if chunked:
         if op not in (collective.Sum, collective.Average):
@@ -121,6 +185,8 @@ def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
         world = collective.mesh_size()
         if world == 1:
             compression, chunked = None, False  # no wire to compress
+    buckets = plan_buckets(tensors, _threshold(threshold_bytes),
+                           perms=perms if chunked else None)
     for bucket in buckets:
         if chunked and bucket.dtype.is_floating_point:
             size = sum(bucket.sizes)
@@ -160,11 +226,12 @@ class BucketSchedule:
         return tuple(p // self.world for p in self.padded_sizes)
 
 
-def bucket_schedule(leaves, world, threshold_bytes=None):
+def bucket_schedule(leaves, world, threshold_bytes=None, perms=None):
     """Plan the bucketed exchange for ``leaves`` (one plan, reused by
-    every microbatch and every step)."""
+    every microbatch and every step); ``perms`` as in
+    ``plan_buckets``."""
     buckets = tuple(plan_buckets(leaves, _threshold(threshold_bytes),
-                                 reverse=True))
+                                 reverse=True, perms=perms))
     padded = tuple(sum(b.sizes) + (-sum(b.sizes)) % world for b in buckets)
     return BucketSchedule(buckets=buckets, padded_sizes=padded, world=world)
 

@@ -43,16 +43,19 @@ class ZeroPlan:
     op: str = Average
 
 
-def make_plan(params, op=Average, threshold_bytes=None):
+def make_plan(params, op=Average, threshold_bytes=None, perms=None):
     """The ZeRO partition of ``params`` (a list, in the order the buckets
-    pack it) over the data axis."""
+    pack it) over the data axis; ``perms`` (``fusion.plan_buckets``)
+    packs each parameter as its flax array flattens, so row ``r`` holds
+    the elements the JAX package's row ``r`` holds."""
     if op not in (Sum, Average):
         raise ValueError(f"ZeRO-1 supports Sum or Average, got {op!r}")
     if not params:
         raise ValueError("ZeRO-1 needs a non-empty parameter list")
     world = mesh_lib.get_mesh().size
     return ZeroPlan(schedule=fusion.bucket_schedule(
-        params, world, threshold_bytes=threshold_bytes), op=op)
+        params, world, threshold_bytes=threshold_bytes, perms=perms),
+        op=op)
 
 
 class ZeroState:

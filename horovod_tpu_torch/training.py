@@ -7,9 +7,12 @@ microbatch loop and overlapped reduce-scatter pipeline) and
 sharding). The JAX step is a pure function returning a new
 ``TrainState``; here the step runs eagerly on this process's shard of
 the batch and updates the model's parameters, its BatchNorm statistics
-and the optimizer's state in place.
+and the optimizer's state in place, and counts its calls in a
+``StepState``, the counterpart of ``TrainState.step`` that a checkpoint
+saves with them (``convert.train_state_to_flat``).
 """
 
+import dataclasses
 import hashlib
 import inspect
 import warnings
@@ -18,17 +21,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from horovod_tpu_torch import hvd_torch
+from horovod_tpu_torch import data, hvd_torch
 from horovod_tpu_torch.ops import collective, fusion
 from horovod_tpu_torch.ops.reduction import Average, Sum
 from horovod_tpu_torch.parallel import mesh as mesh_lib
 from horovod_tpu_torch.parallel import zero
 
 
+@dataclasses.dataclass
+class StepState:
+    """The step count of a training run: the JAX ``TrainState.step``.
+    A step builder adds one per call and keys the dropout masks by it,
+    and a checkpoint saves and restores it with the model and the
+    optimizer, so a restored run draws the masks an unbroken one
+    would."""
+
+    step: int = 0
+
+
 def softmax_cross_entropy(logits, labels):
     """Mean cross-entropy with integer labels (fp32 log-softmax)."""
     logp = F.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels[..., None])[..., 0].mean()
+    return -logp.gather(-1, labels[..., None].long())[..., 0].mean()
 
 
 def create_train_state(model, optimizer, root_rank=0):
@@ -60,12 +74,20 @@ def _batch_stats(model):
 
 def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                     dropout_seed=0, accum_steps=1, overlap_grads=False,
-                    error_feedback=True):
+                    error_feedback=True, loader=None):
     """Build a classification train step over the data axis.
     ``step(inputs, labels)`` takes this rank's shard of the batch, puts
     the model in training mode, runs forward, backward and the optimizer
     step, and returns the loss averaged over ranks (an fp32 scalar tensor
-    on the device).
+    on the device). ``step.state``, a ``StepState``, counts the calls
+    that succeed.
+
+    ``loader`` (a ``data.PrefetchLoader``) feeds the step: its producer
+    thread stages each batch onto this rank's device
+    (``data.device_placement``) while the previous step runs, and
+    ``step()`` with no batch pulls ``(inputs, labels)`` from it; a loader
+    whose batches are not pairs raises ``TypeError``, as does ``step()``
+    without one.
 
     ``accum_steps=K`` splits the shard into K equal microbatches and
     accumulates their gradients (one optimizer step per call). Without
@@ -101,8 +123,9 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
 
     A model whose ``forward`` takes ``dropout_generator`` (such as
     ``models.simple.MNISTConvNet``) is given a generator seeded from
-    ``dropout_seed``, the step count, this rank and the microbatch index,
-    so every rank and microbatch draws its own masks."""
+    ``dropout_seed``, ``state.step``, this rank and the microbatch index,
+    so every rank and microbatch draws its own masks, and a run restored
+    with its ``StepState`` draws the masks of the unbroken run."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     pipelined = overlap_grads or accum_steps > 1
@@ -134,14 +157,17 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
     if sharded:
         schedule = optimizer.zero_state.plan.schedule
     elif overlap_grads:
+        # the flax dim orders only where the quantizer's chunks read them
+        chunked = wire is not None and wire.chunked
         schedule = fusion.bucket_schedule(
             optimizer.params, mesh.size,
-            threshold_bytes=optimizer.threshold_bytes)
+            threshold_bytes=optimizer.threshold_bytes,
+            perms=optimizer.perms if chunked else None)
     params = optimizer.params if is_hvd else None
     rs_op = optimizer.zero_state.plan.op if sharded else (
         optimizer.op if is_hvd else None)
     inv_k = 1.0 / accum_steps
-    steps_done = 0
+    state = StepState()
     residuals = None  # {"rs": [...], "ag": [...]}, allocated lazily
     drift_warned = False
 
@@ -176,7 +202,7 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         if not takes_rng:
             return model(x)
         return model(x, dropout_generator=_dropout_generator(
-            mesh.device, dropout_seed, steps_done, mesh.rank, k))
+            mesh.device, dropout_seed, state.step, mesh.rank, k))
 
     def reduce_scatter(res):
         """Issue every bucket of this microbatch's gradients, in schedule
@@ -260,8 +286,30 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                 fusion.fused_allreduce_(stats, op=Average)
             return collective.allreduce_(loss_sum * inv_k, op=Average)
 
-    def step(inputs, labels):
-        nonlocal steps_done, residuals
+    if loader is not None:
+        loader.attach_placement(data.device_placement(mesh.device),
+                                spec=mesh.device)
+
+    def loader_batch():
+        if loader is None:
+            raise TypeError(
+                "step() with no batch needs a loader: build the step with "
+                "make_train_step(..., loader=...) or pass (inputs, labels)")
+        batch = next(loader)
+        if not (isinstance(batch, (tuple, list)) and len(batch) == 2):
+            raise TypeError(
+                "the loader's source must yield (inputs, labels) batches "
+                f"for this step; got {type(batch).__name__} of "
+                f"{len(batch) if hasattr(batch, '__len__') else '?'}")
+        return data.ready(batch)
+
+    def step(inputs=None, labels=None):
+        nonlocal residuals
+        if inputs is None and labels is None:
+            inputs, labels = loader_batch()
+        elif inputs is None or labels is None:
+            raise TypeError("step() takes (inputs, labels), or nothing "
+                            "when a loader feeds it")
         check_wire_drift()
         if use_ef and residuals is None:
             residuals = new_residuals()
@@ -272,7 +320,7 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
             # others: restart the compensation from zeros
             residuals = None
             raise
-        steps_done += 1
+        state.step += 1
         return loss
 
     def reset_error_feedback():
@@ -281,6 +329,7 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         residuals = None
 
     step.schedule = schedule
+    step.state = state
     step.wire = wire
     step.reset_error_feedback = reset_error_feedback
     step.residuals = lambda: residuals
@@ -301,6 +350,7 @@ def make_lm_train_step(model, optimizer):
     ``step(tokens)`` takes this rank's ``[B_local, S]`` int tokens, runs
     forward, backward and the optimizer step, and returns the loss
     averaged over ranks (an fp32 scalar tensor on the device).
+    ``step.state`` counts the steps, as in ``make_train_step``.
 
     The loss is normalized by the GLOBAL target count: the local sum is
     scaled by ``world / global_count``, so that averaging the per-rank
@@ -309,6 +359,7 @@ def make_lm_train_step(model, optimizer):
     if not isinstance(optimizer, hvd_torch.DistributedOptimizer):
         raise TypeError("make_lm_train_step needs a DistributedOptimizer")
     mesh = mesh_lib.get_mesh()
+    state = StepState()
 
     def step(tokens):
         tokens = tokens.to(mesh.device)
@@ -320,6 +371,8 @@ def make_lm_train_step(model, optimizer):
         loss = local_mean * local_count * mesh.size / global_count
         loss.backward()
         optimizer.step()  # reduces the gradients first
+        state.step += 1
         return collective.allreduce_(loss.detach(), op=Average)
 
+    step.state = state
     return step

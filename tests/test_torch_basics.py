@@ -112,23 +112,115 @@ def test_unsupported_ops_raise(fresh):
         hvd.allreduce(torch.ones(1, dtype=torch.int64), op=hvd.Average)
 
 
-def _imports(path):
+def _imports(source):
+    """Every module name that ``source`` imports, at any depth: import
+    statements, and ``importlib.import_module`` / ``__import__`` of a
+    literal name."""
     names = []
-    for node in ast.walk(ast.parse(path.read_text())):
+    for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module)
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                    node.args[0].value, str):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", None)
+            if name in ("import_module", "__import__"):
+                names.append(node.args[0].value)
     return names
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    kinds = ("import jax\nfrom flax import linen\n"
+             "def f():\n    import horovod_tpu.ckpt\n"
+             "    importlib.import_module('optax')\n    __import__('jaxlib')\n"
+             "from horovod_tpu_torch import ckpt\nfrom . import x\n")
+    assert sorted(_imports(kinds)) == [
+        "flax", "horovod_tpu.ckpt", "horovod_tpu_torch", "jax", "jaxlib",
+        "optax"]
     files = sorted((REPO / "horovod_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
+    assert len(files) > 30
     banned = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
     for f in files:
-        for name in _imports(f):
+        for name in _imports(f.read_text()):
             top = name.split(".")[0]
             assert top not in banned, f"{f.relative_to(REPO)} imports {name}"
 
+
+
+_KV_WORKER = """
+import json, sys, tempfile
+import numpy as np
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import ckpt
+out = []
+for round_ in range(2):  # a second init finds its own store
+    hvd.init(device="cpu")
+    t = torch.tensor([float(hvd.rank() + 1), 10.0 * (round_ + 1)])
+    out.append(hvd.allreduce(t, op=hvd.Sum).tolist())
+    hvd.shutdown()
+hvd.init(device="cpu")
+ckpt.save_sharded(sys.argv[1], 5, {"w": np.full(3, hvd.rank(), np.float32)},
+                  rank=hvd.rank(), world=hvd.size())
+print("RESULT", json.dumps([hvd.rank(), out]), flush=True)
+hvd.shutdown()
+"""
+
+
+def test_init_under_the_reference_kv_store(tmp_path):
+    """Two port ranks under the launcher's env: HOROVOD_GLOO_RENDEZVOUS_*
+    name the JAX package's HTTP ``KVStoreServer``, here with a secret
+    key. Rank 0 publishes a TCP store there and rank 1 finds it, twice
+    (shutdown, then init again); both allreduce; a checkpoint commit's
+    best-effort acks reach the same store, signed. A request without the
+    key is refused."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from horovod_tpu.run import rendezvous as jrdv
+    from horovod_tpu.run import secret as jsecret
+    key = jsecret.make_secret_key()
+    server = jrdv.KVStoreServer(auth_key=key)
+    port = server.start()
+    try:
+        procs = []
+        for r in range(2):
+            env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
+                       HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2",
+                       HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+                       HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+                       HOROVOD_SECRET_KEY=jsecret.encode_key(key),
+                       PYTHONPATH=str(REPO))
+            env.pop("MASTER_ADDR", None)
+            env.pop("MASTER_PORT", None)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _KV_WORKER, str(tmp_path)], env=env,
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        results = []
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-4000:]
+            line = [ln for ln in out.splitlines()
+                    if ln.startswith("RESULT")][0]
+            results.append(json.loads(line.split(" ", 1)[1]))
+        for _, out in results:
+            assert out == [[3.0, 20.0], [3.0, 40.0]]
+        stores = [server.get(f"torch_store/0/{n}") for n in (1, 2, 3)]
+        assert all(stores) and len(set(stores)) == 3
+        for r in range(2):
+            ack = json.loads(server.get(f"ckpt/ack/5/{r}"))
+            assert ack["rank"] == r and ack["world"] == 2
+        assert json.loads(server.get("ckpt/manifest/5")) == {"world": 2}
+        with pytest.raises(Exception, match="403"):
+            jrdv.kv_get("127.0.0.1", port, "torch_store/0/1",
+                        auth_key=b"not the key")
+    finally:
+        server.stop()

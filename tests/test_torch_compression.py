@@ -5,12 +5,14 @@ package's, on the same numpy inputs.
 
 The quantizers and the bucket ops agree bit for bit: the same flat
 bucket goes into both sides, and both compute in fp32 with the same
-operations (round half to even, IEEE division). Trajectories through a
-model differ in summation order, so a chunked wire (whose chunks hold
-other elements than the JAX package's inside a 2-D leaf: torch's
-``[out, in]`` against flax's ``[in, out]``) is held to the exact run by
-``WIRE_EPSILON``, and a cast wire, which is elementwise, to the JAX run at
-loss rtol 1e-5 and params atol 1e-6.
+operations (round half to even, IEEE division). That holds on real
+layouts too: the LM's and the conv net's leaves, packed in their flax
+layouts, give JAX's buckets element for element, so each chunk of 256
+holds the elements JAX's holds and the int8 ops agree bit for bit.
+Trajectories through a model differ in summation order, so a chunked
+wire is held to the exact run by ``WIRE_EPSILON``, and a cast wire,
+which is elementwise, to the JAX run at loss rtol 1e-5 and params atol
+1e-6.
 
 Multi-rank checks run the port on 2 gloo processes (one spawn for the
 whole file) and the JAX package under ``shard_map`` on 2 CPU devices.
@@ -467,6 +469,95 @@ def _port_bucket_ops(inp, rank):
     return {k: v.tolist() for k, v in out.items()}
 
 
+# the real layouts of the int8 check: the LM's attention kernels
+# (heads_in, heads_out) and Dense kernels, and the conv net's HWIO kernels,
+# in buckets of at most 16 KB
+LAYOUT_LM = dict(vocab_size=64, num_layers=2, num_heads=2, d_model=32,
+                 d_ff=128)
+LAYOUT_THRESHOLD = 16384
+
+
+def _layout_models():
+    from horovod_tpu.models.simple import MNISTConvNet as JConvNet
+    from horovod_tpu.models.transformer import Transformer as JTransformer
+    from horovod_tpu.models.transformer import TransformerConfig as JConfig
+    from horovod_tpu_torch.models.simple import MNISTConvNet
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    return {"lm": (JTransformer(JConfig(**LAYOUT_LM, dtype=jnp.float32)),
+                   jnp.zeros((1, 4), jnp.int32),
+                   Transformer(TransformerConfig(**LAYOUT_LM))),
+            "convnet": (JConvNet(), jnp.zeros((1, 8, 8, 1)),
+                        MNISTConvNet(image_shape=(8, 8, 1)))}
+
+
+def _layout_inputs():
+    """Per model: each rank's gradient leaves in their flax shapes
+    (``[2, ...]``) and their layouts."""
+    rng = np.random.default_rng(13)
+    out = {}
+    for name, (jmodel, sample, tmodel) in _layout_models().items():
+        shapes = jax.eval_shape(lambda: jmodel.init(  # noqa: B023
+            jax.random.PRNGKey(0), sample))["params"]
+        leaves = [_hard_values(rng, (2,) + x.shape)
+                  for x in jax.tree_util.tree_leaves(shapes)]
+        layouts = [lay for _, _, lay in
+                   convert.flax_named_parameters(tmodel)]
+        out[name] = dict(leaves=leaves, layouts=layouts)
+    return out
+
+
+def _port_layout_ops(inp, rank):
+    """The port's int8 reduce-scatter (Average, with a zero residual) of
+    each model's buckets, its leaves in torch's layout packed through
+    their flax layouts."""
+    out = {}
+    wire = tcomp.by_name("int8")
+    for name, d in inp.items():
+        leaves = [convert._to_torch(torch.from_numpy(a[rank]), lay)
+                  .contiguous() for a, lay in zip(d["leaves"], d["layouts"])]
+        sched = tfusion.bucket_schedule(leaves, 2,
+                                        threshold_bytes=LAYOUT_THRESHOLD,
+                                        perms=[convert.flax_perm(lay)
+                                               for lay in d["layouts"]])
+        for i, n in enumerate(sched.padded_sizes):
+            shard, res = tfusion.reduce_scatter_bucket_compressed(
+                sched, i, leaves, wire, op=hvd_t.Average,
+                residual=torch.zeros(n))
+            out[f"{name}/rs{i}"], out[f"{name}/rs_res{i}"] = shard, res
+    return {k: v.tolist() for k, v in out.items()}
+
+
+def _jax_layout_ops(inp):
+    hvd_j.shutdown()
+    hvd_j.init(devices=jax.devices()[:2])
+    try:
+        out = {}
+        wire = jcomp.by_name("int8")
+        for name, d in inp.items():
+            sched = jfusion.bucket_schedule(
+                [a[0] for a in d["leaves"]], 2,
+                threshold_bytes=LAYOUT_THRESHOLD, axes=("data",))
+
+            def f(leaves, sched=sched, name=name):
+                leaves = [a[0] for a in leaves]
+                res = {}
+                for i, n in enumerate(sched.padded_sizes):
+                    s, r = jfusion.reduce_scatter_bucket_compressed(
+                        sched, i, leaves, wire, op=hvd_j.Average,
+                        residual=jnp.zeros((n,), jnp.float32))
+                    res[f"{name}/rs{i}"], res[f"{name}/rs_res{i}"] = s, r
+                return {k: v[None] for k, v in res.items()}
+
+            fn = jax.shard_map(f, mesh=hvd_j.mesh(), in_specs=P("data"),
+                               out_specs=P("data"), check_vma=False)
+            out.update({k: np.asarray(v)
+                        for k, v in fn(d["leaves"]).items()})
+        return out
+    finally:
+        hvd_j.shutdown()
+
+
 def _jax_bucket_ops(inp):
     """The same calls under ``shard_map`` on 2 devices: ``[2, ...]`` per
     key, row r rank r's."""
@@ -561,7 +652,8 @@ _WORKER = textwrap.dedent("""
     data = np.load(sys.argv[1], allow_pickle=True)
     inp = data["bucket"].item()
     x, y, params0 = data["x"], data["y"], data["params0"].item()
-    out = dict(bucket=t._port_bucket_ops(inp, hvd.rank()))
+    out = dict(bucket=t._port_bucket_ops(inp, hvd.rank()),
+               layout=t._port_layout_ops(data["layout"].item(), hvd.rank()))
     bowl = {{}}
     for wire, ef in (("none", True), ("int8", True), ("int8", False)):
         loss, params = t._bowl(wire, ef)
@@ -617,6 +709,8 @@ def test_two_ranks_match_jax(jax_world, tmp_path):
       asynchronously; Sum, stateless) and all-gather (with a residual) of
       a 3-bucket schedule equal ``shard_map``'s bit for bit at every wire,
       new residuals included;
+    * so does the int8 reduce-scatter of the LM's and the conv net's
+      gradient leaves, packed through their flax layouts;
     * the quadratic bowl: int8 with error feedback lands on the exact
       run's parameters, int8 without it measurably does not;
     * the dryrun's wire contract: int8 and fp8 with error feedback stay
@@ -625,6 +719,8 @@ def test_two_ranks_match_jax(jax_world, tmp_path):
       params atol 1e-6), replicated and ZeRO-1."""
     inp = _bucket_inputs()
     want = _jax_bucket_ops(inp)
+    layout_inp = _layout_inputs()
+    want_layout = _jax_layout_ops(layout_inp)
     x, y = _mlp_data()
     mesh = jax_world(2)
     params0, j_runs = {}, {}
@@ -633,7 +729,8 @@ def test_two_ranks_match_jax(jax_world, tmp_path):
         params0[_bf16_id(case)] = p0
         j_runs[_bf16_id(case)] = (j_losses, j_params)
     path = tmp_path / "data.npz"
-    np.savez(path, bucket=np.array(inp, dtype=object), x=x, y=y,
+    np.savez(path, bucket=np.array(inp, dtype=object),
+             layout=np.array(layout_inp, dtype=object), x=x, y=y,
              params0=np.array(params0, dtype=object))
     ranks = _run_ranks(_WORKER.format(tests=os.path.join(REPO, "tests")),
                        2, [str(path)])
@@ -644,6 +741,13 @@ def test_two_ranks_match_jax(jax_world, tmp_path):
             np.testing.assert_array_equal(
                 np.asarray(got["bucket"][key], np.float32),
                 value[r].astype(np.float32), err_msg=key)
+    assert set(ranks[0]["layout"]) == set(want_layout)
+    assert len(want_layout) > 8  # several buckets of each model
+    for key, value in want_layout.items():
+        for r, got in enumerate(ranks):
+            np.testing.assert_array_equal(
+                np.asarray(got["layout"][key], np.float32), value[r],
+                err_msg=key)
 
     for got in ranks:
         bowl = got["bowl"]

@@ -71,15 +71,69 @@ def test_flax_leaf_order_buckets_match_jax(name, threshold):
     params = jmodel.init(jax.random.PRNGKey(0), sample)["params"]
     paths, leaves = zip(*jax.tree_util.tree_leaves_with_path(params))
     named = list(convert.flax_named_parameters(tmodel))
-    assert [n for n, _ in named] == [
+    assert [n for n, _, _ in named] == [
         "/".join(k.key for k in path) for path in paths]
-    tleaves = [p for _, p in named]
+    tleaves = [p for _, p, _ in named]
     assert [p.numel() for p in tleaves] == [np.size(x) for x in leaves]
     for reverse in (False, True):
         jb = jfusion.plan_buckets(list(leaves), threshold, reverse=reverse)
         tb = tfusion.plan_buckets(tleaves, threshold, reverse=reverse)
         assert [b.leaf_indices for b in jb] == [b.leaf_indices for b in tb]
         assert [b.sizes for b in jb] == [b.sizes for b in tb]
+
+
+def _layout_leaves(name, seed=0):
+    """Random values in each flax leaf's shape (the LM's ``heads_in`` and
+    ``heads_out`` kernels, the conv net's HWIO kernels), as numpy for
+    JAX, and as the port's tensors in torch's layout with their
+    layouts."""
+    jmodel, sample, tmodel = _models()[name]
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0),
+                                                sample))["params"]
+    rng = np.random.default_rng(seed)
+    jleaves = [rng.standard_normal(x.shape).astype(np.float32)
+               for x in jax.tree_util.tree_leaves(shapes)]
+    layouts = [lay for _, _, lay in convert.flax_named_parameters(tmodel)]
+    tleaves = [convert._to_torch(torch.from_numpy(a), lay).contiguous()
+               for a, lay in zip(jleaves, layouts)]
+    return jleaves, tleaves, layouts
+
+
+@pytest.mark.parametrize("world", [1, 2, 3])
+@pytest.mark.parametrize("name", ["lm", "convnet"])
+def test_flax_layout_buckets_match_jax_elementwise(name, world):
+    """With each leaf's flax layout, the port packs every bucket element
+    for element as the JAX package does (the LM's attention kernels
+    transposed and split into heads, the conv kernels OIHW -> HWIO), so
+    ZeRO-1's rows are JAX's rows; unpacking gives back each torch leaf,
+    exactly. Without the layouts a 2-d leaf lands transposed."""
+    jleaves, tleaves, layouts = _layout_leaves(name)
+    kinds = {"lm": {"heads_in", "heads_out", "linear"},
+             "convnet": {"conv", "linear"}}[name]
+    assert kinds <= set(layouts)
+    want = jfusion.bucket_schedule(jleaves, world, threshold_bytes=4096,
+                                   axes=("data",))
+    got = tfusion.bucket_schedule(
+        tleaves, world, threshold_bytes=4096,
+        perms=[convert.flax_perm(lay) for lay in layouts])
+    plain = tfusion.bucket_schedule(tleaves, world, threshold_bytes=4096)
+    assert len(got.buckets) == len(want.buckets) > 1
+    differs = 0
+    for i in range(len(got.buckets)):
+        jflat = np.asarray(jfusion._pack_padded(want, i, jleaves))
+        flat = tfusion.pack_padded(got, i, tleaves)
+        np.testing.assert_array_equal(flat.numpy(), jflat)
+        differs += not np.array_equal(
+            tfusion.pack_padded(plain, i, tleaves).numpy(), jflat)
+        for j, t in tfusion.unpack_bucket(got, i, flat, tleaves).items():
+            assert t.shape == tleaves[j].shape
+            assert torch.equal(t, tleaves[j])
+        rows = jflat.reshape(world, -1)
+        for r in range(world):
+            np.testing.assert_array_equal(
+                flat[r * got.shard_sizes[i]:
+                     (r + 1) * got.shard_sizes[i]].numpy(), rows[r])
+    assert differs > 0
 
 
 def _mixed_leaves():

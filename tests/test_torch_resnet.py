@@ -231,9 +231,9 @@ def test_full_size_leaves_match_flax(name, millions):
     j_leaves = jax.tree_util.tree_leaves_with_path(shapes["params"])
     tmodel = tbench.make_model(name, dtype=torch.float32)
     leaves = list(convert.flax_named_parameters(tmodel))
-    assert [n for n, _ in leaves] == [
+    assert [n for n, _, _ in leaves] == [
         "/".join(k.key for k in p) for p, _ in j_leaves]
-    for (n, p), (_, j) in zip(leaves, j_leaves):
+    for (n, p, _), (_, j) in zip(leaves, j_leaves):
         assert sorted(p.shape) == sorted(j.shape), n
         assert p.numel() == int(np.prod(j.shape)), n
     total = sum(p.numel() for p in tmodel.parameters())
@@ -311,7 +311,7 @@ def test_flax_order_buckets_match_jax(threshold):
     params, _ = _init(_jax_net("basic"), x)
     leaves = jax.tree_util.tree_leaves(params)
     tmodel = _torch_net("basic")
-    tleaves = [p for _, p in convert.flax_named_parameters(tmodel)]
+    tleaves = [p for _, p, _ in convert.flax_named_parameters(tmodel)]
     for world in (1, 2):
         want = jfusion.bucket_schedule(leaves, world,
                                        threshold_bytes=threshold,
@@ -510,3 +510,93 @@ def test_make_train_step_batchnorm_matches_jax_world_two(jax_world,
             final = tuple(_nested(t) for t in got["final"])
             _assert_step_matches(got["losses"], final, j_losses, j_final,
                                  start)
+
+
+def _xent64(logits, labels):
+    """The loss in fp64 on both sides (the models hand back fp32 logits,
+    rounded alike from the same fp64 values)."""
+    if isinstance(logits, torch.Tensor):
+        logp = torch.log_softmax(logits.double(), dim=-1)
+        return -logp.gather(-1, labels[..., None].long())[..., 0].mean()
+    logp = jax.nn.log_softmax(logits.astype(jnp.float64), axis=-1)
+    return -jnp.mean(jnp.take_along_axis(logp, labels[..., None],
+                                         axis=-1)[..., 0])
+
+
+@pytest.mark.parametrize("case", STEP_CASES, ids=_case_id)
+def test_make_train_step_batchnorm_matches_jax_fp64(jax_world, case):
+    """The BatchNorm train step in fp64 on both sides (JAX under
+    ``enable_x64``, the port's ResNet in float64), where rounding no
+    longer hides a gap: 3 steps of the bottleneck net, each leaf of the
+    parameters and statistics within 1e-12 + 1e-9 max|x - x0| of JAX's
+    (the fp32 test allows 5e-2), losses within rtol 1e-12."""
+    accum, overlap, sharded = case
+    x, y = _step_data()
+    x = x.astype(np.float64)
+    params, stats = _init(_jax_net("bottleneck"), x.astype(np.float32),
+                          seed=0)
+    with jax.enable_x64(True):
+        mesh = jax_world(1)
+        stages, block = NETS["bottleneck"]
+        jmodel = jresnet.ResNet(stage_sizes=stages,
+                                block_cls=getattr(jresnet, block),
+                                num_filters=8, num_classes=CLASSES,
+                                dtype=jnp.float64)
+        tx = hvd_j.DistributedOptimizer(optax.sgd(LR, momentum=0.9),
+                                        sharded_update=sharded)
+        p64 = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, jnp.float64), params)
+        state = training.TrainState(
+            params=p64, opt_state=tx.init(p64),
+            batch_stats=jax.tree_util.tree_map(
+                lambda a: jnp.asarray(a, jnp.float64), stats),
+            step=jnp.zeros((), jnp.int32))
+        step = training.make_train_step(jmodel, tx, mesh=mesh, donate=False,
+                                        loss_fn=_xent64, accum_steps=accum,
+                                        overlap_grads=overlap)
+        j_losses = []
+        for _ in range(STEPS):
+            state, loss = step(state, jnp.asarray(x), jnp.asarray(y))
+            j_losses.append(float(loss))
+        assert jax.tree_util.tree_leaves(state.params)[0].dtype == \
+            jnp.float64
+        j_final = jax.tree_util.tree_map(
+            np.asarray, (state.params, state.batch_stats))
+
+    hvd_t.shutdown()
+    hvd_t.init(device="cpu")
+    try:
+        tmodel = _load(resnet.ResNet(stages, getattr(resnet, block),
+                                     num_filters=8, num_classes=CLASSES,
+                                     dtype=torch.float64).double(),
+                       params, stats)
+        opt = hvd_t.DistributedOptimizer(
+            torch.optim.SGD(tmodel.parameters(), lr=LR, momentum=0.9),
+            named_parameters=convert.flax_named_parameters(tmodel),
+            sharded_update=sharded)
+        tstep = t_training.make_train_step(tmodel, opt, loss_fn=_xent64,
+                                           accum_steps=accum,
+                                           overlap_grads=overlap)
+        losses = [float(tstep(_nchw(x), torch.from_numpy(y)))
+                  for _ in range(STEPS)]
+        sd = tmodel.state_dict()
+        assert sd["head.weight"].dtype == torch.float64
+        # flax-layout trees at the model's own dtype
+        final = (jax.tree_util.tree_map(
+            lambda t: np.array(t.detach().numpy()),
+            convert.train_state_trees(tmodel)[0]),
+            convert._nest([(path, sd[name].numpy())
+                           for path, name in convert._stats_table(tmodel)]))
+    finally:
+        hvd_t.shutdown()
+    np.testing.assert_allclose(losses, j_losses, rtol=1e-12)
+    for got, want, start in zip(final, j_final, (params, stats)):
+        for (path, a), b, c in zip(
+                jax.tree_util.tree_leaves_with_path(want),
+                jax.tree_util.tree_leaves(got),
+                jax.tree_util.tree_leaves(start)):
+            a, c = np.asarray(a), np.asarray(c, np.float64)
+            np.testing.assert_allclose(
+                np.asarray(b), a, rtol=0,
+                atol=1e-12 + 1e-9 * float(np.abs(a - c).max()),
+                err_msg=jax.tree_util.keystr(path))

@@ -173,3 +173,68 @@ def test_distributed_optimizer_averages_across_two_processes():
         np.testing.assert_allclose(delta, np.full((2, 3), 1.5))
         assert mx == 1.0 and sm == 1.0 and gathered == [0, 1]
     assert results[0][2] == results[1][2]  # same broadcast weights
+
+
+def _convnet_run(steps, resume_at=None, tmp=None, keep_count=True):
+    """The MNISTConvNet trained ``steps`` steps (SGD with momentum, 2
+    microbatches, dropout in training mode) on a fixed batch; with
+    ``resume_at`` the run saves at that step through ``ckpt``, and a
+    fresh model, optimizer and step restore it and go on. Returns each
+    microbatch's local loss and the final parameters. ``keep_count=False``
+    restarts the step count at 0 after the restore, as a count that a
+    checkpoint does not carry would."""
+    from horovod_tpu_torch import ckpt
+    from horovod_tpu_torch.models.simple import MNISTConvNet
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((4, 8, 8, 1)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, size=(4,)))
+    local = []
+
+    def loss_fn(logits, labels):
+        loss = t_training.softmax_cross_entropy(logits, labels)
+        local.append(loss.item())
+        return loss
+
+    def build():
+        model = MNISTConvNet(image_shape=(8, 8, 1))
+        opt = hvd_t.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
+            named_parameters=convert.flax_named_parameters(model))
+        return model, opt, t_training.make_train_step(
+            model, opt, loss_fn=loss_fn, dropout_seed=7, accum_steps=2)
+
+    model, opt, step = build()
+    for i in range(steps):
+        if i == resume_at:
+            ckpt.save_sharded(tmp, i, convert.train_state_to_flat(
+                model, opt, step.state))
+            model, opt, step = build()  # a new process would start so
+            target = convert.train_state_to_flat(model, opt, step.state)
+            _, flat, _ = ckpt.restore_sharded(tmp, target)
+            convert.train_state_from_flat(model, opt, step.state, flat)
+            assert step.state.step == resume_at
+            if not keep_count:
+                step.state.step = 0
+        step(x, y)
+    return local, [p.detach().clone() for p in model.parameters()]
+
+
+def test_dropout_masks_survive_a_restore(cpu_world, tmp_path):
+    """The dropout stream is keyed by the checkpointed step count
+    (``StepState``, the JAX ``TrainState.step``), not by the step
+    builder's own calls: 4 steps with a save and restore after 2 draw the
+    masks of 4 unbroken steps, so losses and parameters equal them bit
+    for bit; a restore that lost the count (step 0) draws step 0's masks
+    again and does not."""
+    unbroken, p_unbroken = _convnet_run(4)
+    resumed, p_resumed = _convnet_run(4, resume_at=2, tmp=str(tmp_path))
+    assert resumed == unbroken
+    for a, b in zip(p_resumed, p_unbroken):
+        assert torch.equal(a, b)
+    # each step and microbatch drew its own masks
+    assert len(set(unbroken)) == len(unbroken) == 8
+    # a count restarted at 0 replays step 0's masks on step 2's weights
+    lost, _ = _convnet_run(4, resume_at=2, tmp=str(tmp_path / "lost"),
+                           keep_count=False)
+    assert lost[:4] == unbroken[:4] and lost[4:] != unbroken[4:]
