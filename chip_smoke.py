@@ -48,14 +48,21 @@ runs these phases; any failure raises:
   restore;
 * 8b: 7b's ResNet-101 state (ZeRO-1 AdamW rows, BatchNorm statistics)
   saved and restored into a fresh model: every tensor bit for bit, and
-  the next step's loss against the unbroken run's.
+  the next step's loss against the unbroken run's;
+* 9: the port's launcher: ``--check-build``; 9a phase 5's LM trained by
+  ``examples/lm_benchmark.py`` under ``python -m horovod_tpu_torch.run
+  -np 1`` with the startup broadcast, warmup and metric callbacks: each
+  kernel once per layer and step, a falling loss, the warmup's rates,
+  tokens/s beside phase 5's; 9b ``run(probe, np=1)``, an allreduce on
+  the card through the programmatic launcher; 9c a job whose rank
+  raises exits 1 within the grace period.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
 
 Phases 4, 4b, 5, 6a, 6b, 6c and 8a each count the kernels' launches from 0
 on the card and must launch each kernel once per layer and microbatch
-and step. The
+and step; 9a's worker counts its own. The
 last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -559,7 +566,7 @@ def _drive(label, hvd, fa, torch, bench, step, batch, want, per_step_tokens,
     set to 0 just before and read just after; print the step time,
     tokens/s, peak memory, the exchange and the launches; hold the
     losses (finite, falling) and the launches (``want`` of each kernel).
-    Returns the losses and the launches."""
+    Returns the losses, the launches and the median step ms."""
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()  # count only this path's launches
     losses, times = [], []
@@ -593,7 +600,7 @@ def _drive(label, hvd, fa, torch, bench, step, batch, want, per_step_tokens,
                              "of each")
     if profile:
         profile_step(torch, lambda: step(*batch), step_ms)
-    return losses, launches
+    return losses, launches, step_ms
 
 
 def _schedule_line(schedule):
@@ -627,12 +634,13 @@ def phase_full(hvd, fa, torch, bench):
         return (f"fused allreduce: {len(buckets)} buckets, "
                 f"{sum(b.nbytes for b in buckets) / 1e6:.1f} MB per step")
 
-    losses, launches = _drive(
+    losses, launches, step_ms = _drive(
         "5", hvd, fa, torch, bench, step, (tokens,),
         LM["layers"] * STEPS, LM["batch"] * LM["seq_len"], exchange,
         profile=True)
+    tok_s = LM["batch"] * LM["seq_len"] * hvd.size() / step_ms * 1e3
     hvd.shutdown()
-    return losses, launches
+    return losses, launches, tok_s
 
 
 def phase_parity_exchange(hvd, fa, torch):
@@ -714,7 +722,7 @@ def phase_exchange_full(hvd, fa, torch, bench, phase5_losses):
     step, model, opt, tokens = _lm_bench(bench, torch, seq_len=seq,
                                          sharded_update=True)
     schedule = opt.zero_state.plan.schedule
-    losses, _ = _drive("6a", hvd, fa, torch, bench, step, (tokens,),
+    losses, _, _ = _drive("6a", hvd, fa, torch, bench, step, (tokens,),
                        layers * STEPS, LM["batch"] * seq,
                        lambda: "ZeRO-1 " + _schedule_line(schedule))
     # the same weights and batch as phase 5, and at world 1 the same
@@ -1435,6 +1443,136 @@ RESNET_LAYERS = (("BatchNorm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
                    "max_pool", "Memcpy", "Memset")))
 
 
+def _hvdrun(argv, timeout):
+    """``python -m horovod_tpu_torch.run *argv`` from this checkout, its
+    output captured. Returns the completed process and its seconds."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    t = time.perf_counter()
+    rv = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.run",
+                         *argv], cwd=ROOT, env=env, capture_output=True,
+                        text=True, timeout=timeout)
+    return rv, time.perf_counter() - t
+
+
+def _hvdrun_ok(label, argv, timeout):
+    rv, secs = _hvdrun(argv, timeout)
+    if rv.returncode != 0:
+        raise AssertionError(f"{label}: hvdrun exited {rv.returncode}:\n"
+                             f"{rv.stdout[-3000:]}\n{rv.stderr[-6000:]}")
+    return rv, secs
+
+
+# 9c's worker: rank 1 uses the card and raises, rank 0 would sleep for
+# ten minutes unless the launcher's fan-out terminates it
+_FAILING_WORKER = """
+import os, sys, time
+import torch
+if os.environ["HOROVOD_RANK"] == "1":
+    torch.ones(1, device="cuda").sum().item()
+    print("RAISING_AT", time.time(), file=sys.stderr, flush=True)
+    raise RuntimeError("planted failure on rank 1")
+time.sleep(600)
+"""
+
+
+def phase_launch(hvd, torch, kind, phase5_tok_s):
+    """9: the port's own launcher. 9a trains phase 5's LM under
+    ``hvdrun -np 1`` through the callbacks (examples/lm_benchmark.py);
+    9b ships a function of the package through ``run()``; 9c a job
+    whose rank raises must fail, and fast."""
+    from horovod_tpu_torch.examples.probe import probe
+    from horovod_tpu_torch.run import launcher
+    from horovod_tpu_torch.run import run as hvd_run
+
+    # the worker needs the card's memory that this process's caching
+    # allocator holds after the earlier phases
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    print("== phase 9: the port's launcher (hvdrun)")
+    rv, _ = _hvdrun_ok("--check-build", ["--check-build"], 120)
+    for line in rv.stdout.splitlines():
+        print("  " + line)
+
+    print("== phase 9a: full-width LM under hvdrun -np 1 with the "
+          "callbacks")
+    warmup = 1
+    rv, secs = _hvdrun_ok("9a", [
+        "-np", "1", sys.executable, "-m",
+        "horovod_tpu_torch.examples.lm_benchmark",
+        "--batch", str(LM["batch"]), "--seq-len", str(LM["seq_len"]),
+        "--layers", str(LM["layers"]), "--d-model", str(LM["d_model"]),
+        "--heads", str(LM["heads"]), "--vocab", str(LM["vocab"]),
+        "--steps", str(STEPS), "--warmup", str(warmup)], 600)
+    out = json.loads([ln for ln in rv.stdout.splitlines()
+                      if ln.startswith("{")][-1])
+    losses, lrs = out["losses"], out["lrs"]
+    warm = out["warm_steps"]
+    ran = len(losses)
+    print(f"  9a losses {[round(x, 5) for x in losses]}")
+    print(f"  9a learning rates {lrs}")
+    print(f"  9a step ms {[round(x, 2) for x in out['step_ms']]}; epoch "
+          f"losses averaged by MetricAverageCallback {out['epoch_losses']}")
+    print(f"  9a launches {out['launches']} over {ran} steps")
+    print(f"  9a worker: imports {out['import_s']:.2f} s, init "
+          f"{out['init_s']:.2f} s, first device allocation "
+          f"{out['context_s']:.2f} s, kernel library load "
+          f"{out['kernel_load_s']:.3f} s, model build and broadcast "
+          f"{out['build_s']:.2f} s; hvdrun wall {secs:.2f} s, of it "
+          f"{sum(out['step_ms']) / 1e3:.2f} s in the {ran} steps")
+    print(f"  9a tokens/s {out['value']:.1f} (median of the {STEPS} timed "
+          f"steps) against phase 5's {phase5_tok_s:.1f} in this call "
+          "(reported, not held: host step times swing between calls)")
+    want = LM["layers"] * (1 + warmup + STEPS)
+    if ran != 1 + warmup + STEPS or warm != 1 + warmup:
+        raise AssertionError(f"9a: ran {ran} steps, {warm} warm")
+    if out["launches"] != {"fwd": want, "dq": want, "dkv": want}:
+        raise AssertionError(f"9a: launches {out['launches']}, want "
+                             f"{want} of each")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"9a: losses not finite and falling: {losses}")
+    # LearningRateWarmupCallback: the first epoch's batches ramp from the
+    # rate to size() times it, the second holds the target
+    lr0, world = out["initial_lr"], out["world"]
+    expect = [lr0 * world if i >= warm
+              else lr0 + (lr0 * world - lr0) * (i / warm)
+              for i in range(ran)]
+    if lrs != expect:
+        raise AssertionError(f"9a: learning rates {lrs}, want {expect}")
+    if out["device"] != "cuda" or out["device_name"] != kind:
+        raise AssertionError(f"9a: ran on {out['device']} "
+                             f"{out['device_name']}")
+
+    print("== phase 9b: run(probe, np=1): an allreduce on the card through "
+          "the programmatic launcher")
+    t = time.perf_counter()
+    results = hvd_run(probe, np=1)
+    print(f"  9b results {results} in {time.perf_counter() - t:.2f} s")
+    if results != [(0, 1, kind, [1.0] * 4)]:
+        raise AssertionError(f"9b: {results}, want rank 0 of 1 on {kind} "
+                             "averaging to 1.0")
+
+    print("== phase 9c: a rank that raises fails the job")
+    rv, secs = _hvdrun(["-np", "2", sys.executable, "-c", _FAILING_WORKER],
+                       300)
+    ended = time.time()
+    raised = [float(ln.split()[1]) for ln in rv.stderr.splitlines()
+              if ln.startswith("RAISING_AT")]
+    grace = launcher.grace_seconds()
+    late = ended - raised[0] if raised else math.inf
+    print(f"  9c hvdrun exit {rv.returncode} after {secs:.2f} s, "
+          f"{late:.2f} s after rank 1 raised (grace {grace:.0f} s)")
+    print("  9c " + rv.stderr.strip().splitlines()[-1])
+    if rv.returncode != 1 or late > grace or \
+            "process with rank 1 exited with code 1" not in rv.stderr:
+        raise AssertionError(f"9c: want exit 1 within {grace} s of rank "
+                             f"1's failure:\n{rv.stderr[-4000:]}")
+
+
 def profile_step(torch, run, step_ms, layers=LAYERS):
     """Device time by layer and by kernel over one more ``run()``, read
     from the profiler's trace (kernels, copies and memsets only), and the
@@ -1537,11 +1675,12 @@ def main(argv=None):
     phase_parity(fa, torch, dev)
     phase_parity_exchange(hvd, fa, torch)
     phase_parity_resnet(hvd, torch)
-    losses, launches = phase_full(hvd, fa, torch, bench)
+    losses, launches, phase5_tok_s = phase_full(hvd, fa, torch, bench)
     phase_exchange_full(hvd, fa, torch, bench, losses)
     phase_resnet(hvd, torch, bench)
     phase_resume(hvd, fa, torch, bench)
     phase_resume_resnet(hvd, torch, bench)
+    phase_launch(hvd, torch, kind, phase5_tok_s)
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):

@@ -131,6 +131,10 @@ def shutdown():
         if not _state.initialized:
             return
         dist.destroy_process_group()
+        # a step function's closure may keep this mesh past shutdown; its
+        # group must not live on into interpreter exit, where destroying
+        # a gloo group can abort the process
+        object.__setattr__(_state.mesh, "group", None)
         mesh_lib.set_mesh(None)
         _state.initialized = False
         _state.mesh = None

@@ -7,6 +7,9 @@ import os
 
 # Default tensor-fusion buffer size: 64 MB, Horovod's default.
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
+# The tuning variables that Config reads; hvdrun says of every other one
+# it sets that the port does not act on it.
+ACTED_ON = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_WIRE_DTYPE")
 
 
 def _env_int(name, default):

@@ -73,16 +73,25 @@ class Pending:
     """A collective issued with ``async_op=True``: ``wait()`` blocks (on
     the card: makes the current stream wait) until its works have ended
     and returns ``finish()``, the output. It holds ``keep`` (the input
-    buffers) until then, so they outlive the collective that reads them."""
+    buffers) until then, so they outlive the collective that reads them.
+
+    ``finish`` runs once: a second ``wait()`` returns the same output
+    (an Average is not divided twice). The first drops the works and
+    ``finish``, whose closure holds the mesh, so a waited ``Pending``
+    kept past ``shutdown()`` does not keep the process group alive into
+    interpreter exit, where destroying it can abort the process."""
 
     def __init__(self, works, finish, keep=()):
         self._works, self._finish, self._keep = works, finish, keep
+        self._out = None
 
     def wait(self):
-        for work in self._works:
-            work.wait()
-        self._works, self._keep = (), ()
-        return self._finish()
+        if self._finish is not None:
+            for work in self._works:
+                work.wait()
+            self._out = self._finish()
+            self._works, self._finish, self._keep = (), None, ()
+        return self._out
 
 
 # fp8 payloads cross the wire as their bytes: gloo has no fp8 type, and

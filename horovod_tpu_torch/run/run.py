@@ -1,0 +1,358 @@
+"""The hvdrun CLI of the port: the port of ``horovod_tpu/run/run.py``.
+
+    python -m horovod_tpu_torch.run -np 2 python train.py
+    hvdrun-torch -np 8 -H host1:4,host2:4 python train.py
+    hvdrun-torch -np 4 --config-file cfg.yaml python train.py
+
+The parser is the JAX package's, so one argv parses to the same
+namespace in both. The launch is the fixed-size one. Flags whose plane
+the port has not yet are refused with exit code 2 and the ``ROADMAP.md``
+item that brings them (``REFUSED``). Tuning flags set the same
+``HOROVOD_*`` env as the JAX package's; of each the port's ``init()``
+does not read, hvdrun says so on stderr.
+"""
+
+import argparse
+import os
+import socket
+import sys
+
+from horovod_tpu_torch.config import ACTED_ON
+from horovod_tpu_torch.run import allocation, config_parser, launcher
+from horovod_tpu_torch.run import cache as run_cache
+from horovod_tpu_torch.run import secret as _secret
+from horovod_tpu_torch.run.discovery import DriverService
+from horovod_tpu_torch.run.rendezvous import KVStoreServer
+
+TASK_FN = "horovod_tpu_torch.run.task_fn"
+
+# (dest, flag, what the flag needs, the ROADMAP.md Queue 1 item that
+# brings it)
+REFUSED = (
+    ("min_np", "--min-np", "elastic training", 6),
+    ("max_np", "--max-np", "elastic training", 6),
+    ("host_discovery_script", "--host-discovery-script",
+     "elastic training", 6),
+    ("chaos", "--chaos", "the fault injector", 6),
+    ("doctor", "--doctor", "the diagnosis plane", 5),
+    ("goodput_report", "--goodput-report", "the telemetry plane", 5),
+    ("merge_timeline", "--merge-timeline", "the telemetry plane", 5),
+    ("jax_coordinator", "--jax-coordinator",
+     "one process mesh across processes (cluster/procmesh.py)", 4),
+    ("spmd_procs", "--spmd-procs",
+     "one process mesh across processes (cluster/procmesh.py)", 4),
+    ("spmd_local_devices", "--spmd-local-devices",
+     "one process mesh across processes (cluster/procmesh.py)", 4),
+)
+
+
+def _version():
+    from horovod_tpu_torch import __version__
+    return f"hvdrun-torch (horovod_tpu_torch) {__version__}"
+
+
+def check_build():
+    """Print the planes this installation has: PyTorch and CUDA, the
+    process-group backends, and the CUDA compiler the kernels build
+    with."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import _build
+
+    def box(ok):
+        return "X" if ok else " "
+
+    try:
+        nvcc = _build.nvcc_path()
+    except RuntimeError:
+        nvcc = None
+    lines = [
+        _version(),
+        "",
+        "Available frameworks:",
+        f"    [X] PyTorch {torch.__version__}",
+        f"    [{box(torch.cuda.is_available())}] CUDA "
+        f"({torch.cuda.device_count()} device(s), "
+        f"CUDA {torch.version.cuda})",
+        "",
+        "Available controllers:",
+        f"    [{box(dist.is_available())}] torch.distributed "
+        "(TCP store, found through the launcher's key-value store)",
+        "",
+        "Available tensor operations:",
+        f"    [{box(dist.is_available() and dist.is_nccl_available())}] "
+        "NCCL",
+        f"    [{box(dist.is_available() and dist.is_gloo_available())}] "
+        "gloo",
+        "",
+        "Kernel build:",
+        f"    [{box(nvcc)}] nvcc{f' ({nvcc})' if nvcc else ''}",
+    ]
+    try:
+        print("\n".join(lines))
+    except BrokenPipeError:  # `hvdrun -cb | head` closing early is fine
+        pass
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="hvdrun-torch",
+        description="Launch a horovod_tpu_torch training job "
+                    "(one process per slot; no MPI required).")
+    p.add_argument("-v", "--version", action="version",
+                   version=_version(),
+                   help="show the horovod_tpu_torch version and exit")
+    p.add_argument("-cb", "--check-build", action="store_true",
+                   help="print which planes this installation has, then "
+                        "exit")
+    p.add_argument("-np", "--num-proc", type=int,
+                   help="total number of training processes")
+    p.add_argument("-H", "--hosts", default=None,
+                   help='host slots, e.g. "h1:4,h2:4" (default: localhost)')
+    p.add_argument("--hostfile", default=None,
+                   help="file with lines 'hostname slots=N'")
+    p.add_argument("-p", "--ssh-port", type=int, default=None)
+    p.add_argument("--start-timeout", type=int, default=600)
+    p.add_argument("--output-dir", default=None,
+                   help="write per-rank logs to this directory")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--config-file", default=None,
+                   help="YAML file providing any of the tuning params")
+    p.add_argument("--jax-coordinator", action="store_true",
+                   help="refused: ROADMAP.md Queue 1 item 4")
+    p.add_argument("--spmd-procs", type=int, default=None, metavar="N",
+                   help="refused: ROADMAP.md Queue 1 item 4")
+    p.add_argument("--spmd-local-devices", type=int, default=None,
+                   metavar="K", help="refused: ROADMAP.md Queue 1 item 4")
+    p.add_argument("--network-interface", "--nic", dest="nic", default=None,
+                   help="restrict control-plane traffic to this interface "
+                        "(skips automatic interface discovery)")
+    p.add_argument("--no-interface-discovery", action="store_true",
+                   help="skip the multi-host NIC discovery pre-flight")
+
+    el = p.add_argument_group("elastic (refused: ROADMAP.md Queue 1 "
+                              "item 6)")
+    el.add_argument("--min-np", type=int, default=None)
+    el.add_argument("--max-np", type=int, default=None)
+    el.add_argument("--host-discovery-script", default=None)
+    el.add_argument("--elastic-poll-interval", type=float, default=2.0)
+
+    tune = p.add_argument_group("tuning (sets HOROVOD_* env)")
+    tune.add_argument("--fusion-threshold-mb", type=int, default=None)
+    tune.add_argument("--cycle-time-ms", type=float, default=None)
+    tune.add_argument("--cache-capacity", type=int, default=None)
+    tune.add_argument("--disable-cache", action="store_true",
+                      help="disable the launcher's NIC-discovery cache "
+                           "(a fresh probe) and set "
+                           "HOROVOD_CACHE_CAPACITY=0")
+    tune.add_argument("--hierarchical-allreduce", action="store_true")
+    tune.add_argument("--hierarchical-allgather", action="store_true")
+    tune.add_argument("--autotune", action="store_true")
+    tune.add_argument("--autotune-log-file", default=None)
+    tune.add_argument("--autotune-warmup-samples", type=int, default=None)
+    tune.add_argument("--autotune-steps-per-sample", type=int, default=None)
+    tune.add_argument("--autotune-sample-repeats", type=int, default=None)
+    tune.add_argument("--autotune-bayes-opt-max-samples", type=int,
+                      default=None)
+    tune.add_argument("--autotune-gaussian-process-noise", type=float,
+                      default=None)
+    tune.add_argument("--timeline-filename", default=None)
+    tune.add_argument("--timeline-mark-cycles", action="store_true")
+    tune.add_argument("--metrics-port", type=int, default=None)
+    tune.add_argument("--metrics-addr", default=None)
+    tune.add_argument("--no-stall-check", action="store_true")
+    tune.add_argument("--stall-warning-time-seconds", type=float,
+                      default=None)
+    tune.add_argument("--stall-shutdown-time-seconds", type=float,
+                      default=None)
+    tune.add_argument("--log-level", default=None,
+                      choices=["trace", "debug", "info", "warning",
+                               "error", "fatal"])
+
+    p.add_argument("--chaos", metavar="SPEC", default=None,
+                   help="refused: ROADMAP.md Queue 1 item 6")
+    p.add_argument("--doctor", metavar="LOGDIR", default=None,
+                   help="refused: ROADMAP.md Queue 1 item 5")
+    p.add_argument("--no-doctor", action="store_true",
+                   help="accepted; the port runs no doctor yet")
+    p.add_argument("--goodput-report", metavar="LOGDIR", default=None,
+                   help="refused: ROADMAP.md Queue 1 item 5")
+    p.add_argument("--merge-timeline", metavar="OUT", default=None,
+                   help="refused: ROADMAP.md Queue 1 item 5")
+    p.add_argument("command", nargs=argparse.REMAINDER,
+                   help="training command, e.g. python train.py")
+    return p
+
+
+def parse_args(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.command and args.command[0] == "--":
+        args.command = args.command[1:]  # `hvdrun -np 4 -- python ...`
+    if args.config_file:
+        defaults = {a.dest: a.default for a in parser._actions}
+        config_parser.load_config_file(args.config_file, args, defaults)
+    for dest, flag, plane, item in REFUSED:
+        if getattr(args, dest) not in (None, False):
+            parser.error(f"{flag} needs {plane}, which horovod_tpu_torch "
+                         f"does not have yet (ROADMAP.md Queue 1 item "
+                         f"{item})")
+    args.elastic = False
+    # after the config overlay: the YAML may supply num-proc
+    if not args.check_build and args.num_proc is None:
+        parser.error("-np/--num-proc is required")
+    return args
+
+
+def _discover_interfaces(hosts, auth_key, kv_port, args, extra_env):
+    """The multi-host pre-flight: one discovery task per host, a ring
+    probe, and the interface names routable between every pair of
+    adjacent hosts."""
+    launcher_ip = launcher.this_host_addr()
+    env = {_secret.SECRET_ENV: _secret.encode_key(auth_key),
+           "PYTHONPATH": extra_env.get("PYTHONPATH",
+                                       os.environ.get("PYTHONPATH", ""))}
+    procs = []
+    for idx, h in enumerate(hosts):
+        cmd = [sys.executable, "-m", TASK_FN, str(idx), str(len(hosts)),
+               launcher_ip, str(kv_port), str(args.start_timeout)]
+        procs.append(launcher.spawn(h.hostname, cmd, env,
+                                    ssh_port=args.ssh_port))
+
+    def _alive():  # a non-zero exit means an ssh or start-up failure
+        return not any(p.poll() not in (None, 0) for p in procs)
+
+    driver = DriverService(len(hosts), launcher_ip, kv_port, auth_key,
+                           liveness=_alive)
+    try:
+        driver.wait_for_registrations(timeout=args.start_timeout)
+        common = driver.wait_for_probes(timeout=args.start_timeout)
+        if not common:
+            raise RuntimeError(
+                "interface discovery found NO interface routable across "
+                "all hosts (interfaces must share a name on every host; "
+                "NAT'ed paths are rejected)")
+    except (TimeoutError, RuntimeError) as e:
+        for p in procs:
+            p.kill()
+        raise RuntimeError(
+            f"hvdrun: interface discovery failed: {e}\n"
+            f"Check ssh connectivity and interface naming, or pass "
+            f"--network-interface / --no-interface-discovery") from e
+    for p in procs:
+        p.wait()
+    if args.verbose:
+        print(f"hvdrun: common routable interfaces: {common}",
+              file=sys.stderr)
+    return common
+
+
+def _nic_cache_key(hosts):
+    """The NIC pre-flight's cache key, which names the launching host
+    too: the elected set is over paths from this machine."""
+    return ("nics:" + socket.gethostname() + ":"
+            + ",".join(sorted({h.hostname for h in hosts})))
+
+
+def _common_interfaces(args, hosts, discover_fn):
+    """The same host set within the cache's lifetime has the same
+    routable NICs; ``--disable-cache`` forces a fresh probe."""
+    cache_key = _nic_cache_key(hosts)
+    nic_cache = run_cache.Cache()
+    common = (None if getattr(args, "disable_cache", False)
+              else nic_cache.get(cache_key))
+    if common is None:
+        common = sorted(discover_fn())
+        nic_cache.put(cache_key, common)
+    elif args.verbose:
+        print(f"hvdrun: cached routable interfaces: {common}",
+              file=sys.stderr)
+    return common
+
+
+def _host_list_from_args(args):
+    if args.hostfile:
+        return allocation.parse_hostfile(args.hostfile)
+    if args.hosts:
+        return allocation.parse_hosts(args.hosts)
+    return [allocation.HostSlots("localhost", args.num_proc)]
+
+
+def _start_kv(all_local):
+    """The job's key-value store: across hosts with a per-run key and a
+    network bind; on this host alone loopback and unauthenticated.
+    Returns ``(kv, auth_key, port)``."""
+    auth_key = None if all_local else _secret.make_secret_key()
+    kv = KVStoreServer(host="127.0.0.1" if all_local else "0.0.0.0",
+                       auth_key=auth_key)
+    return kv, auth_key, kv.start()
+
+
+def _base_worker_env(args, auth_key, all_local, hosts, rendezvous_port):
+    """The workers' extra env: the tuning knobs, the run's secret, and
+    HOROVOD_COMMON_INTERFACES (``--nic``, or the NIC pre-flight of a job
+    across hosts)."""
+    extra_env = config_parser.args_to_env(args)
+    for var in sorted(set(extra_env) - set(ACTED_ON)):
+        print(f"hvdrun: horovod_tpu_torch does not act on {var} yet",
+              file=sys.stderr)
+    if auth_key is not None:
+        extra_env[_secret.SECRET_ENV] = _secret.encode_key(auth_key)
+    if args.nic:
+        extra_env["HOROVOD_COMMON_INTERFACES"] = args.nic
+    elif not all_local and hosts and not args.no_interface_discovery:
+        common = _common_interfaces(
+            args, hosts,
+            lambda: _discover_interfaces(hosts, auth_key, rendezvous_port,
+                                         args, extra_env))
+        if common:
+            extra_env["HOROVOD_COMMON_INTERFACES"] = ",".join(common)
+    return extra_env
+
+
+def _run(args):
+    if not args.command:
+        raise SystemExit("hvdrun: no training command given")
+    hosts = _host_list_from_args(args)
+    slots = allocation.allocate(hosts, args.num_proc)
+    # rank 0's host; port 0: a JAX worker's native core binds there and
+    # publishes its port through the key-value store
+    controller_addr = slots[0].hostname
+    if controller_addr in launcher.LOCAL_HOSTS:
+        controller_addr = "127.0.0.1"
+    all_local = all(s.hostname in launcher.LOCAL_HOSTS for s in slots)
+    kv, auth_key, rendezvous_port = _start_kv(all_local)
+    try:
+        extra_env = _base_worker_env(args, auth_key, all_local, hosts,
+                                     rendezvous_port)
+        if args.verbose:
+            print(f"hvdrun: launching {args.num_proc} processes: "
+                  f"{[(s.rank, s.hostname, s.local_rank) for s in slots]}",
+                  file=sys.stderr)
+        job = launcher.launch(slots, args.command, controller_addr, 0,
+                              rendezvous_port=rendezvous_port,
+                              extra_env=extra_env, ssh_port=args.ssh_port,
+                              output_dir=args.output_dir)
+        job.wait()
+    finally:
+        kv.stop()
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.check_build:
+        check_build()
+        return 0
+    try:
+        _run(args)
+    except (RuntimeError, TimeoutError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    except KeyboardInterrupt:
+        return 130
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

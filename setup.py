@@ -42,8 +42,10 @@ setup(
               "horovod_tpu.utils",
               # the PyTorch/CUDA port; its kernels build from csrc/ at
               # first use (horovod_tpu_torch/_build.py)
-              "horovod_tpu_torch", "horovod_tpu_torch.models",
-              "horovod_tpu_torch.ops", "horovod_tpu_torch.parallel",
+              "horovod_tpu_torch", "horovod_tpu_torch.ckpt",
+              "horovod_tpu_torch.data", "horovod_tpu_torch.examples",
+              "horovod_tpu_torch.models", "horovod_tpu_torch.ops",
+              "horovod_tpu_torch.parallel", "horovod_tpu_torch.run",
               "horovod_tpu_torch.utils"],
     package_data={"horovod_tpu": ["lib/libhvdcore.so"],
                   "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
@@ -57,6 +59,7 @@ setup(
     entry_points={
         "console_scripts": [
             "hvdrun = horovod_tpu.run.run:main",
+            "hvdrun-torch = horovod_tpu_torch.run.run:main",
             "hvd-doctor = horovod_tpu.diag.doctor:doctor_cli",
             "hvd-lint = horovod_tpu.analysis.cli:main",
             "hvd-serve = horovod_tpu.serve.cli:main",

@@ -4,6 +4,8 @@ rule that the port imports neither JAX nor the JAX package."""
 
 import ast
 import pathlib
+import re
+import weakref
 
 import pytest
 import torch
@@ -112,6 +114,48 @@ def test_unsupported_ops_raise(fresh):
         hvd.allreduce(torch.ones(1, dtype=torch.int64), op=hvd.Average)
 
 
+def _pending_holding(obj, calls):
+    from horovod_tpu_torch.ops.collective import Pending
+
+    def finish():
+        calls.append(obj)
+        return torch.ones(2)
+
+    return Pending((), finish)
+
+
+def test_waited_pending_runs_finish_once_and_lets_go():
+    """``Pending.wait()`` runs ``finish`` once: a second wait returns the
+    same output, so an Average is not divided twice. Then the Pending no
+    longer holds what ``finish``'s closure held (in the collectives, the
+    mesh and with it the process group)."""
+    class Held:
+        pass
+
+    held, calls = Held(), []
+    ref = weakref.ref(held)
+    pending = _pending_holding(held, calls)
+    del held
+    out = pending.wait()
+    assert pending.wait() is out
+    assert len(calls) == 1
+    calls.clear()
+    assert ref() is None
+
+
+def test_shutdown_lets_go_of_the_group(fresh):
+    """A mesh kept past ``shutdown()`` (a step function's closure keeps
+    one) no longer holds the destroyed process group."""
+    from horovod_tpu_torch.parallel import mesh as mesh_lib
+    hvd.init(device="cpu")
+    kept = mesh_lib.get_mesh()
+    assert kept.group is not None
+    hvd.shutdown()
+    assert kept.group is None
+    hvd.init(device="cpu")
+    assert mesh_lib.get_mesh().group is not None
+
+
 def _imports(source):
     """Every module name that ``source`` imports, at any depth: import
     statements, and ``importlib.import_module`` / ``__import__`` of a
@@ -133,6 +177,28 @@ def _imports(source):
     return names
 
 
+# a module of the JAX package named in a string: the ``-m`` argv of a
+# launched process, which no import statement shows
+_JAX_MODULE = re.compile(r"^horovod_tpu(\.\w+)+$")
+
+
+def _jax_module_strings(source):
+    """Every string constant of ``source``, docstrings aside, that names
+    a module of the JAX package."""
+    tree = ast.parse(source)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs and _JAX_MODULE.match(n.value)]
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     kinds = ("import jax\nfrom flax import linen\n"
              "def f():\n    import horovod_tpu.ckpt\n"
@@ -141,14 +207,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert sorted(_imports(kinds)) == [
         "flax", "horovod_tpu.ckpt", "horovod_tpu_torch", "jax", "jaxlib",
         "optax"]
+    planted = ('"""horovod_tpu.run"""\n'
+               'class C:\n    """horovod_tpu.run.api"""\n'
+               'def f():\n    """horovod_tpu.run.safe_exec"""\n'
+               '    x = "horovod_tpu.run.task_fn"\n'
+               '    return ["-m", "horovod_tpu.run.safe_exec", "horovod_tpu",\n'
+               '            "horovod_tpu_torch.run.safe_exec", "horovod_tpu.",\n'
+               '            f"horovod_tpu.{x}", "a horovod_tpu.run b"]\n')
+    assert sorted(_jax_module_strings(planted)) == [
+        "horovod_tpu.run.safe_exec", "horovod_tpu.run.task_fn"]
     files = sorted((REPO / "horovod_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 30
     banned = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
     for f in files:
-        for name in _imports(f.read_text()):
+        source = f.read_text()
+        for name in _imports(source):
             top = name.split(".")[0]
             assert top not in banned, f"{f.relative_to(REPO)} imports {name}"
+        named = _jax_module_strings(source)
+        assert not named, f"{f.relative_to(REPO)} names {named}"
 
 
 

@@ -151,3 +151,71 @@ def test_load_declares_every_entry_point(tmp_path, monkeypatch):
         fn = getattr(lib, name)
         assert fn.argtypes == argtypes and fn.restype is restype, name
     assert _build.load() is lib  # loaded once
+
+
+_FAKE_NVCC = """#!/bin/sh
+# writes each -o target after a pause, and logs its call
+echo "$@" >> "$(dirname "$0")/calls.log"
+sleep 0.5
+while [ $# -gt 0 ]; do
+    if [ "$1" = "-o" ]; then echo fake > "$2"; fi
+    shift
+done
+"""
+
+_BUILD_ONCE = """
+import sys
+from pathlib import Path
+from horovod_tpu_torch import _build
+_build.BUILD_DIR = Path(sys.argv[1])
+print(_build.build())
+"""
+
+
+def test_concurrent_builds_compile_once(tmp_path):
+    """Processes of one host that load the kernels at once (the ranks of a
+    job, or a worker started while another builds) build them once under
+    the file lock, and all take the one library."""
+    import os
+    import subprocess
+    import sys
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    repo = _build.PACKAGE_DIR.parent
+    env = dict(os.environ, CUDA_HOME=str(tmp_path / "cuda"),
+               PYTHONPATH=str(repo))
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_ONCE,
+                               str(tmp_path / "build")], env=env,
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(3)]
+    outs = [p.communicate(timeout=120)[0].strip() for p in procs]
+    assert [p.returncode for p in procs] == [0, 0, 0]
+    want = str(tmp_path / "build" / _build.library_path().name)
+    assert outs == [want] * 3
+    units = [s for s in _build.sources() if s.suffix == ".cu"]
+    calls = (nvcc.parent / "calls.log").read_text().splitlines()
+    assert len(calls) == len(units) + 1  # one compile each, one link
+
+
+def test_setup_names_every_package_of_the_port():
+    """An installed port imports only what ``setup.py`` lists: every
+    directory of ``horovod_tpu_torch`` with an ``__init__.py`` must be
+    there, and the launcher's console script."""
+    import ast
+
+    repo = _build.PACKAGE_DIR.parent
+    setup = next(node for node in ast.walk(ast.parse(
+        (repo / "setup.py").read_text()))
+        if isinstance(node, ast.Call) and getattr(node.func, "id", "") ==
+        "setup")
+    kw = {k.arg: ast.literal_eval(k.value) for k in setup.keywords
+          if k.arg in ("packages", "entry_points")}
+    want = {".".join(p.parent.relative_to(repo).parts)
+            for p in _build.PACKAGE_DIR.rglob("__init__.py")}
+    assert {"horovod_tpu_torch.run", "horovod_tpu_torch.ckpt"} <= want
+    assert want <= set(kw["packages"])
+    assert ("hvdrun-torch = horovod_tpu_torch.run.run:main"
+            in kw["entry_points"]["console_scripts"])
