@@ -55,12 +55,22 @@ runs these phases; any failure raises:
   kernel once per layer and step, a falling loss, the warmup's rates,
   tokens/s beside phase 5's; 9b ``run(probe, np=1)``, an allreduce on
   the card through the programmatic launcher; 9c a job whose rank
-  raises exits 1 within the grace period.
+  raises exits 1 within the grace period;
+* 10a: the flash ring (``parallel/ring.py``) at the main attention shape
+  over R = 2 and 4 ranks held in this process: out, lse, dq, dk and dv
+  against one flash call over the whole sequence and against the ring on
+  the plain versions, twice for the same bits, R^2 launches of each
+  kernel, the time against the whole-sequence call, the share of blocks
+  that see no key, and the peak memory of forward and backward against
+  the dense ring's at R = 4;
+* 10b: phase 5's LM, weights and batch through ``make_lm_train_step``'s
+  seq branch on a (1, 1) (data, seq) mesh: step 1's loss bit for bit
+  phase 5's, later steps within 1e-3, tokens/s beside phase 5's.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
 
-Phases 4, 4b, 5, 6a, 6b, 6c and 8a each count the kernels' launches from 0
+Phases 4, 4b, 5, 6a, 6b, 6c, 8a and 10b each count the kernels' launches from 0
 on the card and must launch each kernel once per layer and microbatch
 and step; 9a's worker counts its own. The
 last line of output is
@@ -82,6 +92,7 @@ K3 kernels at the main path's shape and stops, printing no result lines.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -108,6 +119,8 @@ RESNET = dict(model="resnet101", batch=256, image_size=224)
 OVERLAP_ACCUM = 4
 WIRES = ("none", "bf16", "fp8_e4m3", "int8")
 VGG = dict(model="vgg16", batch=64, image_size=224, steps=3)
+# ranks of the ring that phase 10a holds in one process
+RING_RANKS = (2, 4)
 # the JAX package's compressed-vs-exact contract (__graft_entry__.py
 # WIRE_EPSILON, WIRE_EPSILON_FLOOR): every step's loss within 5 %
 WIRE_EPSILON, WIRE_EPSILON_FLOOR = 0.05, 1e-3
@@ -1573,6 +1586,177 @@ def phase_launch(hvd, torch, kind, phase5_tok_s):
                              f"1's failure:\n{rv.stderr[-4000:]}")
 
 
+def _ring_shards(shards, *xs):
+    """Each [bh, s, d] input cut along the sequence into ``shards``
+    contiguous blocks, one per rank."""
+    return [[c.contiguous() for c in x.chunk(shards, dim=1)] for x in xs]
+
+
+def _ring_pass(ring, shards, qs, ks, vs, gs, sm_scale):
+    """The flash ring's forward and backward over ``shards`` ranks held
+    in this process (``ring._LocalAxis``): per-rank ``(outs, lses, dqs,
+    dks, dvs)``."""
+    axis = ring._LocalAxis(shards)
+    outs, lses = ring._flash_ring_forward(axis, qs, ks, vs, True, sm_scale)
+    grads = ring._flash_ring_backward(axis, qs, ks, vs, outs, lses, gs,
+                                      True, sm_scale)
+    return (outs, lses) + grads
+
+
+def _ring_run(ring, torch, shards, q, k, v, g, sm_scale):
+    """``_ring_pass`` on whole-sequence inputs: ``(out, lse, dq, dk,
+    dv)`` over the whole sequence."""
+    parts = _ring_pass(ring, shards, *_ring_shards(shards, q, k, v, g),
+                       sm_scale)
+    return tuple(torch.cat(x, dim=1) for x in parts)
+
+
+@contextlib.contextmanager
+def _plain_kernels(fa):
+    """The kernel wrappers replaced by their plain versions, which also
+    run on the card's tensors: the ring on the plain versions."""
+    kept = fa.flash_fwd, fa.flash_dq, fa.flash_dkv
+    fa.flash_fwd, fa.flash_dq, fa.flash_dkv = (
+        fa.flash_fwd_plain, fa.flash_dq_plain, fa.flash_dkv_plain)
+    try:
+        yield
+    finally:
+        fa.flash_fwd, fa.flash_dq, fa.flash_dkv = kept
+
+
+def _ring_peak_gib(ring, torch, shards, x, use_flash):
+    """Peak device memory above the inputs of the ring's forward and
+    backward through autograd (flash or dense), shards in one process."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    qs, ks, vs = ([c.detach().clone().requires_grad_()
+                   for c in x.chunk(shards, dim=1)] for _ in range(3))
+    outs = ring._ring_attention(ring._LocalAxis(shards), qs, ks, vs,
+                                use_flash=use_flash)
+    sum(o.float().square().sum() for o in outs).backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del qs, ks, vs, outs
+    return peak / 2**30
+
+
+def phase_ring(fa, torch, dev, bench):
+    """10a: the flash ring at the main attention shape over R ranks held
+    in this process, through the kernels: held against one flash call
+    over the whole sequence and against the ring on the plain versions,
+    twice for the same bits, its launches counted, timed against the
+    whole-sequence call, and its peak memory against the dense ring's."""
+    from horovod_tpu_torch.parallel import ring
+    b, h, s = LM["batch"], LM["heads"], LM["seq_len"]
+    d = LM["d_model"] // h
+    bh, name = b * h, "bfloat16"
+    print(f"== phase 10a: flash ring attention, [{b}x{h}, {s}, {d}] bf16 "
+          f"causal, R in {RING_RANKS} ranks in one process")
+    gen = torch.Generator().manual_seed(10)
+    q, k, v, g = (_rand((bh, s, d), torch.bfloat16, gen, dev)
+                  for _ in range(4))
+    kw = dict(causal=True, sm_scale=1.0 / d ** 0.5)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (g.float() * out.float()).sum(-1)
+    whole = (out, lse, fa.flash_dq(q, k, v, g, lse, delta, **kw),
+             *fa.flash_dkv(q, k, v, g, lse, delta, **kw))
+    terms = _terms(fa, q, k, v, g, lse, delta, kw)
+    keys = ("out", "lse", "dq", "dk", "dv")
+    term = dict(zip(keys, (terms["fwd out"], None, terms["dq"], terms["dk"],
+                           terms["dv"])))
+
+    def hold(label, got, want):
+        for key, a, b_ in zip(keys, got, want):
+            _check(f"{label} {key}", a, b_,
+                   "float32" if key == "lse" else name, term[key])
+
+    def whole_call():
+        o, l_ = fa.flash_fwd(q, k, v, **kw)
+        dl = (g.float() * o.float()).sum(-1)
+        return o, fa.flash_dq(q, k, v, g, l_, dl, **kw), \
+            fa.flash_dkv(q, k, v, g, l_, dl, **kw)
+
+    rows = {}
+    for shards in RING_RANKS:
+        print(f"  R = {shards}: blocks of {s // shards} positions")
+        fa.reset_launches()
+        got = _ring_run(ring, torch, shards, q, k, v, g, kw["sm_scale"])
+        _want_launches(fa, f"R={shards} forward + backward", shards ** 2)
+        hold(f"R={shards} against the whole-sequence kernels", got, whole)
+        with _plain_kernels(fa):
+            plain = _ring_run(ring, torch, shards, q, k, v, g,
+                              kw["sm_scale"])
+        hold(f"R={shards} against the ring on the plain versions", got,
+             plain)
+        del plain
+        again = _ring_run(ring, torch, shards, q, k, v, g, kw["sm_scale"])
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        print(f"  R={shards} run twice: "
+              f"{'identical bits' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"ring R={shards}: two runs differ")
+        del got, again
+        # the ring's work only: the shards are cut outside the timer
+        cut = _ring_shards(shards, q, k, v, g)
+        ms = bench.cuda_time_ms(lambda: _ring_pass(
+            ring, shards, *cut, kw["sm_scale"]), iters=5)
+        del cut
+        whole_ms = bench.cuda_time_ms(whole_call, iters=5)
+        dead = shards * (shards - 1) // 2  # blocks wholly in the future
+        rows[shards] = dict(ms=ms, whole_ms=whole_ms,
+                            dead=dead / shards ** 2)
+        print(f"  R={shards} ring forward + backward {ms:.3f} ms against "
+              f"one flash call over the whole sequence {whole_ms:.3f} ms "
+              f"({ms / whole_ms:.2f}x); {dead} of {shards ** 2} blocks "
+              f"({100 * dead / shards ** 2:.1f}%) see no key and are "
+              "launched anyway")
+    del terms, term, whole
+    x = fa._from_bh(q, b, h)
+    peak = {flash: _ring_peak_gib(ring, torch, RING_RANKS[-1], x, flash)
+            for flash in (True, False)}
+    print(f"  R={RING_RANKS[-1]} peak device memory of forward + backward "
+          f"through autograd: flash ring {peak[True]:.3f} GiB, dense ring "
+          f"{peak[False]:.3f} GiB ({peak[False] / peak[True]:.1f}x)")
+    if not peak[True] * 2 < peak[False]:
+        raise AssertionError(f"the flash ring's backward is not bounded: "
+                             f"{peak}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_seq_lm(hvd, fa, torch, bench, phase5_losses, phase5_tok_s):
+    """10b: phase 5's LM, weights and batch through the seq branch of
+    ``make_lm_train_step`` on a (1, 1) (data, seq) mesh: a ring of one
+    block a layer."""
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    print("== phase 10b: full-width LM through make_lm_train_step(mesh="
+          "(1, 1) data x seq, seq_axis='seq')")
+    hvd.init()
+    mesh = build_mesh((1, 1), ("data", "seq"))
+    step, model, opt, tokens = _lm_bench(bench, torch, seq_len=LM["seq_len"],
+                                         mesh=mesh, seq_axis="seq")
+    assert model.cfg.sequence_axis == "seq" and opt.axes == ("data", "seq")
+    losses, _, step_ms = _drive(
+        "10b", hvd, fa, torch, bench, step, (tokens,),
+        LM["layers"] * STEPS, LM["batch"] * LM["seq_len"],
+        lambda: f"fused allreduce over {opt.axes}: "
+                f"{len(opt.last_buckets)} buckets", profile=True)
+    tok_s = LM["batch"] * LM["seq_len"] / step_ms * 1e3
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, phase5_losses)]
+    print(f"  10b step 1 loss {losses[0]!r} against phase 5's "
+          f"{phase5_losses[0]!r}: "
+          f"{'bit for bit' if losses[0] == phase5_losses[0] else 'DIFFERS'}"
+          f"; largest relative difference over the steps {max(rel):.3e}")
+    print(f"  10b tokens/s {tok_s:.1f} against phase 5's {phase5_tok_s:.1f} "
+          f"in this call ({100 * (tok_s / phase5_tok_s - 1):+.1f}%)")
+    if losses[0] != phase5_losses[0] or max(rel) > 1e-3:
+        raise AssertionError(f"10b losses {losses} against phase 5's "
+                             f"{phase5_losses}")
+    hvd.shutdown()
+
+
 def profile_step(torch, run, step_ms, layers=LAYERS):
     """Device time by layer and by kernel over one more ``run()``, read
     from the profiler's trace (kernels, copies and memsets only), and the
@@ -1681,6 +1865,8 @@ def main(argv=None):
     phase_resume(hvd, fa, torch, bench)
     phase_resume_resnet(hvd, torch, bench)
     phase_launch(hvd, torch, kind, phase5_tok_s)
+    phase_ring(fa, torch, dev, bench)
+    phase_seq_lm(hvd, fa, torch, bench, losses, phase5_tok_s)
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):

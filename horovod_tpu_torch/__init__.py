@@ -4,7 +4,9 @@ Horovod's contract on an NVIDIA GPU: ``init()``, the rank/size identity
 from the launcher's env (``run``, the port's hvdrun), ``DistributedOptimizer``
 averaging gradients through fused buckets over NCCL (allreduce, or
 ZeRO-1's reduce-scatter and all-gather), startup broadcasts and the
-training callbacks (``callbacks``), and ``training.make_train_step``'s
+training callbacks (``callbacks``), named process-mesh axes
+(``build_mesh``) with sequence parallelism over them (ring attention,
+Ulysses, ``make_lm_train_step(seq_axis=)``), ``training.make_train_step``'s
 microbatched, overlapped bucket pipeline, fed by the prefetch loader
 of ``data``; checkpoints (``ckpt``, ``checkpoint``) on the JAX package's
 disk format. The attention of the transformer LM runs through
@@ -30,8 +32,12 @@ _EXPORTS = {
                      "broadcast_optimizer_state", "allreduce_metrics",
                      "join"), "hvd_torch"),
     **dict.fromkeys(("allreduce", "allreduce_", "allgather", "broadcast",
-                     "broadcast_", "reducescatter", "alltoall", "mesh_rank",
-                     "mesh_size"), "ops.collective"),
+                     "broadcast_", "reducescatter", "alltoall", "ppermute",
+                     "mesh_rank", "mesh_size"), "ops.collective"),
+    **dict.fromkeys(("build_mesh", "axis_index", "axis_size"),
+                    "parallel.mesh"),
+    **dict.fromkeys(("ring_attention", "ulysses_attention"),
+                    "parallel.ring"),
     "fused_allreduce_": "ops.fusion",
     **dict.fromkeys(("Sum", "Average", "Adasum", "Min", "Max"),
                     "ops.reduction"),

@@ -130,11 +130,10 @@ def shutdown():
     with _lock:
         if not _state.initialized:
             return
+        installed = mesh_lib.get_mesh()
         dist.destroy_process_group()
-        # a step function's closure may keep this mesh past shutdown; its
-        # group must not live on into interpreter exit, where destroying
-        # a gloo group can abort the process
-        object.__setattr__(_state.mesh, "group", None)
+        _state.mesh.release()
+        installed.release()  # a mesh build_mesh installed over this world
         mesh_lib.set_mesh(None)
         _state.initialized = False
         _state.mesh = None

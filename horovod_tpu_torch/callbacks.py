@@ -18,6 +18,7 @@ from torch.utils import _pytree
 
 from horovod_tpu_torch import basics, hvd_torch
 from horovod_tpu_torch.ops import collective
+from horovod_tpu_torch.parallel import mesh as mesh_lib
 
 
 class Callback:
@@ -85,16 +86,21 @@ def _set_lr(optimizer, lr):
 
 
 class LearningRateWarmupCallback(Callback):
-    """Ramp the rate from ``initial_lr`` to ``initial_lr * size()`` over
-    the first ``warmup_epochs``: the linear-scaling warmup of Goyal et
-    al. With ``steps_per_epoch`` the rate moves every batch, else every
-    epoch."""
+    """Ramp the rate from ``initial_lr`` to ``initial_lr`` times the
+    data-parallel replicas over the first ``warmup_epochs``: the
+    linear-scaling warmup of Goyal et al. The replicas are the ranks
+    across the installed mesh's data axes: ``size()`` on ``init()``'s
+    1-D mesh, ``D`` on a (data D, seq S) mesh, whose seq axis adds no
+    samples to the batch. With ``steps_per_epoch`` the rate moves every
+    batch, else every epoch."""
 
     def __init__(self, optimizer, initial_lr, warmup_epochs=5,
                  steps_per_epoch=None, verbose=False):
+        data = mesh_lib.data_axis_names()
         self.optimizer = optimizer
         self.initial_lr = initial_lr
-        self.target_lr = initial_lr * basics.size()
+        self.target_lr = initial_lr * (collective.mesh_size(data) if data
+                                       else 1)
         self.warmup_epochs = warmup_epochs
         self.steps_per_epoch = steps_per_epoch
         self.verbose = verbose

@@ -17,12 +17,27 @@ On the CPU, two ranks over gloo at a small size:
         --layers 1 --d-model 32 --heads 2 --vocab 64 --seq-len 16 \\
         --batch 2 --steps 2 --warmup 1
 
-``--batch`` sequences a rank. The run is one unconditional warm step,
+Sequence-parallel over a (data, seq) mesh of the ranks (ring attention,
+the flash kernels per block), the JAX example's ``--data D --seq S``
+under ``-np D*S``:
+
+    python -m horovod_tpu_torch.run -np 4 \\
+        python -m horovod_tpu_torch.examples.lm_benchmark --device cpu \\
+        --data 2 --seq 2 --layers 1 --d-model 32 --heads 2 --vocab 64 \\
+        --seq-len 32 --batch 2 --steps 2 --warmup 1
+
+``--data`` defaults to the world's size over ``--seq``. ``--batch`` is
+the sequences of a data index (of a rank, without ``--seq``), drawn once
+for the whole mesh and cut by each rank's coordinates; ``--seq-len`` is
+the whole sequence. The model computes in bf16 on the card and in fp32
+on the CPU, as the JAX example does off the TPU. The run is one
+unconditional warm step,
 ``--warmup`` more and ``--steps`` timed ones. The warm steps are the
 first epoch, over which the learning rate ramps from the optimizer's to
-``size()`` times it; the timed steps are the second. Rank 0 prints one
-JSON line: the JAX example's keys (``value``: tokens/s over all ranks
-from the median timed step), each step's loss, learning rate and ms,
+``--data`` times it (``LearningRateWarmupCallback`` counts the mesh's
+data axis); the timed steps are the second. Rank 0 prints the mesh, ``data x seq``, and one JSON
+line: the JAX example's keys (``value``: tokens/s over all ranks from
+the median timed step), each step's loss, learning rate and ms,
 each epoch's loss averaged by ``MetricAverageCallback``, the flash
 kernels' launches over the whole run, the device, and the seconds of
 the imports, ``init()``, the device's first allocation, the kernel
@@ -38,13 +53,13 @@ import numpy as np
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--data", type=int, default=1,
-                    help="data-axis size (the world's size; above 1 "
-                         "refused)")
+    ap.add_argument("--data", type=int, default=None,
+                    help="data-axis size (default: the world's size over "
+                         "--seq)")
     ap.add_argument("--seq", type=int, default=1,
-                    help="seq-axis size (above 1 refused)")
+                    help="seq-axis size (ring attention over it above 1)")
     ap.add_argument("--batch", type=int, default=8,
-                    help="sequences a rank")
+                    help="sequences a data index")
     ap.add_argument("--seq-len", type=int, default=2048)
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--d-model", type=int, default=768)
@@ -56,10 +71,16 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cpu, or a card (default: this rank's card)")
     args = ap.parse_args(argv)
-    if args.data > 1 or args.seq > 1:
-        ap.error("--data and --seq above 1 need sequence parallelism, "
-                 "which horovod_tpu_torch does not have yet (ROADMAP.md "
-                 "Queue 1 item 4); the data axis is hvdrun's -np")
+    from horovod_tpu_torch.config import Config
+    world = Config.from_env().size
+    if args.seq < 1:
+        ap.error("--seq must be >= 1")
+    if args.data is None:
+        args.data = world // args.seq
+    if args.data * args.seq != world:
+        ap.error(f"a mesh of --data {args.data} x --seq {args.seq} needs "
+                 f"{args.data * args.seq} ranks; this job has {world} "
+                 "(hvdrun -np)")
     if args.steps < 1 or args.warmup < 0:
         ap.error("--steps must be >= 1 and --warmup >= 0")
 
@@ -69,6 +90,7 @@ def main(argv=None):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import _build, callbacks
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.mesh import build_mesh
     from horovod_tpu_torch.utils.benchmarks import make_lm_bench, sync
     import_s = time.perf_counter() - t
 
@@ -88,10 +110,13 @@ def main(argv=None):
         _build.load()
         kernel_load_s = time.perf_counter() - t
     t = time.perf_counter()
+    mesh = build_mesh((args.data, args.seq), ("data", "seq"))
     step, model, opt, tokens = make_lm_bench(
         batch=args.batch, seq_len=args.seq_len, layers=args.layers,
         d_model=args.d_model, heads=args.heads, vocab=args.vocab,
-        flash=not args.no_flash)
+        flash=not args.no_flash, mesh=mesh,
+        dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32,
+        seq_axis="seq" if args.seq > 1 else None)
     sync()
     build_s = time.perf_counter() - t
 
@@ -121,14 +146,15 @@ def main(argv=None):
     launches = dict(fa.LAUNCHES)
 
     step_s = float(np.median(times[warm:]))
-    tok_s = args.batch * args.seq_len * hvd.size() / step_s
+    tok_s = args.batch * args.data * args.seq_len / step_s
     if hvd.rank() == 0:
+        print(f"mesh {args.data} x {args.seq} (data x seq)", flush=True)
         print(json.dumps({
             "metric": "transformer_lm_tokens_per_sec",
             "value": round(tok_s, 1),
             "unit": "tokens/sec",
             "seq_len": args.seq_len,
-            "mesh": {"data": hvd.size(), "seq": 1},
+            "mesh": {"data": args.data, "seq": args.seq},
             "flash_attention": not args.no_flash,
             "final_loss": round(losses[-1], 4),
             "losses": losses,

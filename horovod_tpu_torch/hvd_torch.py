@@ -55,6 +55,12 @@ class DistributedOptimizer(torch.optim.Optimizer):
       gradients over k ``step()`` calls (``optax.MultiSteps``'s
       ``acc + (g - acc) / (n + 1)``) and exchanges and steps on every
       k-th; the other calls leave the parameters as they are.
+    * ``axes`` are the mesh axes the gradients are reduced over
+      (``ops/collective.py``): None, the default, is the whole mesh (the
+      JAX package defaults to the data axes, the same on a 1-D mesh);
+      ``("data", "seq")`` for a sequence-parallel LM on a (data, seq)
+      mesh. ZeRO-1 and the overlapped pipeline of ``make_train_step``
+      need axes that span the whole mesh.
     * ``compression`` is the wire format of the exchange: a compressor
       of ``ops/compression.py`` or its name (``"bf16"``, ``"fp8_e4m3"``,
       ``"int8"``, ...). ``"none"`` or ``Compression.none`` pins it
@@ -74,7 +80,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
 
     def __init__(self, optimizer, named_parameters=None, op=Average,
                  compression=None, threshold_bytes=None,
-                 backward_passes_per_step=1, sharded_update=False):
+                 backward_passes_per_step=1, sharded_update=False,
+                 axes=None):
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1, got "
                              f"{backward_passes_per_step}")
@@ -87,7 +94,9 @@ class DistributedOptimizer(torch.optim.Optimizer):
                     "sharded_update accumulates via make_train_step("
                     "accum_steps=...); backward_passes_per_step>1 would "
                     "stack a second accumulator on top")
+            require_whole_mesh(axes, "sharded_update (ZeRO-1)")
         self.optimizer = optimizer
+        self.axes = axes
         self.op = op
         self.threshold_bytes = threshold_bytes
         self.backward_passes_per_step = backward_passes_per_step
@@ -223,7 +232,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
         self.last_buckets = tuple(fusion.fused_allreduce_(
             [p.grad for p in self.params], op=self.op,
             threshold_bytes=self.threshold_bytes,
-            compression=self.compression, perms=self.perms))
+            compression=self.compression, perms=self.perms,
+            axes=self.axes))
 
     @torch.no_grad()
     def _accumulate(self):
@@ -265,6 +275,17 @@ class DistributedOptimizer(torch.optim.Optimizer):
             raise ValueError("update_preaveraged is the plain-optimizer "
                              "tail of the overlap pipeline")
         return self.optimizer.step()
+
+
+def require_whole_mesh(axes, what):
+    """Raise ``NotImplementedError`` unless ``axes`` reduce over the whole
+    installed mesh: ZeRO-1's rows and the overlapped bucket schedule are
+    laid out over every rank."""
+    if axes is not None and not mesh_lib.get_mesh().spans(axes):
+        raise NotImplementedError(
+            f"{what} over the axes {axes!r}, a part of the mesh, comes with "
+            "the hierarchical reductions (ROADMAP.md Queue 1 item 4); "
+            "reduce over the whole mesh (axes=None)")
 
 
 @torch.no_grad()

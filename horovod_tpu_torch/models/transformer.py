@@ -1,17 +1,20 @@
 """Decoder-only Transformer: the port of ``horovod_tpu/models/transformer.py``
-(the non-cache, non-ring, dense-MLP branch).
+(the non-cache, dense-MLP branch).
 
 Pre-RMSNorm blocks, rotary position embeddings, a tanh-GELU MLP and fp32
 logits. Parameters are fp32 and every layer casts them to
 ``cfg.dtype`` at use (the flax ``dtype=`` contract), so an optimizer
 updates fp32 masters. Attention runs through the flash kernels
-(``ops/flash_attention.py``) or the dense path, by ``cfg.flash_attention``.
+(``ops/flash_attention.py``) or the dense path, by ``cfg.flash_attention``;
+with ``cfg.sequence_axis`` the sequence is sharded over that mesh axis
+and attention is ring attention (``parallel/ring.py``).
 Parameter layouts are PyTorch's (``nn.Linear`` weights are [out, in]);
 ``convert.py`` maps them to and from the flax tree.
 """
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +22,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.parallel import ring
 
 RMS_EPS = 1e-6  # flax nn.RMSNorm default
 
@@ -35,6 +39,8 @@ class TransformerConfig:
     # attention through the flash kernels (ops/flash_attention.py) when
     # True, else dense_attention
     flash_attention: bool = False
+    # mesh axis the sequence is sharded over (ring attention), or None
+    sequence_axis: Optional[str] = None
 
 
 def _rotary(x, positions):
@@ -125,7 +131,16 @@ class Attention(nn.Module):
         q = _rotary(proj(self.query), positions)
         k = _rotary(proj(self.key), positions)
         v = proj(self.value)
-        if cfg.flash_attention:
+        if cfg.sequence_axis is not None and cfg.flash_attention:
+            # the kernels per rotated K/V block, merged by lse; they mask
+            # by the contiguous positions the ring computes
+            out = ring.ring_attention(q, k, v, cfg.sequence_axis,
+                                      causal=cfg.causal, use_flash=True)
+        elif cfg.sequence_axis is not None:
+            out = ring.ring_attention(q, k, v, cfg.sequence_axis,
+                                      causal=cfg.causal, q_positions=positions,
+                                      kv_positions=positions)
+        elif cfg.flash_attention:
             out = fa.attention(q, k, v, causal=cfg.causal)
         else:
             out = dense_attention(q, k, v, causal=cfg.causal,
@@ -156,6 +171,12 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """tokens [B, S] -> fp32 logits [B, S, vocab].
 
+    With ``cfg.sequence_axis`` the tokens are this rank's block of the
+    sequence, ``[B, S_local]``, and the default positions are absolute:
+    this rank's offset on the axis plus the local arange
+    (``ring.default_positions``), so the rotary embeddings see the
+    positions the whole sequence has.
+
     Weights are drawn on the CPU from ``generator`` (a seeded
     ``torch.Generator``; flax's initializer distributions, not its bits)
     and then moved to ``device``."""
@@ -178,8 +199,8 @@ class Transformer(nn.Module):
 
     def forward(self, tokens):
         cfg = self.cfg
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        positions = positions.expand(tokens.shape[0], -1)
+        positions = ring.default_positions(cfg.sequence_axis, tokens.shape[0],
+                                           tokens.shape[1], device=tokens.device)
         x = F.embedding(tokens, self.embed.weight).to(cfg.dtype)
         for block in self.blocks:
             x = block(x, positions)

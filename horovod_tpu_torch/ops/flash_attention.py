@@ -22,7 +22,11 @@ and a query row that sees no key outputs zeros with lse ``NEG_INF``. The
 products take the inputs' dtype with fp32 accumulation; P is cast to V's
 dtype before P.V and dS to K's dtype before dS.K. Layout of the kernels'
 tensors is [BH, S, D]; ``flash_attention``/``attention`` take the
-transformer's [B, S, H, D].
+transformer's [B, S, H, D]. The blockwise primitives of ring attention
+are ``flash_fwd_block`` (K1's out and lse rows, no autograd) and
+``flash_bwd_block`` (K2 and K3 with fp32 outputs) on [BH, S, D], at host
+int offsets; ``flash_attention_with_lse`` and
+``flash_attention_bwd_block`` are the same on [B, S, H, D].
 """
 
 import torch
@@ -284,6 +288,73 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=0,
     out = _FlashAttention.apply(_to_bh(q), _to_bh(k), _to_bh(v), causal,
                                 sm_scale, q_offset, kv_offset)
     return _from_bh(out, b, h)
+
+
+def _host_offsets(q_offset, kv_offset):
+    if torch.is_tensor(q_offset) or torch.is_tensor(kv_offset):
+        raise TypeError("flash offsets are host ints: reading a device "
+                        "tensor would synchronize on every block")
+    return int(q_offset), int(kv_offset)
+
+
+def _rows_bh(x):  # [B, S, H] -> [BH, S]
+    b, s, h = x.shape
+    return x.transpose(1, 2).reshape(b * h, s).contiguous()
+
+
+def flash_fwd_block(q, k, v, *, causal, sm_scale, q_offset, kv_offset):
+    """K1 on [BH, S, D] for blockwise composition: ``(out, lse)``, the
+    lse rows ``NEG_INF``, with a zero output row, where a row sees no
+    key. Ring attention runs it per rotated K/V block and merges the
+    blocks by lse (``parallel/ring.py``). Offsets are host ints."""
+    q_offset, kv_offset = _host_offsets(q_offset, kv_offset)
+    return flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                     q_offset=q_offset, kv_offset=kv_offset)
+
+
+def flash_bwd_block(q, k, v, g, lse, delta, *, causal, sm_scale, q_offset,
+                    kv_offset):
+    """One block's backward on [BH, S, D]: this rank's queries ``q``, one
+    K/V block, the upstream ``g`` = dO, the globally merged ``lse`` and
+    ``delta`` = sum_d dO * O over the final output, both [BH, Sq]. Runs
+    K2 and K3 with fp32 outputs and returns the fp32 partials ``(dq, dk,
+    dv)`` of exactly this block: p = exp(s - LSE) factorizes per block
+    once LSE is global, so the partials summed over the blocks are the
+    exact gradient. Offsets are host ints."""
+    q_offset, kv_offset = _host_offsets(q_offset, kv_offset)
+    kw = dict(causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+              kv_offset=kv_offset, out_dtype=torch.float32)
+    dq = flash_dq(q, k, v, g, lse, delta, **kw)
+    dk, dv = flash_dkv(q, k, v, g, lse, delta, **kw)
+    return dq, dk, dv
+
+
+@torch.no_grad()
+def flash_attention_with_lse(q, k, v, *, causal=True, sm_scale=None,
+                             q_offset=0, kv_offset=0):
+    """``flash_fwd_block`` on [B, S, H, D]: ``(out, lse[B, S, H])``.
+    Forward only, with no autograd: the ring differentiates at its own
+    level."""
+    b, sq, h, d = q.shape
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / float(d) ** 0.5
+    out, lse = flash_fwd_block(_to_bh(q), _to_bh(k), _to_bh(v),
+                               causal=causal, sm_scale=sm_scale,
+                               q_offset=q_offset, kv_offset=kv_offset)
+    return _from_bh(out, b, h), lse.reshape(b, h, sq).transpose(1, 2)
+
+
+@torch.no_grad()
+def flash_attention_bwd_block(q, k, v, g, lse, delta, *, causal=True,
+                              sm_scale=None, q_offset=0, kv_offset=0):
+    """``flash_bwd_block`` on [B, S, H, D], with ``lse`` and ``delta``
+    [B, Sq, H]: the fp32 partials ``(dq, dk, dv)`` of one block."""
+    b, sq, h, d = q.shape
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / float(d) ** 0.5
+    grads = flash_bwd_block(_to_bh(q), _to_bh(k), _to_bh(v), _to_bh(g),
+                            _rows_bh(lse), _rows_bh(delta), causal=causal,
+                            sm_scale=sm_scale, q_offset=q_offset,
+                            kv_offset=kv_offset)
+    return tuple(_from_bh(x, b, h) for x in grads)
 
 
 def attention(q, k, v, *, causal=True, q_offset=0, kv_offset=0):

@@ -19,6 +19,9 @@ Two exchanges use it:
   chunks. ``reduce_scatter_bucket_compressed`` and
   ``all_gather_bucket_compressed`` are the same exchange at a wire format
   of ``ops/compression.py``, with an optional error-feedback residual.
+
+Every exchange takes ``axes``, the mesh axes it reduces over
+(``ops/collective.py``; None: the whole mesh).
 """
 
 import dataclasses
@@ -159,7 +162,7 @@ def _unpack(bucket, flat):
 
 
 def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
-                     compression=None, perms=None):
+                     compression=None, perms=None, axes=None):
     """Allreduce every tensor of the list in place through fused flat
     buckets: pack, one collective per bucket, unpack. Returns the
     buckets, so a caller can account what went over the wire.
@@ -182,7 +185,7 @@ def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
                 f"chunked wire format {compression.name!r} only composes "
                 f"with Sum/Average (got {op!r}): Adasum/Min/Max reductions "
                 "have no exchange-then-reduce form")
-        world = collective.mesh_size()
+        world = collective.mesh_size(axes)
         if world == 1:
             compression, chunked = None, False  # no wire to compress
     buckets = plan_buckets(tensors, _threshold(threshold_bytes),
@@ -194,14 +197,14 @@ def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
                                     padded_sizes=(size + (-size) % world,),
                                     world=world)
             shard, _ = reduce_scatter_bucket_compressed(
-                sched1, 0, tensors, compression, op=op)
+                sched1, 0, tensors, compression, op=op, axes=axes)
             flat, _ = all_gather_bucket_compressed(sched1, 0, shard,
-                                                   compression)
+                                                   compression, axes=axes)
         else:
             flat = _pack(bucket, tensors)
             if compression is not None:
                 flat, ctx = compression.compress(flat)
-            collective.allreduce_(flat, op=op)
+            collective.allreduce_(flat, op=op, axes=axes)
             if compression is not None:
                 flat = compression.decompress(flat, ctx)
         for i, part in _unpack(bucket, flat).items():
@@ -244,15 +247,15 @@ def pack_padded(schedule, idx, leaves):
 
 
 def reduce_scatter_bucket(schedule, idx, leaves, op=collective.Average,
-                          async_op=False):
+                          async_op=False, axes=None):
     """Pack bucket ``idx`` of ``leaves``, pad it, and reduce-scatter it:
     returns this rank's reduced shard (``shard_sizes[idx]`` elements), or
     with ``async_op`` a ``collective.Pending`` whose ``wait()`` does."""
     return collective.reducescatter(pack_padded(schedule, idx, leaves),
-                                    op=op, async_op=async_op)
+                                    op=op, async_op=async_op, axes=axes)
 
 
-def all_gather_bucket(schedule, idx, shard):
+def all_gather_bucket(schedule, idx, shard, axes=None):
     """Inverse of ``reduce_scatter_bucket``: gather every rank's shard of
     bucket ``idx`` into the full padded flat bucket, chunk ``r`` from
     rank ``r``: one all-gather. It takes the schedule and the index, as
@@ -261,12 +264,12 @@ def all_gather_bucket(schedule, idx, shard):
     if shard.numel() != schedule.shard_sizes[idx]:
         raise ValueError(f"bucket {idx}: shard of {shard.numel()} elements, "
                          f"scheduled {schedule.shard_sizes[idx]}")
-    return collective.allgather(shard)
+    return collective.allgather(shard, axes=axes)
 
 
 def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
                                      op=collective.Average, residual=None,
-                                     async_op=False):
+                                     async_op=False, axes=None):
     """``reduce_scatter_bucket`` at ``wire``'s width. Returns ``(shard,
     new_residual)``, or with ``async_op`` ``(Pending, new_residual)``:
     the residual is ready at once, the shard at ``wait()``.
@@ -287,7 +290,7 @@ def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
     residual through unchanged."""
     if not schedule.buckets[idx].dtype.is_floating_point:
         return reduce_scatter_bucket(schedule, idx, leaves, op=op,
-                                     async_op=async_op), residual
+                                     async_op=async_op, axes=axes), residual
     flat = pack_padded(schedule, idx, leaves)
     grad_dtype = flat.dtype
     world, shard = schedule.world, schedule.shard_sizes[idx]
@@ -305,8 +308,9 @@ def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
             wire_rows, scales = q.compress_flat(rows)
             new_residual = None
         # row r of what arrives is rank r's contribution to this shard
-        recv_rows = collective.alltoall(wire_rows, async_op=True)
-        recv_scales = collective.alltoall(scales, async_op=True)
+        recv_rows = collective.alltoall(wire_rows, async_op=True,
+                                        axes=axes)
+        recv_scales = collective.alltoall(scales, async_op=True, axes=axes)
 
         def finish():
             vals = q.decompress_flat(recv_rows.wait(), recv_scales.wait(),
@@ -324,14 +328,15 @@ def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
         else:
             wire_flat, _ = wire.compress_flat(flat)
             new_residual = None
-        reduced = collective.reducescatter(wire_flat, op=op, async_op=True)
+        reduced = collective.reducescatter(wire_flat, op=op, async_op=True,
+                                           axes=axes)
         pending = collective.Pending(
             (), lambda: reduced.wait().to(grad_dtype))
     return (pending if async_op else pending.wait()), new_residual
 
 
 def all_gather_bucket_compressed(schedule, idx, shard_vals, wire,
-                                 residual=None):
+                                 residual=None, axes=None):
     """``all_gather_bucket`` at ``wire``'s width: this rank narrows its
     shard of bucket ``idx`` (cast, or chunked-quantized with its scales
     riding along), all-gathers the payload and decodes every rank's part
@@ -344,7 +349,8 @@ def all_gather_bucket_compressed(schedule, idx, shard_vals, wire,
     the applied deltas add up to the exact ones. A non-float shard takes
     the exact path."""
     if not shard_vals.dtype.is_floating_point:
-        return all_gather_bucket(schedule, idx, shard_vals), residual
+        return all_gather_bucket(schedule, idx, shard_vals,
+                                 axes=axes), residual
     world, shard = schedule.world, schedule.shard_sizes[idx]
     if shard_vals.numel() != shard:
         raise ValueError(f"bucket {idx}: shard of {shard_vals.numel()} "
@@ -361,8 +367,8 @@ def all_gather_bucket_compressed(schedule, idx, shard_vals, wire,
         else:
             wire_shard, scales = q.compress_flat(x)
             new_residual = None
-        gathered = collective.allgather(wire_shard)
-        g_scales = collective.allgather(scales)
+        gathered = collective.allgather(wire_shard, axes=axes)
+        g_scales = collective.allgather(scales, axes=axes)
         flat = q.decompress_flat(
             gathered.reshape(world, -1), g_scales.reshape(world, -1),
             out_dtype, n=shard).reshape(world * shard)
@@ -373,7 +379,7 @@ def all_gather_bucket_compressed(schedule, idx, shard_vals, wire,
         else:
             wire_shard, _ = wire.compress_flat(x)
             new_residual = None
-        flat = collective.allgather(wire_shard).to(out_dtype)
+        flat = collective.allgather(wire_shard, axes=axes).to(out_dtype)
     return flat, new_residual
 
 

@@ -3,8 +3,8 @@
 The port of ``horovod_tpu/training.py``'s ``softmax_cross_entropy``,
 ``create_train_state``, ``make_train_step`` (the explicit path, with its
 microbatch loop and overlapped reduce-scatter pipeline) and
-``make_lm_train_step`` (the data-parallel path without sequence
-sharding). The JAX step is a pure function returning a new
+``make_lm_train_step`` (data-parallel, and sequence-parallel over a
+``seq_axis``). The JAX step is a pure function returning a new
 ``TrainState``; here the step runs eagerly on this process's shard of
 the batch and updates the model's parameters, its BatchNorm statistics
 and the optimizer's state in place, and counts its calls in a
@@ -140,6 +140,9 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
             raise ValueError(
                 "accum_steps and backward_passes_per_step are two "
                 "accumulators for the same thing; use accum_steps")
+        if overlap_grads:
+            hvd_torch.require_whole_mesh(optimizer.axes,
+                                         "overlap_grads=True")
     if any(isinstance(m, nn.SyncBatchNorm) for m in model.modules()):
         raise NotImplementedError(
             "SyncBatchNorm: synchronized BatchNorm statistics come with "
@@ -343,36 +346,103 @@ def _add_waited(acc, pending):
     return shards if acc is None else [a + s for a, s in zip(acc, shards)]
 
 
-def make_lm_train_step(model, optimizer):
-    """Build a language-model train step (next-token loss) over the data
-    axis. ``optimizer`` is a ``DistributedOptimizer`` (any exchange:
-    fused allreduce, ZeRO-1, ``backward_passes_per_step``);
-    ``step(tokens)`` takes this rank's ``[B_local, S]`` int tokens, runs
-    forward, backward and the optimizer step, and returns the loss
-    averaged over ranks (an fp32 scalar tensor on the device).
-    ``step.state`` counts the steps, as in ``make_train_step``.
+def make_lm_train_step(model, optimizer, mesh=None, batch_axis="data",
+                       seq_axis=None):
+    """Build a language-model train step (next-token loss).
+    ``optimizer`` is a ``DistributedOptimizer`` (any exchange: fused
+    allreduce, ZeRO-1, ``backward_passes_per_step``) whose axes are the
+    step's: ``(batch_axis,)``, or ``(batch_axis, seq_axis)``.
+    ``step(tokens)`` takes this rank's block of the batch,
+    ``[B_local, S_local]`` int tokens (``shard_lm_batch`` cuts it from the
+    global batch), runs forward, backward and the optimizer step, and
+    returns the loss averaged over those axes (an fp32 scalar tensor on
+    the device). ``step.state`` counts the steps, as in
+    ``make_train_step``. ``mesh`` is the installed mesh (``init()``'s, or
+    ``parallel.mesh.build_mesh``'s), the default.
 
-    The loss is normalized by the GLOBAL target count: the local sum is
-    scaled by ``world / global_count``, so that averaging the per-rank
-    losses and gradients gives the exact global-mean loss and gradient
-    even when ranks hold different numbers of targets."""
+    With ``seq_axis`` the sequence is sharded over that axis, and the
+    model's attention is ring attention over it
+    (``TransformerConfig.sequence_axis``). The loss is still exact: each
+    shard's last position is scored against the next shard's first token
+    (one ``ppermute`` over ``seq_axis``), only the global last position
+    is masked (on the last rank of the axis), and the sum is normalized
+    by the global target count, so averaging the per-shard losses and
+    gradients over both axes gives the full-sequence mean loss and
+    gradient. The normalization is the same without ``seq_axis``: the
+    local sum is scaled by ``n_shards / global_count``, exact even when
+    ranks hold different numbers of targets."""
     if not isinstance(optimizer, hvd_torch.DistributedOptimizer):
         raise TypeError("make_lm_train_step needs a DistributedOptimizer")
-    mesh = mesh_lib.get_mesh()
+    installed = mesh_lib.get_mesh()
+    if mesh is not None and mesh is not installed:
+        raise ValueError("make_lm_train_step(mesh=...) must be the installed "
+                         "mesh: parallel.mesh.build_mesh installs the mesh "
+                         "it builds")
+    mesh = installed
+    grad_axes = (batch_axis,) if seq_axis is None else (batch_axis, seq_axis)
+    if mesh.group_of(grad_axes)[1] != mesh.group_of(optimizer.axes)[1]:
+        raise ValueError(
+            f"the optimizer reduces over {optimizer.axes!r}, the step over "
+            f"{grad_axes}: build DistributedOptimizer(axes={grad_axes})")
+    cfg_axis = getattr(getattr(model, "cfg", None), "sequence_axis", None)
+    if cfg_axis is not None and cfg_axis != seq_axis:
+        raise ValueError(f"the model's sequence_axis is {cfg_axis!r}, the "
+                         f"step's seq_axis {seq_axis!r}")
+    n_shards = collective.mesh_size(grad_axes)
+    n_seq = mesh.axis_size(seq_axis) if seq_axis else 1
+    # shard i's last target is shard i+1's first token
+    next_first = [((i + 1) % n_seq, i) for i in range(n_seq)]
     state = StepState()
+
+    def sharded_loss(tokens):
+        nxt = collective.ppermute(tokens[:, :1], seq_axis, next_first)
+        targets = torch.cat([tokens[:, 1:], nxt], dim=1)
+        mask = torch.ones(targets.shape, device=mesh.device)
+        if mesh.axis_index(seq_axis) == n_seq - 1:
+            mask[:, -1] = 0.0  # the global last position
+        global_count = collective.allreduce_(mask.sum(), op=Sum,
+                                             axes=grad_axes)
+        logp = F.log_softmax(model(tokens).float(), dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        return (nll * mask).sum() * n_shards / global_count
+
+    def loss_fn(tokens):
+        if n_seq > 1:
+            return sharded_loss(tokens)
+        targets = tokens[:, 1:]
+        local_count = torch.tensor(float(targets.numel()), device=mesh.device)
+        global_count = collective.allreduce_(local_count.clone(), op=Sum,
+                                             axes=grad_axes)
+        local_mean = softmax_cross_entropy(model(tokens)[:, :-1], targets)
+        return local_mean * local_count * n_shards / global_count
 
     def step(tokens):
         tokens = tokens.to(mesh.device)
-        targets = tokens[:, 1:]
         optimizer.zero_grad(set_to_none=True)
-        local_count = torch.tensor(float(targets.numel()), device=mesh.device)
-        global_count = collective.allreduce_(local_count.clone(), op=Sum)
-        local_mean = softmax_cross_entropy(model(tokens)[:, :-1], targets)
-        loss = local_mean * local_count * mesh.size / global_count
+        loss = loss_fn(tokens)
         loss.backward()
         optimizer.step()  # reduces the gradients first
         state.step += 1
-        return collective.allreduce_(loss.detach(), op=Average)
+        return collective.allreduce_(loss.detach(), op=Average,
+                                     axes=grad_axes)
 
     step.state = state
     return step
+
+
+def shard_lm_batch(tokens, batch_axis="data", seq_axis=None):
+    """This rank's block of a global ``[B, S]`` batch: dim 0 cut by its
+    coordinate on ``batch_axis``, dim 1 by its coordinate on ``seq_axis``
+    (when given), the counterpart of the JAX step's
+    ``PartitionSpec(batch_axis, seq_axis)``."""
+    mesh = mesh_lib.get_mesh()
+    for dim, axis in ((0, batch_axis), (1, seq_axis)):
+        if axis is None:
+            continue
+        n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+        if tokens.shape[dim] % n:
+            raise ValueError(f"dim {dim} of the batch ({tokens.shape[dim]})"
+                             f" does not divide by the {axis!r} axis ({n})")
+        size = tokens.shape[dim] // n
+        tokens = tokens.narrow(dim, i * size, size)
+    return tokens

@@ -49,13 +49,20 @@ def sync():
 
 def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
                   dtype=torch.bfloat16, lr=3e-4, weight_decay=1e-4, seed=0,
-                  sharded_update=False):
+                  sharded_update=False, mesh=None, seq_axis=None):
     """The LM benchmark: the transformer LM at the given widths, AdamW
-    through ``DistributedOptimizer`` on the data axis (its buckets packed
-    in the flax leaf order; ZeRO-1 with ``sharded_update``), and a seeded
-    batch of this rank's ``batch`` sequences. ``init()`` must have run.
-    Returns ``(step, model, optimizer, tokens)``; ``step(tokens)``
-    returns the averaged loss."""
+    through ``DistributedOptimizer`` (its buckets packed in the flax leaf
+    order; ZeRO-1 with ``sharded_update``), and a seeded batch.
+    ``init()`` must have run. Returns ``(step, model, optimizer,
+    tokens)``; ``step(tokens)`` returns the averaged loss.
+
+    Without ``mesh``: data-parallel over the world, ``batch`` sequences a
+    rank drawn at the seed plus the rank. With ``mesh`` (the installed
+    (data, seq) mesh of ``parallel.mesh.build_mesh``) the JAX package's
+    form: a global batch of ``batch`` sequences a data index, drawn once
+    at the seed and cut by this rank's coordinates, the gradients
+    averaged over ``("data", seq_axis)``, and with ``seq_axis`` the
+    sequence sharded over that axis (ring attention)."""
     from horovod_tpu_torch import basics, convert, hvd_torch, training
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
@@ -64,22 +71,32 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
     cfg = TransformerConfig(vocab_size=vocab, num_layers=layers,
                             num_heads=heads, d_model=d_model,
                             d_ff=4 * d_model, dtype=dtype,
-                            flash_attention=flash)
+                            flash_attention=flash, sequence_axis=seq_axis)
     model = Transformer(cfg, generator=torch.Generator().manual_seed(seed),
                         device=device)
     # optax.adamw's defaults, with the decay stated (torch's is 1e-2)
     inner = torch.optim.AdamW(model.parameters(), lr=lr,
                               betas=(0.9, 0.999), eps=1e-8,
                               weight_decay=weight_decay)
+    axes = None if mesh is None else (
+        ("data", seq_axis) if seq_axis else ("data",))
     opt = hvd_torch.DistributedOptimizer(
         inner, named_parameters=convert.flax_named_parameters(model),
-        sharded_update=sharded_update)
+        sharded_update=sharded_update, axes=axes)
     training.create_train_state(model, opt)
-    rng = np.random.default_rng(seed + basics.rank())
-    tokens = torch.from_numpy(
-        rng.integers(0, vocab, size=(batch, seq_len)).astype(np.int64)
-    ).to(device)
-    return training.make_lm_train_step(model, opt), model, opt, tokens
+    if mesh is None:
+        rng = np.random.default_rng(seed + basics.rank())
+        tokens = rng.integers(0, vocab, size=(batch, seq_len))
+    else:
+        rng = np.random.default_rng(seed)
+        tokens = training.shard_lm_batch(
+            torch.from_numpy(rng.integers(
+                0, vocab, size=(batch * mesh.axis_size("data"), seq_len))),
+            "data", seq_axis).numpy()
+    tokens = torch.from_numpy(tokens.astype(np.int64)).to(device)
+    step = training.make_lm_train_step(model, opt, mesh=mesh,
+                                       seq_axis=seq_axis)
+    return step, model, opt, tokens
 
 
 def make_resnet_bench(*, model="resnet101", batch=256, image_size=224,
