@@ -65,21 +65,43 @@ runs these phases; any failure raises:
   the dense ring's at R = 4;
 * 10b: phase 5's LM, weights and batch through ``make_lm_train_step``'s
   seq branch on a (1, 1) (data, seq) mesh: step 1's loss bit for bit
-  phase 5's, later steps within 1e-3, tokens/s beside phase 5's.
+  phase 5's, later steps within 1e-3, tokens/s beside phase 5's;
+* 11a: Adasum and the two-level reduction at full width, R = 4 ranks
+  held in this process (``parallel.axis.local_axes``): the gradients of
+  phase 5's LM for four seeded batches, packed into the fused 64 MB
+  buckets, through the Adasum tree over 4 ranks and the two-level
+  Adasum over (2 dcn x 2 data), each held against the same tree in fp64
+  on the card (every bucket within ``ADASUM_RTOL`` of its largest
+  element), and the two-level average over (2 x 2) against the flat
+  average in fp64 (each element within fp32 summation order,
+  ``R 2^-24 mean_r |x_r|``); ms per tree, the tree's memory bound (a
+  read of a and b and a write of the result, per rank and level) and
+  its share, the peak memory, and the bytes the dcn stage moves against
+  a flat allreduce, from the shapes;
+* 11b: phase 5's LM, weights and batch on a (1, 1) (dcn, data) mesh,
+  through ``DistributedOptimizer(hierarchical=True)`` and
+  ``op=Adasum``: at world 1 both reductions are the identity, so all
+  five losses equal phase 5's bit for bit; tokens/s beside phase 5's;
+* 11c: 7a's ResNet-101 with ``bn_cross_replica_axes=("data",)`` at
+  world 1: every step's loss within ``1e-5 |loss| + 4 max_k |perturbed_k
+  - 7a_k|`` of 7a's, where the perturbed run is 7a's from weights moved
+  by 1e-6 relative (the net's own sensitivity to rounding: at world 1
+  the two BatchNorms differ only in how they round), img/s and
+  BatchNorm device ms beside 7a's from the profile.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
 
-Phases 4, 4b, 5, 6a, 6b, 6c, 8a and 10b each count the kernels' launches from 0
-on the card and must launch each kernel once per layer and microbatch
-and step; 9a's worker counts its own. The
-last line of output is
+Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b and 11b each count the kernels'
+launches from 0 on the card and must launch each kernel once per layer
+and microbatch and step; 9a's worker counts its own. The last line of
+output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it a JSON object with each kernel's launches on the
-main path (phase 5), error against its plain version, time, plain time,
-bound and library time. After the timed steps of phases 5 and 6b one
+main paths (phase 5 and 11b's two runs, each counted from 0), error
+against its plain version, time, plain time, bound and library time. After the timed steps of phases 5 and 6b one
 more step runs under ``torch.profiler`` for the device's busy share and
 the time by layer and by kernel.
 Exits non-zero without printing a result when CUDA is unavailable or the
@@ -121,6 +143,13 @@ WIRES = ("none", "bf16", "fp8_e4m3", "int8")
 VGG = dict(model="vgg16", batch=64, image_size=224, steps=3)
 # ranks of the ring that phase 10a holds in one process
 RING_RANKS = (2, 4)
+# phase 11a: ranks held in one process, the (dcn, data) mesh of the
+# two-level runs, and the bound of an Adasum tree against the same tree
+# in fp64, as a share of the bucket's largest element: the fp32 dot
+# products of a 64 MB bucket sum 16 M terms (cuBLAS's blocked sums: a
+# relative error of a few 1e-7), each level's combine rounds once more
+ADASUM_RANKS, TWO_LEVEL = 4, (2, 2)
+ADASUM_RTOL = 1e-5
 # the JAX package's compressed-vs-exact contract (__graft_entry__.py
 # WIRE_EPSILON, WIRE_EPSILON_FLOOR): every step's loss within 5 %
 WIRE_EPSILON, WIRE_EPSILON_FLOOR = 0.05, 1e-3
@@ -958,7 +987,7 @@ def _conv_macs(torch, model, image_size):
 
 
 def _drive_images(label, torch, bench, step, batch, steps, flops, exchange,
-                  layers=None):
+                  layers=None, ranges=None):
     """Run ``step(*batch)`` ``steps`` times; print the losses, the step
     times, img/s, MFU, peak memory and the exchange; hold the losses
     (finite, and the last below the first). With ``layers``, profile one
@@ -988,9 +1017,11 @@ def _drive_images(label, torch, bench, step, batch, steps, flops, exchange,
         raise AssertionError(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: loss did not decrease: {losses}")
+    by_layer = None
     if layers is not None:
-        profile_step(torch, lambda: step(*batch), step_ms, layers)
-    return losses, step_ms
+        by_layer = profile_step(torch, lambda: step(*batch), step_ms, layers,
+                                ranges)
+    return losses, step_ms, by_layer
 
 
 def _wire_bytes(schedule, wire, reduce_scatters):
@@ -1060,8 +1091,9 @@ def phase_resnet(hvd, torch, bench):
                 f"{[round(b.nbytes / 1e6, 1) for b in buckets]} MB, "
                 f"{sum(b.nbytes for b in buckets) / 1e6:.1f} MB per step")
 
-    _drive_images("7a", torch, bench, step, batch, STEPS, flops, exchange,
-                  layers=RESNET_LAYERS)
+    losses_7a, ms_7a, layers_7a = _drive_images(
+        "7a", torch, bench, step, batch, STEPS, flops, exchange,
+        layers=RESNET_LAYERS)
     del step, model, opt, batch
     print(f"== phase 7b: ResNet-101, {OVERLAP_ACCUM} microbatches, "
           "overlapped pipeline, ZeRO-1, AdamW(1e-3, weight decay 1e-4), "
@@ -1086,7 +1118,7 @@ def phase_resnet(hvd, torch, bench):
                     f"{on_wire / 1e6:.1f} MB, ratio "
                     f"{logical / on_wire:.3f}")
 
-        losses, step_ms = _drive_images(
+        losses, _, _ = _drive_images(
             f"7b {name}", torch, bench, step, batch, STEPS, flops, exchange,
             layers=RESNET_LAYERS)
         if wire is not None:
@@ -1124,7 +1156,8 @@ def phase_resnet(hvd, torch, bench):
                   " per step")
     del step, model, opt, batch
     hvd.shutdown()
-
+    return dict(losses=losses_7a, step_ms=ms_7a, layers=layers_7a,
+                flops=flops)
 
 
 def _layout_cost(label, torch, bench, schedule, opt):
@@ -1594,9 +1627,10 @@ def _ring_shards(shards, *xs):
 
 def _ring_pass(ring, shards, qs, ks, vs, gs, sm_scale):
     """The flash ring's forward and backward over ``shards`` ranks held
-    in this process (``ring._LocalAxis``): per-rank ``(outs, lses, dqs,
+    in this process (``axis.LocalAxis``): per-rank ``(outs, lses, dqs,
     dks, dvs)``."""
-    axis = ring._LocalAxis(shards)
+    from horovod_tpu_torch.parallel import axis as axis_lib
+    axis = axis_lib.LocalAxis(shards)
     outs, lses = ring._flash_ring_forward(axis, qs, ks, vs, True, sm_scale)
     grads = ring._flash_ring_backward(axis, qs, ks, vs, outs, lses, gs,
                                       True, sm_scale)
@@ -1627,13 +1661,14 @@ def _plain_kernels(fa):
 def _ring_peak_gib(ring, torch, shards, x, use_flash):
     """Peak device memory above the inputs of the ring's forward and
     backward through autograd (flash or dense), shards in one process."""
+    from horovod_tpu_torch.parallel import axis as axis_lib
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     qs, ks, vs = ([c.detach().clone().requires_grad_()
                    for c in x.chunk(shards, dim=1)] for _ in range(3))
-    outs = ring._ring_attention(ring._LocalAxis(shards), qs, ks, vs,
+    outs = ring._ring_attention(axis_lib.LocalAxis(shards), qs, ks, vs,
                                 use_flash=use_flash)
     sum(o.float().square().sum() for o in outs).backward()
     torch.cuda.synchronize()
@@ -1757,42 +1792,320 @@ def phase_seq_lm(hvd, fa, torch, bench, phase5_losses, phase5_tok_s):
     hvd.shutdown()
 
 
-def profile_step(torch, run, step_ms, layers=LAYERS):
+def _grad_sets(torch, model, params, n, batch_shape, vocab):
+    """The fp32 gradients of the LM's loss on ``n`` seeded batches, one
+    list a rank, in the order of ``params``."""
+    from horovod_tpu_torch import training
+    dev = params[0].device
+    sets = []
+    for seed in range(1, n + 1):
+        rng = np.random.default_rng(seed)
+        tokens = torch.from_numpy(rng.integers(0, vocab, size=batch_shape))
+        tokens = tokens.to(dev)
+        model.zero_grad(set_to_none=True)
+        training.softmax_cross_entropy(model(tokens)[:, :-1],
+                                       tokens[:, 1:]).backward()
+        sets.append([p.grad.detach().clone() for p in params])
+    model.zero_grad(set_to_none=True)
+    return sets
+
+
+def _combine64(torch, a, b):
+    """The Adasum operator in fp64, the JAX package's zero-norm rule."""
+    dot, na2, nb2 = torch.dot(a, b), torch.dot(a, a), torch.dot(b, b)
+    ca = 1.0 - dot / (2.0 * na2) if float(na2) > 0 else 1.0
+    cb = 1.0 - dot / (2.0 * nb2) if float(nb2) > 0 else 1.0
+    return a * ca + b * cb
+
+
+def _tree64(torch, vecs):
+    """The XOR tree in fp64 (``adasum_tree_np``'s schedule): the common
+    result."""
+    vecs, d = [v.double() for v in vecs], 1
+    while d < len(vecs):
+        vecs = [_combine64(torch, *((vecs[i], vecs[i ^ d]) if i < i ^ d
+                                    else (vecs[i ^ d], vecs[i])))
+                for i in range(len(vecs))]
+        d <<= 1
+    return vecs[0]
+
+
+def _two_level64(torch, vecs, shape):
+    """The two-level Adasum in fp64 (``hierarchical_adasum_np``): node
+    sums, zero-padded chunks, the tree per chunk across nodes, / the
+    node size."""
+    nodes, local = shape
+    n = vecs[0].numel()
+    pad = (-n) % local
+    sums = [sum(vecs[c * local + i].double() for i in range(local))
+            for c in range(nodes)]
+    sums = [torch.cat([s, s.new_zeros(pad)]).view(local, -1) for s in sums]
+    out = torch.cat([_tree64(torch, [s[i] for s in sums])
+                     for i in range(local)])
+    return out[:n] / local
+
+
+def phase_two_level_full(hvd, torch, bench):
+    """11a: Adasum and the two-level reduction at full width, every rank
+    in this process."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.ops import adasum, fusion
+    from horovod_tpu_torch.parallel import axis, hierarchical
+    print(f"== phase 11a: Adasum and the two-level reduction at full width: "
+          f"phase 5's LM gradients of {ADASUM_RANKS} seeded batches, "
+          f"{ADASUM_RANKS} ranks in this process, 64 MB buckets")
+    hvd.init()
+    t0 = time.perf_counter()
+    _, model, opt, _ = _lm_bench(bench, torch, seq_len=LM["seq_len"])
+    # in the order phase 5's fused allreduce packs them (flax's leaves)
+    sets = _grad_sets(torch, model, opt.params, ADASUM_RANKS,
+                      (LM["batch"], LM["seq_len"]), LM["vocab"])
+    del model, opt
+    buckets = fusion.plan_buckets(sets[0], basics.fusion_threshold())
+    nparams = sum(g.numel() for g in sets[0])
+    print(f"  gradients: {ADASUM_RANKS} x {nparams / 1e6:.2f} M fp32 "
+          f"({nparams * 4 / 1e9:.3f} GB a rank) in {len(buckets)} buckets, "
+          f"made in {time.perf_counter() - t0:.2f} s")
+    flat = axis.LocalAxis(ADASUM_RANKS)
+    two = axis.local_axes(TWO_LEVEL, ("dcn", "data"))
+    ici, dcn = [two["data"]], two["dcn"]
+    runs = {
+        "tree": lambda xs: adasum._adasum_tree(xs, flat),
+        "two-level adasum": lambda xs: adasum._hierarchical_adasum(
+            xs, ici, dcn),
+        "two-level average": lambda xs: hierarchical._allreduce(
+            xs, ici, dcn, "average"),
+    }
+    worst = dict.fromkeys(runs, 0.0)
+    ms = dict.fromkeys(runs, 0.0)
+    peak = dict.fromkeys(runs, 0)
+    for bucket in buckets:
+        xs = [fusion._pack(bucket, g) for g in sets]
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            outs = run(xs)
+            torch.cuda.synchronize()
+            peak[name] = max(peak[name],
+                             torch.cuda.max_memory_allocated() - base)
+            if name == "tree":
+                ref = _tree64(torch, xs)
+            elif name == "two-level adasum":
+                ref = _two_level64(torch, xs, TWO_LEVEL)
+            else:
+                ref = sum(x.double() for x in xs) / ADASUM_RANKS
+                # each element within fp32 summation order of the mean
+                bound = ADASUM_RANKS * 2.0 ** -24 * (
+                    sum(x.double().abs() for x in xs) / ADASUM_RANKS)
+            for r, out in enumerate(outs):
+                if not bool(out.isfinite().all()):
+                    raise AssertionError(f"11a {name}: rank {r} not finite")
+                if not torch.equal(out, outs[0]):
+                    raise AssertionError(f"11a {name}: rank {r} differs "
+                                         "from rank 0")
+            err = (outs[0].double() - ref).abs()
+            if name == "two-level average":
+                share = float((err / bound.clamp_min(1e-30)).max())
+                if not bool((err <= bound).all()):
+                    raise AssertionError(f"11a {name}: an element at "
+                                         f"{share:.3f} of its bound")
+            else:
+                share = float(err.max()) / (ADASUM_RTOL *
+                                            float(ref.abs().max()))
+                if share > 1.0:
+                    raise AssertionError(f"11a {name}: worst error "
+                                         f"{float(err.max())!r} past "
+                                         f"{ADASUM_RTOL} of max|ref|")
+            worst[name] = max(worst[name], share)
+            ms[name] += bench.cuda_time_ms(lambda: run(xs), iters=3,
+                                           warmup=1)
+            del outs, ref, err
+        del xs
+    del sets
+    levels = ADASUM_RANKS.bit_length() - 1
+    elems = sum(b.nbytes for b in buckets) // 4
+    # a read of a and b and a write of the result, per rank and level
+    bound_bytes = {"tree": ADASUM_RANKS * levels * 3 * elems * 4,
+                   "two-level adasum": ADASUM_RANKS * (
+                       TWO_LEVEL[0].bit_length() - 1) * 3 * elems * 4
+                   // TWO_LEVEL[1]}
+    for name in runs:
+        line = (f"  11a {name}: {ms[name]:.3f} ms over every bucket; worst "
+                f"error at {worst[name]:.3f} of its bound; peak "
+                f"{peak[name] / 2**30:.2f} GiB above the inputs")
+        if name in bound_bytes:
+            b_ms = bound_bytes[name] / PEAK_BYTES * 1e3
+            line += (f"; memory bound of its tree {b_ms:.3f} ms "
+                     f"({bound_bytes[name] / 1e9:.2f} GB at "
+                     f"{PEAK_BYTES / 1e12:.2f} TB/s), "
+                     f"{100 * b_ms / ms[name]:.1f}% of bound")
+        print(line)
+    padded = 4 * sum(sum(b.sizes) + (-sum(b.sizes)) % TWO_LEVEL[1]
+                     for b in buckets)
+    print(f"  11a dcn stage bytes a rank (from the shapes): flat allreduce "
+          f"{sum(b.nbytes for b in buckets) / 1e6:.1f} MB, two-level "
+          f"{padded / TWO_LEVEL[1] / 1e6:.1f} MB across dcn "
+          f"({padded / TWO_LEVEL[1] / sum(b.nbytes for b in buckets):.3f} "
+          f"of flat at local size {TWO_LEVEL[1]})")
+    hvd.shutdown()
+
+
+def phase_two_level_lm(hvd, fa, torch, bench, phase5_losses, phase5_tok_s):
+    """11b: phase 5's LM on a (1, 1) (dcn, data) mesh through the
+    two-level reduction and through Adasum: both the identity at world
+    1, so the losses are phase 5's bit for bit. Returns each kernel's
+    launches over both runs."""
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    launches = {}
+    for label, kw in (("11b hierarchical", dict(hierarchical=True)),
+                      ("11b adasum", dict(op=hvd.Adasum))):
+        args = ", ".join(f"{k}={v!r}" for k, v in kw.items())
+        print(f"== phase {label}: full-width LM on a (1, 1) dcn x data "
+              f"mesh, DistributedOptimizer({args})")
+        hvd.init()
+        mesh = build_mesh((1, 1), ("dcn", "data"))
+        step, model, opt, tokens = _lm_bench(bench, torch,
+                                             seq_len=LM["seq_len"],
+                                             mesh=mesh, **kw)
+        assert opt.axes == ("dcn", "data")
+        losses, got, step_ms = _drive(
+            label, hvd, fa, torch, bench, step, (tokens,),
+            LM["layers"] * STEPS, LM["batch"] * LM["seq_len"],
+            lambda: f"fused buckets over {opt.axes}: "
+                    f"{len(opt.last_buckets)} buckets, op {opt.op}, "
+                    f"hierarchical {opt.hierarchical_resolved()}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        tok_s = LM["batch"] * LM["seq_len"] / step_ms * 1e3
+        same = losses == phase5_losses
+        print(f"  {label} losses against phase 5's: "
+              f"{'bit for bit' if same else 'DIFFER'}; tokens/s "
+              f"{tok_s:.1f} against phase 5's {phase5_tok_s:.1f} in this "
+              f"call ({100 * (tok_s / phase5_tok_s - 1):+.1f}%)")
+        if not same:
+            raise AssertionError(f"{label}: losses {losses} against phase "
+                                 f"5's {phase5_losses}")
+        del step, model, opt, tokens
+        hvd.shutdown()
+    return launches
+
+
+def _perturbed(torch, model, rel=1e-6, seed=9):
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1 + rel * torch.randn(p.shape, generator=gen).to(p.device))
+
+
+def phase_sync_bn(hvd, torch, bench, run_7a):
+    """11c: 7a's ResNet-101 with synchronized BatchNorm at world 1."""
+    import gc
+    from horovod_tpu_torch.models.resnet import SYNC_BN_RANGE
+    print("== phase 11c: ResNet-101 as 7a with bn_cross_replica_axes="
+          "('data',) (synchronized BatchNorm, flax's statistics)")
+    hvd.init()
+    step, model, opt, batch = bench.make_resnet_bench(**RESNET)
+    _perturbed(torch, model)
+    pert, _, _ = _drive_images("11c 7a perturbed by 1e-6", torch, bench,
+                               step, batch, STEPS, run_7a["flops"],
+                               lambda: "per-rank BatchNorm")
+    del step, model, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    step, model, opt, batch = bench.make_resnet_bench(
+        **RESNET, bn_cross_replica_axes=("data",))
+    losses, step_ms, layers = _drive_images(
+        "11c", torch, bench, step, batch, STEPS, run_7a["flops"],
+        lambda: f"fused allreduce: {len(opt.last_buckets)} buckets",
+        layers=RESNET_LAYERS, ranges={SYNC_BN_RANGE: "BatchNorm"})
+    ref = run_7a["losses"]
+    bn, bn_7a = layers["BatchNorm"], run_7a["layers"]["BatchNorm"]
+    images = RESNET["batch"]
+    print(f"  11c img/s {images / step_ms * 1e3:.1f} against 7a's "
+          f"{images / run_7a['step_ms'] * 1e3:.1f} in this call; BatchNorm "
+          f"device ms {bn:.2f} against 7a's {bn_7a:.2f} "
+          f"({bn / bn_7a:.2f}x); collectives {layers[COLLECTIVES]:.2f} ms "
+          f"against {run_7a['layers'][COLLECTIVES]:.2f}")
+    diffs = [abs(a - b) for a, b in zip(losses, ref)]
+    sens = [abs(p - b) for p, b in zip(pert, ref)]
+    print(f"  11c losses against 7a's: {[f'{d:.3e}' for d in diffs]}; the "
+          f"perturbed run against 7a's: {[f'{d:.3e}' for d in sens]}")
+    # the bound: the run's own sensitivity, the largest spread rounding
+    # opened between two runs of 7a over the steps, four times over
+    for d, b in zip(diffs, ref):
+        if not d <= 1e-5 * abs(b) + 4 * max(sens):
+            raise AssertionError(f"11c losses {losses} against 7a's {ref} "
+                                 f"(perturbed {pert})")
+    del step, model, opt, batch
+    hvd.shutdown()
+
+
+def _launched_in(trace, ranges):
+    """The correlation ids of the work launched on the host inside a
+    profiler range named in ``ranges`` (``{range name: layer}``):
+    ``{correlation: layer}``. A launch is inside a range when it falls in
+    the range's interval on the same host thread."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    spans = [(e["tid"], e["ts"], e["ts"] + e["dur"], ranges[e["name"]])
+             for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") in ranges]
+    out = {}
+    for e in events:
+        if e.get("cat") != "cuda_runtime":
+            continue
+        for tid, lo, hi, layer in spans:
+            if e["tid"] == tid and lo <= e["ts"] <= hi:
+                out[e.get("args", {}).get("correlation")] = layer
+                break
+    return out
+
+
+def profile_step(torch, run, step_ms, layers=LAYERS, ranges=None):
     """Device time by layer and by kernel over one more ``run()``, read
     from the profiler's trace (kernels, copies and memsets only), and the
     device's idle share: 1 - the union of their intervals / the
     unprofiled median step time. The stream with the most device time is
     the step's; NCCL's collectives run on streams of their own (at world
     1 its reduce-scatters and all-gathers are copies), so work there is
-    attributed to the collectives whatever its name."""
+    attributed to the collectives whatever its name. ``ranges`` (``{host
+    profiler range: layer}``) attributes the step stream's work launched
+    inside such a range to its layer, whatever its name. Returns the
+    milliseconds by layer."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # a range is a host event: tracing the host too, where one is asked
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if ranges else [])
+    with profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "step.json"
         prof.export_chrome_trace(str(path))
         trace = json.loads(path.read_text())
+    launched = _launched_in(trace, ranges or {})
     work = sorted(((e["ts"], e["dur"], e["name"],
-                    e.get("args", {}).get("stream"))
+                    e.get("args", {}).get("stream"),
+                    launched.get(e.get("args", {}).get("correlation")))
                    for e in trace["traceEvents"]
                    if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK),
                   key=lambda w: w[0])
     busy, end = 0.0, -math.inf  # microseconds, overlaps counted once
-    for ts, dur, _, _ in work:
+    for ts, dur, _, _, _ in work:
         busy += max(0.0, ts + dur - max(ts, end))
         end = max(end, ts + dur)
     busy /= 1e3
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
     per_stream = {}
-    for _, dur, _, stream in work:
+    for _, dur, _, stream, _ in work:
         per_stream[stream] = per_stream.get(stream, 0.0) + dur
     main_stream = max(per_stream, key=per_stream.get)
     by_name = {}
-    for _, dur, name, stream in work:
-        key = (name, stream != main_stream)
+    for _, dur, name, stream, in_range in work:
+        side = stream != main_stream
+        key = (name, side, None if side else in_range)
         ms, n = by_name.get(key, (0.0, 0))
         by_name[key] = (ms + dur / 1e3, n + 1)
     total = sum(ms for ms, _ in by_name.values())
@@ -1801,17 +2114,22 @@ def profile_step(torch, run, step_ms, layers=LAYERS):
           f"{len(per_stream)} streams) in a {step_ms:.2f} ms step: device "
           f"idle {100 * (1 - busy / step_ms):.1f}%")
     by_layer = dict.fromkeys([name for name, _ in layers] + ["other"], 0.0)
-    for (name, side), (ms, _) in by_name.items():
-        layer = COLLECTIVES if side else next(
+    for (name, side, in_range), (ms, _) in by_name.items():
+        layer = COLLECTIVES if side else in_range or next(
             (layer for layer, pats in layers
              if any(p in name for p in pats)), "other")
         by_layer[layer] += ms
     for layer, ms in by_layer.items():
         print(f"    {ms:9.3f} ms {100 * ms / total:5.1f}%  {layer}")
+    if ranges:
+        print(f"    ({sum(1 for w in work if w[4])} kernels, copies and "
+              f"memsets launched inside the ranges {sorted(ranges)})")
     top = sorted(by_name.items(), key=lambda item: -item[1][0])[:12]
-    for (name, side), (ms, n) in top:
+    for (name, side, in_range), (ms, n) in top:
         print(f"    {ms:9.3f} ms {100 * ms / total:5.1f}%  x{n:<4} "
-              f"{'[NCCL stream] ' if side else ''}{name[:90]}")
+              f"{'[NCCL stream] ' if side else ''}"
+              f"{'[' + in_range + '] ' if in_range else ''}{name[:90]}")
+    return by_layer
 
 
 def main(argv=None):
@@ -1861,19 +2179,27 @@ def main(argv=None):
     phase_parity_resnet(hvd, torch)
     losses, launches, phase5_tok_s = phase_full(hvd, fa, torch, bench)
     phase_exchange_full(hvd, fa, torch, bench, losses)
-    phase_resnet(hvd, torch, bench)
+    run_7a = phase_resnet(hvd, torch, bench)
     phase_resume(hvd, fa, torch, bench)
     phase_resume_resnet(hvd, torch, bench)
     phase_launch(hvd, torch, kind, phase5_tok_s)
     phase_ring(fa, torch, dev, bench)
     phase_seq_lm(hvd, fa, torch, bench, losses, phase5_tok_s)
+    torch.cuda.empty_cache()
+    phase_two_level_full(hvd, torch, bench)
+    torch.cuda.empty_cache()
+    launches_11b = phase_two_level_lm(hvd, fa, torch, bench, losses,
+                                      phase5_tok_s)
+    torch.cuda.empty_cache()
+    phase_sync_bn(hvd, torch, bench, run_7a)
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):
         wrapper, replaces, source, design = KERNELS[kind_]
         kernels.append(dict(name=wrapper, route="cuda", source=source,
                             replaces=replaces, design=design,
-                            launches=launches[kind_], **rows[kind_]))
+                            launches=launches[kind_] + launches_11b[kind_],
+                            **rows[kind_]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

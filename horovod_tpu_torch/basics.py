@@ -105,9 +105,33 @@ def _kv_store(cfg):
                          is_master=False, timeout=_TIMEOUT)
 
 
+def _hosts_tile_world(cfg, dev):
+    """Whether the world is ``cross_size`` hosts of ``local_size`` ranks
+    each, the layout of the ``(dcn, data)`` mesh. Building that mesh is
+    collective, so every rank must decide alike, and over hosts of
+    unequal rank counts they see different values: the launcher gives
+    each rank the number of hosts that have its local rank
+    (``run/allocation.py``). One all-reduce of both values and their
+    negations under MAX makes the decision the job's."""
+    if cfg.size == 1:
+        return False
+    seen = torch.tensor([cfg.cross_size, -cfg.cross_size, cfg.local_size,
+                         -cfg.local_size], dtype=torch.int64, device=dev)
+    dist.all_reduce(seen, op=dist.ReduceOp.MAX)
+    cross_max, cross_min, local_max, local_min = seen.tolist()
+    return (cross_max == -cross_min > 1 and local_max == -local_min
+            and cross_max * local_max == cfg.size)
+
+
 def init(device=None):
     """Initialize (idempotent). ``device`` is ``None`` for this process's
-    card (raises when CUDA is absent), ``"cpu"``, or an explicit device."""
+    card (raises when CUDA is absent), ``"cpu"``, or an explicit device.
+    Installs the mesh of ``parallel/mesh.py``: ``("data",)`` over the
+    world, or ``("dcn", "data")`` of ``(cross_size, local_size)`` when
+    the job spans ``HOROVOD_CROSS_SIZE > 1`` hosts of equal rank counts,
+    as the JAX ``init()`` does. Over hosts of unequal rank counts the
+    mesh stays 1-D and the job runs flat (there the JAX ``build_mesh``
+    raises, or builds a mesh that does not follow the hosts)."""
     with _lock:
         if _state.initialized:
             return
@@ -121,6 +145,8 @@ def init(device=None):
         _state.mesh = mesh_lib.Mesh(group=dist.group.WORLD, device=dev,
                                     size=cfg.size, rank=cfg.rank)
         mesh_lib.set_mesh(_state.mesh)
+        if _hosts_tile_world(cfg, dev):
+            mesh_lib.build_mesh(num_slices=cfg.cross_size)
         _state.config = cfg
         _state.initialized = True
 

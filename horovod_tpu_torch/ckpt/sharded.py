@@ -61,8 +61,9 @@ def shard_path(root, step, rank, world):
 class ZeroLeaf:
     """ZeRO-1's optimizer state as one leaf of the flat state, the
     port's counterpart of a JAX ``ZeroState``: the bucket ``schedule``
-    (``ops.fusion.BucketSchedule``), the ``rank`` whose rows this process
-    holds, and ``entries``, ``(key, bucket index or None, value)`` in the
+    (``ops.fusion.BucketSchedule``), ``rank``, the row of each bucket
+    this process holds (its rank, or under a hierarchical schedule its
+    ``(data, dcn)``-major index), and ``entries``, ``(key, bucket index or None, value)`` in the
     order JAX flattens the inner optax state, each key its
     ``jax.tree_util.keystr``. A bucket entry's value is ``{row index:
     [shard] array}`` of the rows held (to save), or the whole
@@ -197,9 +198,12 @@ def snapshot_payload(tree, rank, world, staging=None):
     for i, leaf in enumerate(leaves):
         if isinstance(leaf, ZeroLeaf):
             sched_world = int(leaf.schedule.world)
+            # one rank a row: the row it holds; else a block of rows
+            held = ([leaf.rank] if sched_world == world
+                    else _owned_rows(sched_world, rank, world))
             for key, bucket, value in leaf.entries:
                 if bucket is not None:
-                    for r in _owned_rows(sched_world, rank, world):
+                    for r in held:
                         if r not in value:
                             raise ValueError(
                                 f"rank {rank} of {world} saves row {r} of "

@@ -1,20 +1,28 @@
 """Environment-variable configuration: the launcher's rank contract, the
-fusion threshold and the wire format, under the same ``HOROVOD_*`` names
-as the JAX package (``horovod_tpu/config.py``)."""
+fusion threshold, the wire format and the two-level reduction, under the
+same ``HOROVOD_*`` names as the JAX package (``horovod_tpu/config.py``)."""
 
 import dataclasses
 import os
 
 # Default tensor-fusion buffer size: 64 MB, Horovod's default.
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
-# The tuning variables that Config reads; hvdrun says of every other one
-# it sets that the port does not act on it.
-ACTED_ON = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_WIRE_DTYPE")
+# The tuning variables that the port acts on; hvdrun says of every other
+# one it sets that the port does not act on it.
+ACTED_ON = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_WIRE_DTYPE",
+            "HOROVOD_HIERARCHICAL_ALLREDUCE")
 
 
 def _env_int(name, default):
     v = os.environ.get(name)
     return default if v in (None, "") else int(v)
+
+
+def _env_bool(name, default=False):
+    v = os.environ.get(name)
+    if v in (None, ""):
+        return default
+    return v.lower() not in ("0", "false", "no", "off")
 
 
 def _env_str(name, default=None):
@@ -42,6 +50,14 @@ class Config:
     # the default wire format of DistributedOptimizer(compression=None),
     # a name of ops/compression.by_name
     wire_dtype: str = None
+    # the default of fused_allreduce_(hierarchical=None) and
+    # DistributedOptimizer(hierarchical=None): the two-level reduction
+    # on a mesh with a dcn axis
+    hierarchical_allreduce: bool = False
+    # kept only for parity with the JAX Config, which reads them too;
+    # nothing in either package acts on them (hvdrun names them so)
+    hierarchical_allgather: bool = False
+    adasum_chunk_size: int = 1 << 26
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -60,4 +76,9 @@ class Config:
             fusion_threshold=_env_int("HOROVOD_FUSION_THRESHOLD",
                                       DEFAULT_FUSION_THRESHOLD),
             wire_dtype=_env_str("HOROVOD_WIRE_DTYPE"),
+            hierarchical_allreduce=_env_bool(
+                "HOROVOD_HIERARCHICAL_ALLREDUCE"),
+            hierarchical_allgather=_env_bool(
+                "HOROVOD_HIERARCHICAL_ALLGATHER"),
+            adasum_chunk_size=_env_int("HOROVOD_ADASUM_CHUNK_SIZE", 1 << 26),
         )

@@ -424,13 +424,15 @@ def _hvd_optimizer(optimizer):
 class _ZeroSlots:
     """ZeRO-1's state as the JAX ``ZeroState``: the row optimizer's optax
     state over ``{"b<i>": [world, shard]}``, of which this rank holds
-    row ``rank`` of each bucket."""
+    row ``rank`` of each bucket (``zero.row_index``)."""
 
     def __init__(self, optimizer):
-        from horovod_tpu_torch.parallel import mesh as mesh_lib
+        from horovod_tpu_torch.parallel import zero
         zs = optimizer.zero_state
         self.schedule = zs.plan.schedule
-        self.rank = mesh_lib.get_mesh().rank
+        # the row this rank holds: its rank, or its (data, dcn)-major
+        # index under a hierarchical schedule
+        self.rank = zero.row_index(self.schedule)
         keyed = {f"b{i}": row for i, row in enumerate(zs.rows)}
         names = sorted(keyed)
         rows = [keyed[k] for k in names]

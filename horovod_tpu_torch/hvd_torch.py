@@ -57,10 +57,21 @@ class DistributedOptimizer(torch.optim.Optimizer):
       k-th; the other calls leave the parameters as they are.
     * ``axes`` are the mesh axes the gradients are reduced over
       (``ops/collective.py``): None, the default, is the whole mesh (the
-      JAX package defaults to the data axes, the same on a 1-D mesh);
-      ``("data", "seq")`` for a sequence-parallel LM on a (data, seq)
-      mesh. ZeRO-1 and the overlapped pipeline of ``make_train_step``
-      need axes that span the whole mesh.
+      JAX package defaults to the data axes, the same on a 1-D mesh and
+      on ``init()``'s ``(dcn, data)`` mesh); ``("data", "seq")`` for a
+      sequence-parallel LM on a (data, seq) mesh. ZeRO-1 and the
+      overlapped pipeline of ``make_train_step`` need axes that span the
+      whole mesh.
+    * ``op`` is Average, Sum, Min, Max or Adasum: Adasum reduces each
+      fused bucket by ``ops/adasum.py`` (its XOR tree over one axis, its
+      two-level composite across ``dcn``); it composes with a cast wire,
+      not with a chunked one, ZeRO-1 or the overlapped pipeline.
+    * ``hierarchical`` reduces Sum and Average in two levels
+      (``parallel/hierarchical.py``: within a host, across ``dcn``, back)
+      when the axes hold ``dcn`` and one more axis, in the fused
+      allreduce, the ZeRO-1 plan and ``make_train_step``'s bucket
+      schedule. None defers to ``HOROVOD_HIERARCHICAL_ALLREDUCE``, read
+      at use (``hierarchical_resolved``).
     * ``compression`` is the wire format of the exchange: a compressor
       of ``ops/compression.py`` or its name (``"bf16"``, ``"fp8_e4m3"``,
       ``"int8"``, ...). ``"none"`` or ``Compression.none`` pins it
@@ -73,15 +84,17 @@ class DistributedOptimizer(torch.optim.Optimizer):
       carries error feedback.
 
     Under ``sharded_update``, ``state_dict()`` also carries this rank's
-    ZeRO-1 rows' state (``"zero"``: the rank, the world and the row
-    optimizer's ``state_dict``), and ``load_state_dict`` restores it;
+    ZeRO-1 rows' state (``"zero"``: the rank, the world, the row this
+    rank owns (``zero.row_index``, which a hierarchical schedule
+    permutes) and the row optimizer's ``state_dict``), and
+    ``load_state_dict`` restores it where all three match;
     the row optimizer takes the user's hyperparameters at every step, so
     a scheduler's learning rate reaches it on the next step."""
 
     def __init__(self, optimizer, named_parameters=None, op=Average,
                  compression=None, threshold_bytes=None,
                  backward_passes_per_step=1, sharded_update=False,
-                 axes=None):
+                 axes=None, hierarchical=None):
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1, got "
                              f"{backward_passes_per_step}")
@@ -98,6 +111,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
         self.optimizer = optimizer
         self.axes = axes
         self.op = op
+        self.hierarchical = hierarchical
         self.threshold_bytes = threshold_bytes
         self.backward_passes_per_step = backward_passes_per_step
         self.sharded_update = sharded_update
@@ -133,7 +147,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
         if sharded_update:
             self.zero_state = zero.init(optimizer, params, zero.make_plan(
                 params, op=op, threshold_bytes=threshold_bytes,
-                perms=perms))
+                perms=perms, axes=axes,
+                hierarchical=self.hierarchical_resolved()))
         self._acc, self._mini_step = None, 0
 
     # the torch.optim.Optimizer surface is the inner optimizer's
@@ -154,6 +169,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
         if self.zero_state is not None:
             m = mesh_lib.get_mesh()
             sd["zero"] = {"rank": m.rank, "world": m.size,
+                          "row": zero.row_index(self.zero_state.plan.schedule),
                           "state": self.zero_state.inner.state_dict()}
         return sd
 
@@ -168,12 +184,16 @@ class DistributedOptimizer(torch.optim.Optimizer):
                 f"{self.zero_state is not None}")
         if rows is not None:
             m = mesh_lib.get_mesh()
-            if (rows["rank"], rows["world"]) != (m.rank, m.size):
+            row = zero.row_index(self.zero_state.plan.schedule)
+            # rows saved before the row was recorded were flat: row = rank
+            saved = (rows["rank"], rows["world"],
+                     rows.get("row", rows["rank"]))
+            if saved != (m.rank, m.size, row):
                 raise ValueError(
-                    f"ZeRO-1 rows of rank {rows['rank']} of "
-                    f"{rows['world']} cannot load into rank {m.rank} of "
-                    f"{m.size}: restore through horovod_tpu_torch.ckpt, "
-                    "which reshards")
+                    f"ZeRO-1 row {saved[2]} of rank {rows['rank']} of "
+                    f"{rows['world']} cannot load into row {row} of rank "
+                    f"{m.rank} of {m.size}: restore through "
+                    "horovod_tpu_torch.ckpt, which reshards")
             self.zero_state.inner.load_state_dict(rows["state"])
         self.optimizer.load_state_dict(state_dict)
 
@@ -216,6 +236,11 @@ class DistributedOptimizer(torch.optim.Optimizer):
             return None
         return wire
 
+    def hierarchical_resolved(self):
+        """``hierarchical``, or with None ``HOROVOD_HIERARCHICAL_ALLREDUCE``
+        read now (False before ``init()``)."""
+        return bool(fusion.hierarchical_default(self.hierarchical))
+
     def zero_grad(self, set_to_none=True):
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
@@ -233,7 +258,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
             [p.grad for p in self.params], op=self.op,
             threshold_bytes=self.threshold_bytes,
             compression=self.compression, perms=self.perms,
-            axes=self.axes))
+            axes=self.axes, hierarchical=self.hierarchical_resolved()))
 
     @torch.no_grad()
     def _accumulate(self):
@@ -278,14 +303,21 @@ class DistributedOptimizer(torch.optim.Optimizer):
 
 
 def require_whole_mesh(axes, what):
-    """Raise ``NotImplementedError`` unless ``axes`` reduce over the whole
+    """Raise ``NotImplementedError`` unless ``axes`` (in any order: a
+    hierarchical schedule's ``("data", "dcn")``) reduce over the whole
     installed mesh: ZeRO-1's rows and the overlapped bucket schedule are
     laid out over every rank."""
-    if axes is not None and not mesh_lib.get_mesh().spans(axes):
+    if axes is None:
+        return
+    m = mesh_lib.get_mesh()
+    named = {axes} if isinstance(axes, str) else set(axes)
+    for a in named:
+        m.axis_size(a)  # an axis the mesh lacks raises ValueError
+    if not all(n == 1 or a in named for a, n in zip(m.axis_names, m.shape)):
         raise NotImplementedError(
-            f"{what} over the axes {axes!r}, a part of the mesh, comes with "
-            "the hierarchical reductions (ROADMAP.md Queue 1 item 4); "
-            "reduce over the whole mesh (axes=None)")
+            f"{what} over the axes {axes!r}, a part of the mesh, is not "
+            "ported (ROADMAP.md Queue 1 item 4); reduce over the whole "
+            "mesh (axes=None)")
 
 
 @torch.no_grad()

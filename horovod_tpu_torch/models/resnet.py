@@ -20,6 +20,13 @@ Torch's idiom, with the flax model's numbers:
   batch statistics in fp32, and running averages ``0.9 ra + 0.1 batch``
   of the mean and the BIASED variance (``nn.BatchNorm2d`` averages the
   unbiased one). The last BatchNorm of each block starts with scale 0.
+* ``bn_cross_replica_axes``: flax's ``BatchNorm(axis_name=...)``,
+  synchronized BatchNorm over those mesh axes. The batch statistics are
+  flax's ``_compute_stats``: the fp32 mean and mean of squares per
+  channel, averaged over the axes' group in one collective, and the
+  variance ``max(0, E[x^2] - E[x]^2)``. The backward averages the
+  statistics' cotangents over the group in one collective, as ``pmean``'s
+  transpose does. None keeps per-rank statistics (``F.batch_norm``).
 
 Weights are drawn on the CPU from a seeded ``torch.Generator`` with flax's
 initializer distributions (not its bits) and then moved to ``device``;
@@ -32,6 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.models.simple import _dense
+from horovod_tpu_torch.ops import collective
+from horovod_tpu_torch.ops.reduction import Average
 from horovod_tpu_torch.models.transformer import lecun_normal_
 
 
@@ -82,16 +91,87 @@ class Conv(nn.Module):
         return F.conv2d(x, w, b, self.stride, pad)
 
 
+# the profiler range of synchronized BatchNorm's forward and backward
+SYNC_BN_RANGE = "horovod_tpu_torch.sync_batch_norm"
+
+
+def _channel(t, x):
+    """A per-channel ``[C]`` tensor shaped to broadcast against ``x``."""
+    return t.view((1, -1) + (1,) * (x.dim() - 2))
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """flax's synchronized BatchNorm over the group of ``axes``: ``(y,
+    mean, var)``, the output at ``x``'s dtype and the averaged fp32
+    statistics. One allreduce each way: the stacked ``[2, C]`` local
+    means of x and x^2 forward, their cotangents backward (an average,
+    the transpose of ``pmean``). ``x`` is saved at its own dtype and
+    read again in fp32 by the backward. Both directions run under the
+    profiler range ``SYNC_BN_RANGE``, so a trace can attribute their
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, axes):
+        with torch.profiler.record_function(SYNC_BN_RANGE):
+            return _SyncBatchNorm._forward(ctx, x, weight, bias, eps, axes)
+
+    @staticmethod
+    def _forward(ctx, x, weight, bias, eps, axes):
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.float()
+        stats = torch.stack([xf.mean(dims), (xf * xf).mean(dims)])
+        collective.allreduce_(stats, op=Average, axes=axes)
+        mean, meansq = stats[0], stats[1]
+        spread = meansq - mean * mean
+        var = torch.clamp_min(spread, 0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = ((xf - _channel(mean, x)) * _channel(invstd * weight, x)
+             + _channel(bias, x)).to(x.dtype)
+        ctx.axes = axes
+        ctx.save_for_backward(x, weight, mean, invstd, spread > 0)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        with torch.profiler.record_function(SYNC_BN_RANGE):
+            return _SyncBatchNorm._backward(ctx, gy)
+
+    @staticmethod
+    def _backward(ctx, gy):
+        x, weight, mean, invstd, positive = ctx.saved_tensors
+        dims = [0] + list(range(2, x.dim()))
+        xf, g = x.float(), gy.float()
+        centered = xf - _channel(mean, x)
+        sum_g = g.sum(dims)
+        sum_gc = (g * centered).sum(dims)
+        # y = (x - mean) * r * w + b, r = rsqrt(max(0, E[x^2] - mean^2)
+        # + eps): the cotangents of the local E[x] and E[x^2], averaged
+        ct_var = torch.where(positive, -0.5 * weight * sum_gc * invstd ** 3,
+                             0.0)
+        cts = torch.stack([-invstd * weight * sum_g - 2.0 * mean * ct_var,
+                           ct_var])
+        collective.allreduce_(cts, op=Average, axes=ctx.axes)
+        m = x.numel() // x.shape[1]
+        dx = (g * _channel(invstd * weight, x) + _channel(cts[0] / m, x)
+              + xf * _channel(2.0 * cts[1] / m, x))
+        return dx.to(x.dtype), sum_gc * invstd, sum_g, None, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW: in
     training, normalization by the batch's mean and biased variance
     (computed in fp32, the output at the input's dtype), and the running
     averages updated in place with the biased variance. ``momentum`` is
     torch's (the weight of the new batch): 0.1. In evaluation mode the
-    running averages normalize."""
+    running averages normalize. ``cross_replica_axes`` (None: per rank)
+    synchronizes the batch statistics over those mesh axes
+    (``_SyncBatchNorm``)."""
 
-    def __init__(self, num_features, zero_scale=False):
+    def __init__(self, num_features, zero_scale=False,
+                 cross_replica_axes=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.cross_replica_axes = cross_replica_axes
         if zero_scale:
             nn.init.zeros_(self.weight)
 
@@ -99,6 +179,15 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.cross_replica_axes is not None:
+            y, mean, var = _SyncBatchNorm.apply(
+                x, self.weight, self.bias, self.eps, self.cross_replica_axes)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+            return y
         # one fused call normalizes and, at momentum 1, leaves the batch
         # mean and the unbiased variance in its two scratch buffers
         mean = torch.zeros_like(self.running_mean)
@@ -185,11 +274,14 @@ class ResNet(nn.Module):
     """ResNet v1.5 over NCHW images: a 7x7/2 stem, BatchNorm, ReLU, a 3x3/2
     max-pool, the stages of ``block_cls`` (stage ``i`` at
     ``num_filters * 2**i`` filters, its first block strided from stage 1
-    on), the mean over H and W, and ``head``."""
+    on), the mean over H and W, and ``head``. ``bn_cross_replica_axes``
+    (a mesh axis name or a tuple of them) synchronizes every BatchNorm
+    over those axes, as flax's ``BatchNorm(axis_name=...)``; None keeps
+    per-rank statistics."""
 
     def __init__(self, stage_sizes, block_cls, num_classes=1000,
                  num_filters=64, dtype=torch.bfloat16, generator=None,
-                 device=None):
+                 device=None, bn_cross_replica_axes=None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -207,6 +299,10 @@ class ResNet(nn.Module):
                 channels = num_filters * 2 ** i * block_cls.expansion
         self.blocks = nn.Sequential(*blocks)
         self.head = _dense(channels, num_classes, generator)
+        self.bn_cross_replica_axes = bn_cross_replica_axes
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.cross_replica_axes = bn_cross_replica_axes
         if device is not None:
             self.to(device)
 

@@ -6,12 +6,16 @@ The port of ``horovod_tpu/ops/collective.py``'s ``allreduce``,
 ``torch.distributed`` calls on a process group of the installed mesh
 (``parallel/mesh.py``; NCCL on the card, gloo on the CPU). ``axes`` names
 the mesh axes a collective runs over: None for the whole mesh (the
-world), a name, or a tuple in mesh order. (The JAX package's default is
-the data axes, ``data_axis_names()``; on a 1-D mesh the two are the
-world.) Average is a Sum followed by a division by the group's size, one
-path for both backends (gloo has no AVG). Chunk ``i`` of dim 0 belongs to
-the rank whose ``mesh_rank(axes)`` is ``i`` in every collective that
-splits or concatenates along it.
+world), a name, or a tuple. (The JAX package's default is the data axes,
+``data_axis_names()``; on a 1-D mesh the two are the world.) Average is
+a Sum followed by a division by the group's size, one path for both
+backends (gloo has no AVG). Chunk ``i`` of dim 0 belongs to the rank
+whose ``mesh_rank(axes)`` is ``i`` in every collective that splits or
+concatenates along it: row-major over ``axes`` in the order given, so a
+tuple out of mesh order, such as the ``("data", "dcn")`` of a
+hierarchical bucket schedule, runs on the group of the same ranks with
+its chunks permuted. ``op=Adasum`` reduces by ``ops/adasum.py``: its XOR
+tree over one axis, its two-level composite over several.
 
 ``ppermute``, the synchronous ``allgather`` and ``alltoall`` are
 ``torch.autograd.Function``s, so a model's forward may call them:
@@ -20,6 +24,7 @@ splits or concatenates along it.
 reduce-scatter.
 """
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -31,19 +36,59 @@ _OPS = {Sum: dist.ReduceOp.SUM, Average: dist.ReduceOp.SUM,
         Min: dist.ReduceOp.MIN, Max: dist.ReduceOp.MAX}
 
 
+def _in_mesh_order(m, axes):
+    if axes is None:
+        return None
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(sorted(axes, key=m._axis))
+
+
 def _group(axes):
-    """``(group, ranks, index of this rank in ranks)`` over ``axes``."""
+    """``(group, ranks, index of this rank in ranks)`` over ``axes``, the
+    ranks in mesh order."""
     m = mesh_lib.get_mesh()
-    group, ranks = m.group_of(axes)
+    group, ranks = m.group_of(_in_mesh_order(m, axes))
     return group, ranks, ranks.index(m.rank)
+
+
+def _linear(axes):
+    """For each rank of the group over ``axes`` (in mesh order), its index
+    row-major over ``axes`` in the order given; None where the two orders
+    agree."""
+    m = mesh_lib.get_mesh()
+    ordered = _in_mesh_order(m, axes)
+    if ordered is None or tuple(ordered) == (
+            (axes,) if isinstance(axes, str) else tuple(axes)):
+        return None
+    _, ranks = m.group_of(ordered)
+    lin = []
+    for r in ranks:
+        coords = np.unravel_index(r, m.shape)
+        idx = 0
+        for a in axes:
+            idx = idx * m.axis_size(a) + int(coords[m._axis(a)])
+        lin.append(idx)
+    return lin
+
+
+def _permute(parts, order):
+    return [parts[i] for i in order]
+
+
+def _inverse(lin):
+    return [lin.index(i) for i in range(len(lin))]
 
 
 def allreduce_(x, op=Average, axes=None):
     """Reduce ``x`` in place across the ranks of ``axes``; every rank
-    gets the result."""
+    gets the result. ``op=Adasum`` runs ``ops/adasum.py``'s
+    ``adasum_allreduce`` over ``axes`` (None: every axis of the mesh):
+    its XOR tree over one axis (a power of 2 of ranks, else
+    ``ValueError``), its two-level composite over several."""
     if op == Adasum:
-        raise NotImplementedError("Adasum is not ported to "
-                                  "horovod_tpu_torch yet")
+        from horovod_tpu_torch.ops import adasum
+        axes = mesh_lib.get_mesh().axis_names if axes is None else axes
+        return x.copy_(adasum.adasum_allreduce(x, axes))
     if op not in _OPS:
         raise ValueError(f"unknown reduction op: {op!r}")
     if op == Average and not x.is_floating_point():
@@ -83,8 +128,11 @@ def mesh_size(axes=None):
 
 
 def mesh_rank(axes=None):
-    """This rank's index across ``axes`` (row-major over them)."""
-    return _group(axes)[2]
+    """This rank's index across ``axes`` (row-major over them, in the
+    order given)."""
+    _, _, me = _group(axes)
+    lin = _linear(axes)
+    return me if lin is None else lin[me]
 
 
 class Pending:
@@ -123,12 +171,19 @@ def _wire_view(x):
 
 def _allgather(x, axes, async_op=False):
     group, ranks, _ = _group(axes)
+    lin = _linear(axes)
     x = x.contiguous()
     out = torch.empty((len(ranks) * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
     work = dist.all_gather_into_tensor(_wire_view(out), _wire_view(x),
                                        group=group, async_op=True)
-    pending = Pending((work,), lambda: out, (x,))
+
+    def finish():
+        if lin is None:
+            return out
+        return torch.cat(_permute(out.chunk(len(ranks)), _inverse(lin)))
+
+    pending = Pending((work,), finish, (x,))
     return pending if async_op else pending.wait()
 
 
@@ -158,6 +213,9 @@ def _reducescatter(x, op, axes, async_op=False):
     if x.shape[0] % n:
         raise ValueError(f"reducescatter: dim 0 ({x.shape[0]}) does not "
                          f"divide by the group's size {n}")
+    lin = _linear(axes)
+    if lin is not None:  # group member g receives chunk lin[g]
+        x = torch.cat(_permute(x.chunk(n), lin))
     x = x.contiguous()
     out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
@@ -187,18 +245,24 @@ def _alltoall(x, axes, split_dim=0, concat_dim=0, async_op=False):
     if x.shape[split_dim] % n:
         raise ValueError(f"alltoall: dim {split_dim} ({x.shape[split_dim]})"
                          f" does not divide by the group's size {n}")
-    if split_dim == concat_dim == 0:
+    lin = _linear(axes)
+    if split_dim == concat_dim == 0 and lin is None:
         send = x.contiguous()
     else:  # chunk j of split_dim to rank j, stacked along a new dim 0
-        send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+        parts = x.chunk(n, dim=split_dim)
+        send = torch.stack(parts if lin is None else _permute(parts, lin))
+        send = send.contiguous()
     out = torch.empty_like(send)
     work = dist.all_to_all_single(_wire_view(out), _wire_view(send),
                                   group=group, async_op=True)
 
     def finish():
-        if split_dim == concat_dim == 0:
+        if split_dim == concat_dim == 0 and lin is None:
             return out
-        return torch.cat(out.unbind(0), dim=concat_dim)
+        parts = out.unbind(0)
+        if lin is not None:
+            parts = _permute(parts, _inverse(lin))
+        return torch.cat(parts, dim=concat_dim)
 
     pending = Pending((work,), finish, (send,))
     return pending if async_op else pending.wait()
@@ -280,7 +344,9 @@ def broadcast_(x, root_rank=0, axes=None):
     """Overwrite ``x`` in place with the value of the rank whose
     ``mesh_rank(axes)`` is ``root_rank``."""
     group, ranks, _ = _group(axes)
-    dist.broadcast(x, src=ranks[root_rank], group=group)
+    lin = _linear(axes)
+    root = root_rank if lin is None else lin.index(root_rank)
+    dist.broadcast(x, src=ranks[root], group=group)
     return x
 
 

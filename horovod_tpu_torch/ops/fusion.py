@@ -1,7 +1,7 @@
 """Tensor fusion: pack many small tensors into few big collectives.
 
-The port of the single-level branch of ``horovod_tpu/ops/fusion.py``,
-wire compression included: tensors are grouped by dtype and packed in
+The port of ``horovod_tpu/ops/fusion.py``, wire compression and the
+two-level reduction included: tensors are grouped by dtype and packed in
 order into flat buckets of at most ``fusion_threshold`` bytes (default
 64 MB), one collective per bucket. The plan is the same greedy packing as
 the JAX package's ``plan_buckets``, so the same leaves give the same
@@ -21,16 +21,23 @@ Two exchanges use it:
   of ``ops/compression.py``, with an optional error-feedback residual.
 
 Every exchange takes ``axes``, the mesh axes it reduces over
-(``ops/collective.py``; None: the whole mesh).
+(``ops/collective.py``; None: the whole mesh). A ``BucketSchedule``
+carries its own: the scatter order, walked axis by axis, which
+``hierarchical=True`` makes ICI-first (``("data", "dcn")`` on a
+``(dcn, data)`` mesh) so the cross-host stage moves 1/ici_size of the
+bytes; chunk ownership is then row-major over that order.
 """
 
 import dataclasses
+import warnings
 
 import torch
 
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.ops import collective
 from horovod_tpu_torch.ops import compression as compression_lib
+from horovod_tpu_torch.parallel import hierarchical as hier_lib
+from horovod_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +108,21 @@ def _threshold(threshold_bytes):
     return basics.fusion_threshold()
 
 
+def hierarchical_default(hierarchical):
+    """``hierarchical``, or with None ``HOROVOD_HIERARCHICAL_ALLREDUCE``
+    (False before ``init()``)."""
+    if hierarchical is not None:
+        return hierarchical
+    cfg = basics._state.config
+    return cfg.hierarchical_allreduce if cfg is not None else False
+
+
+def _two_level(hierarchical, axes):
+    """True when ``axes`` (resolved) hold ``dcn`` and one more axis and the
+    two-level path is asked for."""
+    return bool(hierarchical) and mesh_lib.DCN_AXIS in axes and len(axes) > 1
+
+
 def _flax_strides(shape, perm):
     """The strides, in torch's dim order, of a leaf of torch shape
     ``shape`` stored as its flax array (dims in ``perm`` order),
@@ -162,10 +184,17 @@ def _unpack(bucket, flat):
 
 
 def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
-                     compression=None, perms=None, axes=None):
+                     compression=None, perms=None, axes=None,
+                     hierarchical=None):
     """Allreduce every tensor of the list in place through fused flat
     buckets: pack, one collective per bucket, unpack. Returns the
     buckets, so a caller can account what went over the wire.
+
+    ``hierarchical`` (None: ``HOROVOD_HIERARCHICAL_ALLREDUCE``) reduces
+    Sum and Average in two levels (``parallel/hierarchical.py``) when the
+    axes hold ``dcn`` and one more axis; any other op takes
+    ``collective.allreduce_``, where Adasum runs its own two-level
+    composite.
 
     ``compression`` is a compressor or a wire name (``ops/compression.py``).
     A cast wire narrows each float bucket and reduces at the wire dtype,
@@ -176,7 +205,11 @@ def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
     Non-float buckets always take the exact path. ``perms`` orders each
     tensor's elements in the buckets (``plan_buckets``) under a chunked
     quantizer, whose chunks they decide; an exact or cast reduction is
-    elementwise, so it packs each tensor as it lies."""
+    elementwise, so it packs each tensor as it lies. A chunked wire is
+    single-level: it ignores ``hierarchical``, with a warning where the
+    two-level path would have run."""
+    hierarchical = hierarchical_default(hierarchical)
+    axes = mesh_lib.get_mesh().resolve(axes)
     compression = compression_lib.resolve(compression)
     chunked = compression is not None and compression.chunked
     if chunked:
@@ -188,6 +221,16 @@ def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
         world = collective.mesh_size(axes)
         if world == 1:
             compression, chunked = None, False  # no wire to compress
+        elif _two_level(hierarchical, axes):
+            warnings.warn(
+                f"hierarchical allreduce is ignored for the chunked wire "
+                f"format {compression.name!r}: the quantized exchange is "
+                "single-level, so the dcn axis carries the (narrowed) "
+                "per-rank volume without the ICI-first reduction. Use "
+                "bf16 cast compression if the two-level path matters more "
+                "than the 4x narrowing.", stacklevel=2)
+    two_level = (op in (collective.Sum, collective.Average)
+                 and _two_level(hierarchical, axes))
     buckets = plan_buckets(tensors, _threshold(threshold_bytes),
                            perms=perms if chunked else None)
     for bucket in buckets:
@@ -195,16 +238,26 @@ def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
             size = sum(bucket.sizes)
             sched1 = BucketSchedule(buckets=(bucket,),
                                     padded_sizes=(size + (-size) % world,),
-                                    world=world)
+                                    world=world, axes=axes)
             shard, _ = reduce_scatter_bucket_compressed(
-                sched1, 0, tensors, compression, op=op, axes=axes)
+                sched1, 0, tensors, compression, op=op)
             flat, _ = all_gather_bucket_compressed(sched1, 0, shard,
-                                                   compression, axes=axes)
+                                                   compression)
         else:
             flat = _pack(bucket, tensors)
             if compression is not None:
                 flat, ctx = compression.compress(flat)
-            collective.allreduce_(flat, op=op, axes=axes)
+            if two_level:
+                if op == collective.Average and \
+                        not flat.is_floating_point():
+                    raise TypeError("Average needs a floating tensor, got "
+                                    f"{flat.dtype}")
+                flat = hier_lib.hierarchical_allreduce(
+                    flat, ici_axes=tuple(a for a in axes
+                                         if a != mesh_lib.DCN_AXIS),
+                    dcn_axis=mesh_lib.DCN_AXIS, op=op)
+            else:
+                collective.allreduce_(flat, op=op, axes=axes)
             if compression is not None:
                 flat = compression.decompress(flat, ctx)
         for i, part in _unpack(bucket, flat).items():
@@ -216,27 +269,42 @@ def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
 class BucketSchedule:
     """Static plan of the bucketed exchange: the buckets in
     reverse (backward-ready) order, each padded to a multiple of
-    ``world``; rank ``r`` owns chunk ``r`` (``shard_sizes[i]`` elements)
-    of bucket ``i``. Every collective of the pipeline walks the buckets
-    in this order on every rank."""
+    ``world``. ``axes`` is the scatter order (None: the whole mesh, one
+    collective): the reduce-scatter walks it first to last, the
+    all-gather inverts it, and the rank whose
+    ``collective.mesh_rank(axes)`` is ``r`` owns chunk ``r``
+    (``shard_sizes[i]`` elements) of bucket ``i``. Every collective of
+    the pipeline walks the buckets in this order on every rank."""
 
     buckets: tuple       # _Bucket, reverse order
     padded_sizes: tuple  # per-bucket element count, multiple of world
     world: int
+    axes: tuple = None
 
     @property
     def shard_sizes(self):
         return tuple(p // self.world for p in self.padded_sizes)
 
 
-def bucket_schedule(leaves, world, threshold_bytes=None, perms=None):
+def bucket_schedule(leaves, world, threshold_bytes=None, perms=None,
+                    axes=None, hierarchical=False):
     """Plan the bucketed exchange for ``leaves`` (one plan, reused by
     every microbatch and every step); ``perms`` as in
-    ``plan_buckets``."""
+    ``plan_buckets``. With ``hierarchical`` and a ``dcn`` axis among
+    ``axes`` (None: the installed mesh's), the scatter order is made
+    ICI-first, ``dcn`` last."""
+    if hierarchical:
+        axes = mesh_lib.get_mesh().axis_names if axes is None else axes
+    if axes is not None:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if _two_level(hierarchical, axes):
+            axes = tuple(a for a in axes if a != mesh_lib.DCN_AXIS) + (
+                mesh_lib.DCN_AXIS,)
     buckets = tuple(plan_buckets(leaves, _threshold(threshold_bytes),
                                  reverse=True, perms=perms))
     padded = tuple(sum(b.sizes) + (-sum(b.sizes)) % world for b in buckets)
-    return BucketSchedule(buckets=buckets, padded_sizes=padded, world=world)
+    return BucketSchedule(buckets=buckets, padded_sizes=padded, world=world,
+                          axes=axes)
 
 
 def pack_padded(schedule, idx, leaves):
@@ -246,25 +314,47 @@ def pack_padded(schedule, idx, leaves):
         bucket.sizes))
 
 
+def _reduce_scatter(flat, op, axes, async_op=False):
+    """Reduce-scatter ``flat`` over ``axes``: one collective over one axis
+    or the whole mesh (None), else the two-level stages of
+    ``parallel/hierarchical.py`` in the order of ``axes``."""
+    if op not in (collective.Sum, collective.Average):
+        raise ValueError("reducescatter supports Sum or Average")
+    if axes is None or len(axes) == 1:
+        return collective.reducescatter(flat, op=op, async_op=async_op,
+                                        axes=axes)
+    return hier_lib.staged_reducescatter(flat, axes, op, async_op=async_op)
+
+
+def _all_gather(shard, axes):
+    """Inverse of ``_reduce_scatter``."""
+    if axes is None or len(axes) == 1:
+        return collective.allgather(shard, axes=axes)
+    return hier_lib.staged_allgather(shard, axes)
+
+
 def reduce_scatter_bucket(schedule, idx, leaves, op=collective.Average,
                           async_op=False, axes=None):
-    """Pack bucket ``idx`` of ``leaves``, pad it, and reduce-scatter it:
-    returns this rank's reduced shard (``shard_sizes[idx]`` elements), or
-    with ``async_op`` a ``collective.Pending`` whose ``wait()`` does."""
-    return collective.reducescatter(pack_padded(schedule, idx, leaves),
-                                    op=op, async_op=async_op, axes=axes)
+    """Pack bucket ``idx`` of ``leaves``, pad it, and reduce-scatter it
+    over the schedule's axes (``axes`` overrides them): returns this
+    rank's reduced shard (``shard_sizes[idx]`` elements), or with
+    ``async_op`` a ``collective.Pending`` whose ``wait()`` does."""
+    return _reduce_scatter(pack_padded(schedule, idx, leaves), op,
+                           schedule.axes if axes is None else axes,
+                           async_op=async_op)
 
 
 def all_gather_bucket(schedule, idx, shard, axes=None):
     """Inverse of ``reduce_scatter_bucket``: gather every rank's shard of
-    bucket ``idx`` into the full padded flat bucket, chunk ``r`` from
-    rank ``r``: one all-gather. It takes the schedule and the index, as
-    the JAX package's does (there they also label the bucket's telemetry
-    record, which is not ported), and holds the shard to the schedule."""
+    bucket ``idx`` into the full padded flat bucket, chunk ``r`` from the
+    rank whose ``mesh_rank(schedule.axes)`` is ``r``. It takes the
+    schedule and the index, as the JAX package's does (there they also
+    label the bucket's telemetry record, which is not ported), and holds
+    the shard to the schedule."""
     if shard.numel() != schedule.shard_sizes[idx]:
         raise ValueError(f"bucket {idx}: shard of {shard.numel()} elements, "
                          f"scheduled {schedule.shard_sizes[idx]}")
-    return collective.allgather(shard, axes=axes)
+    return _all_gather(shard, schedule.axes if axes is None else axes)
 
 
 def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
@@ -288,6 +378,7 @@ def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
     With ``residual=None`` the exchange is stateless and ``new_residual``
     is None. A non-float bucket takes the exact path and passes the
     residual through unchanged."""
+    axes = schedule.axes if axes is None else axes
     if not schedule.buckets[idx].dtype.is_floating_point:
         return reduce_scatter_bucket(schedule, idx, leaves, op=op,
                                      async_op=async_op, axes=axes), residual
@@ -328,8 +419,7 @@ def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
         else:
             wire_flat, _ = wire.compress_flat(flat)
             new_residual = None
-        reduced = collective.reducescatter(wire_flat, op=op, async_op=True,
-                                           axes=axes)
+        reduced = _reduce_scatter(wire_flat, op, axes, async_op=True)
         pending = collective.Pending(
             (), lambda: reduced.wait().to(grad_dtype))
     return (pending if async_op else pending.wait()), new_residual
@@ -348,6 +438,7 @@ def all_gather_bucket_compressed(schedule, idx, shard_vals, wire,
     so every rank applies the same decoded delta and the residual makes
     the applied deltas add up to the exact ones. A non-float shard takes
     the exact path."""
+    axes = schedule.axes if axes is None else axes
     if not shard_vals.dtype.is_floating_point:
         return all_gather_bucket(schedule, idx, shard_vals,
                                  axes=axes), residual
@@ -379,7 +470,7 @@ def all_gather_bucket_compressed(schedule, idx, shard_vals, wire,
         else:
             wire_shard, _ = wire.compress_flat(x)
             new_residual = None
-        flat = collective.allgather(wire_shard, axes=axes).to(out_dtype)
+        flat = _all_gather(wire_shard, axes).to(out_dtype)
     return flat, new_residual
 
 

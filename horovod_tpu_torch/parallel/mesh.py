@@ -10,8 +10,12 @@ r), and creates one process group for each set of axes a collective can
 name: the ranks that share this rank's coordinates on the other axes,
 in row-major order over the named ones.
 
-``init()`` installs the 1-D mesh ``("data",)`` over the world;
-``build_mesh`` installs the one it builds. ``group``, ``size`` and
+``init()`` installs the 1-D mesh ``("data",)`` over the world, or, when
+the job spans hosts (``HOROVOD_CROSS_SIZE > 1``, dividing the world), the
+``("dcn", "data")`` mesh of ``(cross_size, size // cross_size)`` (``build_mesh(num_slices=...)``, the
+JAX package's ``build_mesh`` form; Horovod's ranks are host-major, so
+row-major order is rank order); ``build_mesh`` installs the one it
+builds. ``group``, ``size`` and
 ``rank`` are always the whole mesh's (the world's): the default
 reduction of the collectives, ``DistributedOptimizer``, the bucket
 exchange, ZeRO-1 and the checkpoints read them.
@@ -131,13 +135,27 @@ class Mesh:
         object.__setattr__(self, "groups", {})
 
 
-def build_mesh(shape, axis_names):
+def build_mesh(shape=None, axis_names=None, num_slices=1):
     """Lay the world out as a mesh of ``shape`` named ``axis_names``,
     create its process groups and install it (``get_mesh``). Every rank
     must call it, with the same arguments: creating a group is
-    collective, member or not. ``init()`` must have run."""
+    collective, member or not. ``init()`` must have run.
+
+    Without ``shape``, the JAX package's form: ``num_slices > 1`` gives
+    the 2-D mesh ``(num_slices, size // num_slices)`` named
+    ``axis_names`` (default ``("dcn", "data")``), and otherwise the 1-D
+    mesh over the world named ``axis_names[-1]`` (default ``"data"``)."""
     import torch.distributed as dist
     base = get_mesh()
+    if shape is None:
+        names = tuple(axis_names or (DCN_AXIS, DATA_AXIS))
+        if num_slices > 1:
+            if base.size % num_slices:
+                raise ValueError(f"device count {base.size} not divisible "
+                                 f"by num_slices {num_slices}")
+            shape, axis_names = (num_slices, base.size // num_slices), names
+        else:
+            shape, axis_names = (base.size,), names[-1:]
     shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
     if len(shape) != len(axis_names) or len(set(axis_names)) != len(shape):
         raise ValueError(f"mesh shape {shape} for axes {axis_names}")

@@ -16,19 +16,20 @@ positions ``i * S_local ...``:
 * ``ulysses_attention``: an all-to-all from sequence-sharded to
   head-sharded, dense attention over the whole sequence, and back.
 
-The block loops are written once, against an axis object that holds the
-shards this process computes and moves them between ranks: ``_GroupAxis``
-is this rank's one shard on a named axis of the installed mesh, moved by
-the collectives of its process group; ``_LocalAxis`` is every shard of
-an axis of ``n`` ranks, held in one process and moved by reindexing (the
-counterpart of the JAX tests' virtual CPU mesh; the tests and
-``chip_smoke.py`` drive the loops through it).
+The block loops are written once, against an axis object of
+``parallel/axis.py`` that holds the shards this process computes and
+moves them between ranks: ``GroupAxis`` is this rank's one shard on a
+named axis of the installed mesh, moved by the collectives of its process
+group; ``LocalAxis`` is every shard of an axis of ``n`` ranks, held in
+one process and moved by reindexing (the counterpart of the JAX tests'
+virtual CPU mesh; the tests and ``chip_smoke.py`` drive the loops
+through it).
 """
 
 import torch
 
-from horovod_tpu_torch.ops import collective
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.parallel import axis as axis_lib
 from horovod_tpu_torch.parallel import mesh as mesh_lib
 
 NEG_INF = fa.NEG_INF
@@ -46,55 +47,6 @@ def default_positions(axis_name, batch, seq_local, device=None):
 def _positions_at(index, batch, seq_local, device):
     pos = index * seq_local + torch.arange(seq_local, device=device)
     return pos.expand(batch, seq_local)
-
-
-class _GroupAxis:
-    """This rank's shard on ``axis`` of the installed mesh: lists of one
-    tensor, moved by the axis's process group."""
-
-    def __init__(self, axis):
-        mesh = mesh_lib.get_mesh()
-        self.axis = axis
-        self.n = mesh.axis_size(axis)
-        self.indices = [mesh.axis_index(axis)]
-
-    def shift(self, xs):
-        """Each rank's tensor to the next rank of the ring."""
-        if self.n == 1:
-            return xs
-        perm = [(j, (j + 1) % self.n) for j in range(self.n)]
-        return [collective.ppermute(xs[0], self.axis, perm)]
-
-    def all_to_all(self, xs, split_dim, concat_dim):
-        return [collective.alltoall(xs[0], axes=self.axis,
-                                    split_dim=split_dim,
-                                    concat_dim=concat_dim)]
-
-    def all_gather(self, xs, dim):
-        x = xs[0].movedim(dim, 0)
-        return [collective.allgather(x, axes=self.axis).movedim(0, dim)]
-
-
-class _LocalAxis:
-    """Every shard of an axis of ``n`` ranks in this process: lists of
-    ``n`` tensors, shard ``j`` on rank ``j``. A rotated tensor is a view,
-    so autograd sums its gradient in the order the group rotation's
-    backward does and the two give the same bits."""
-
-    def __init__(self, n):
-        self.n = n
-        self.indices = list(range(n))
-
-    def shift(self, xs):
-        return [xs[(j - 1) % self.n].view_as(xs[j]) for j in range(self.n)]
-
-    def all_to_all(self, xs, split_dim, concat_dim):
-        parts = [x.chunk(self.n, dim=split_dim) for x in xs]
-        return [torch.cat([p[j] for p in parts], dim=concat_dim)
-                for j in range(self.n)]
-
-    def all_gather(self, xs, dim):
-        return [torch.cat(xs, dim=dim)] * self.n
 
 
 def _block_update(q, k, v, q_pos, kv_pos, m, l, o, causal, scale):
@@ -127,7 +79,7 @@ def ring_attention(q, k, v, axis_name, causal=True, q_positions=None,
     the blocks by log-sum-exp; it needs the default contiguous positions
     and shapes the kernels take (``fa.kernel_supported``), and otherwise
     takes the dense ring, as the JAX package does."""
-    return _ring_attention(_GroupAxis(axis_name), [q], [k], [v], causal,
+    return _ring_attention(axis_lib.GroupAxis(axis_name), [q], [k], [v], causal,
                            _one(q_positions), _one(kv_positions),
                            use_flash)[0]
 
@@ -275,7 +227,7 @@ def ulysses_attention(q, k, v, axis_name, causal=True, q_positions=None,
     all-to-all from sequence-sharded to head-sharded, dense attention over
     the whole sequence, and the reverse all-to-all. Needs ``num_heads %
     axis_size == 0``."""
-    return _ulysses_attention(_GroupAxis(axis_name), [q], [k], [v], causal,
+    return _ulysses_attention(axis_lib.GroupAxis(axis_name), [q], [k], [v], causal,
                               _one(q_positions), _one(kv_positions))[0]
 
 

@@ -8,8 +8,10 @@ halves: reduce-scatter the gradients, update only this rank's 1/N of the
 optimizer state, all-gather the parameter deltas. Parameters stay
 replicated.
 
-The partition is ``ops.fusion.BucketSchedule``: rank ``r`` owns flat
-chunk ``r`` of every padded bucket. Torch keys optimizer state by tensor
+The partition is ``ops.fusion.BucketSchedule``: the rank whose
+``mesh_rank`` over the schedule's axes is ``r`` owns flat chunk ``r`` of
+every padded bucket (rank ``r`` itself, unless a hierarchical schedule
+orders the rows ``(data, dcn)``-major). Torch keys optimizer state by tensor
 identity, so this rank's chunk of every bucket is a persistent tensor (a
 "row"), and an inner optimizer of the user's class and hyperparameters
 owns the rows. Each step follows the reference's ``_local_param_rows`` and
@@ -43,19 +45,29 @@ class ZeroPlan:
     op: str = Average
 
 
-def make_plan(params, op=Average, threshold_bytes=None, perms=None):
+def make_plan(params, op=Average, threshold_bytes=None, perms=None,
+              axes=None, hierarchical=False):
     """The ZeRO partition of ``params`` (a list, in the order the buckets
-    pack it) over the data axis; ``perms`` (``fusion.plan_buckets``)
-    packs each parameter as its flax array flattens, so row ``r`` holds
-    the elements the JAX package's row ``r`` holds."""
+    pack it) over ``axes`` (None: the whole mesh); ``perms``
+    (``fusion.plan_buckets``) packs each parameter as its flax array
+    flattens, so row ``r`` holds the elements the JAX package's row ``r``
+    holds. With ``hierarchical`` on a mesh with a ``dcn`` axis the
+    schedule scatters ICI-first and the rows are owned ``(data,
+    dcn)``-major, as the JAX plan's rows are."""
     if op not in (Sum, Average):
         raise ValueError(f"ZeRO-1 supports Sum or Average, got {op!r}")
     if not params:
         raise ValueError("ZeRO-1 needs a non-empty parameter list")
-    world = mesh_lib.get_mesh().size
+    world = collective.mesh_size(axes)
     return ZeroPlan(schedule=fusion.bucket_schedule(
-        params, world, threshold_bytes=threshold_bytes, perms=perms),
-        op=op)
+        params, world, threshold_bytes=threshold_bytes, perms=perms,
+        axes=axes, hierarchical=hierarchical), op=op)
+
+
+def row_index(schedule):
+    """The row of every bucket this rank owns: its
+    ``collective.mesh_rank`` over the schedule's scatter order."""
+    return collective.mesh_rank(schedule.axes)
 
 
 class ZeroState:
@@ -98,7 +110,7 @@ def init(optimizer, params, plan):
 def _local_param_rows(schedule, params):
     """This rank's slice of every bucket's packed parameters (views of
     the packed copies; no communication)."""
-    rank = collective.mesh_rank()
+    rank = row_index(schedule)
     rows = []
     for i, shard in enumerate(schedule.shard_sizes):
         flat = fusion.pack_padded(schedule, i, params)

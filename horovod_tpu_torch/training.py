@@ -103,10 +103,18 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
     bucket and the inner optimizer. ``accum_steps > 1`` and
     ``overlap_grads`` need a ``DistributedOptimizer``.
 
+    The schedule of the overlapped pipeline scatters over the
+    optimizer's axes, ICI-first when ``optimizer.hierarchical_resolved()``
+    and the mesh has a ``dcn`` axis (``fusion.bucket_schedule``); it
+    reduce-scatters, so it takes Sum and Average only.
+
     BatchNorm: each microbatch's forward updates the running statistics
     in place, in microbatch order; after the optimizer step every
     floating statistics buffer is averaged over ranks (each rank
-    normalizes over its own sub-batch, as Horovod's ranks do).
+    normalizes over its own sub-batch, as Horovod's ranks do, unless the
+    model synchronizes its BatchNorm: ``models.resnet.ResNet(
+    bn_cross_replica_axes=...)``). torch's ``nn.SyncBatchNorm`` is
+    refused.
 
     Wire compression (``DistributedOptimizer(compression=...)`` or
     ``HOROVOD_WIRE_DTYPE``) in the overlapped pipeline narrows every
@@ -143,11 +151,19 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         if overlap_grads:
             hvd_torch.require_whole_mesh(optimizer.axes,
                                          "overlap_grads=True")
+            if not optimizer.sharded_update and \
+                    optimizer.op not in (Sum, Average):
+                # the pipeline reduce-scatters, as the JAX one does
+                raise ValueError(
+                    f"overlap_grads=True reduce-scatters its buckets, and "
+                    f"reducescatter supports Sum or Average, got "
+                    f"{optimizer.op!r}")
     if any(isinstance(m, nn.SyncBatchNorm) for m in model.modules()):
         raise NotImplementedError(
-            "SyncBatchNorm: synchronized BatchNorm statistics come with "
-            "the GSPMD path (ROADMAP Queue 1 item 9); use per-rank "
-            "BatchNorm, whose running statistics this step averages")
+            "torch's nn.SyncBatchNorm keeps an unbiased running variance "
+            "and synchronizes over its own process group; synchronize "
+            "BatchNorm as the JAX package does with "
+            "models.resnet.ResNet(bn_cross_replica_axes=('data',))")
     mesh = mesh_lib.get_mesh()
     # the wire format of the overlapped pipeline's bucket collectives,
     # resolved once; the other paths compress inside optimizer.step()
@@ -165,7 +181,9 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         schedule = fusion.bucket_schedule(
             optimizer.params, mesh.size,
             threshold_bytes=optimizer.threshold_bytes,
-            perms=optimizer.perms if chunked else None)
+            perms=optimizer.perms if chunked else None,
+            axes=optimizer.axes,
+            hierarchical=optimizer.hierarchical_resolved())
     params = optimizer.params if is_hvd else None
     rs_op = optimizer.zero_state.plan.op if sharded else (
         optimizer.op if is_hvd else None)
@@ -346,7 +364,7 @@ def _add_waited(acc, pending):
     return shards if acc is None else [a + s for a, s in zip(acc, shards)]
 
 
-def make_lm_train_step(model, optimizer, mesh=None, batch_axis="data",
+def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
                        seq_axis=None):
     """Build a language-model train step (next-token loss).
     ``optimizer`` is a ``DistributedOptimizer`` (any exchange: fused
@@ -356,7 +374,11 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis="data",
     ``[B_local, S_local]`` int tokens (``shard_lm_batch`` cuts it from the
     global batch), runs forward, backward and the optimizer step, and
     returns the loss averaged over those axes (an fp32 scalar tensor on
-    the device). ``step.state`` counts the steps, as in
+    the device). ``batch_axis`` may be a tuple; None is the mesh's data
+    axes (``mesh.data_axis_names``: ``("data",)``, or ``("dcn",
+    "data")`` on ``init()``'s mesh of a job across hosts), which a
+    default ``DistributedOptimizer`` reduces over when the mesh has no
+    ``seq_axis``. ``step.state`` counts the steps, as in
     ``make_train_step``. ``mesh`` is the installed mesh (``init()``'s, or
     ``parallel.mesh.build_mesh``'s), the default.
 
@@ -379,7 +401,11 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis="data",
                          "mesh: parallel.mesh.build_mesh installs the mesh "
                          "it builds")
     mesh = installed
-    grad_axes = (batch_axis,) if seq_axis is None else (batch_axis, seq_axis)
+    if batch_axis is None:
+        batch_axis = mesh_lib.data_axis_names(mesh)
+    batch_axes = ((batch_axis,) if isinstance(batch_axis, str)
+                  else tuple(batch_axis))
+    grad_axes = batch_axes + ((seq_axis,) if seq_axis else ())
     if mesh.group_of(grad_axes)[1] != mesh.group_of(optimizer.axes)[1]:
         raise ValueError(
             f"the optimizer reduces over {optimizer.axes!r}, the step over "
@@ -430,16 +456,19 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis="data",
     return step
 
 
-def shard_lm_batch(tokens, batch_axis="data", seq_axis=None):
+def shard_lm_batch(tokens, batch_axis=None, seq_axis=None):
     """This rank's block of a global ``[B, S]`` batch: dim 0 cut by its
     coordinate on ``batch_axis``, dim 1 by its coordinate on ``seq_axis``
     (when given), the counterpart of the JAX step's
-    ``PartitionSpec(batch_axis, seq_axis)``."""
-    mesh = mesh_lib.get_mesh()
+    ``PartitionSpec(batch_axis, seq_axis)``. A tuple ``batch_axis`` cuts
+    dim 0 by this rank's row-major index over its axes; None is the
+    installed mesh's data axes, as in ``make_lm_train_step``."""
+    if batch_axis is None:
+        batch_axis = mesh_lib.data_axis_names()
     for dim, axis in ((0, batch_axis), (1, seq_axis)):
         if axis is None:
             continue
-        n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+        n, i = collective.mesh_size(axis), collective.mesh_rank(axis)
         if tokens.shape[dim] % n:
             raise ValueError(f"dim {dim} of the batch ({tokens.shape[dim]})"
                              f" does not divide by the {axis!r} axis ({n})")

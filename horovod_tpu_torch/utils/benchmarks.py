@@ -16,14 +16,18 @@ def model_registry():
 
 
 def make_model(name, dtype=torch.bfloat16, num_classes=1000, seed=0,
-               device=None, image_size=224):
+               device=None, image_size=224, bn_cross_replica_axes=None):
     """Model ``name`` of the registry at compute ``dtype`` (bf16 by
     default, the card's tensor-core type), weights from ``seed``. VGG-16's
-    first fully connected layer is sized for ``image_size``."""
+    first fully connected layer is sized for ``image_size``; a ResNet's
+    BatchNorm is synchronized over ``bn_cross_replica_axes`` when
+    given."""
     kw = dict(num_classes=num_classes, dtype=dtype, device=device,
               generator=torch.Generator().manual_seed(seed))
     if name == "vgg16":
         kw["image_size"] = image_size
+    if bn_cross_replica_axes is not None:
+        kw["bn_cross_replica_axes"] = bn_cross_replica_axes
     return model_registry()[name](**kw)
 
 
@@ -49,23 +53,29 @@ def sync():
 
 def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
                   dtype=torch.bfloat16, lr=3e-4, weight_decay=1e-4, seed=0,
-                  sharded_update=False, mesh=None, seq_axis=None):
+                  sharded_update=False, mesh=None, seq_axis=None,
+                  op="average", hierarchical=None):
     """The LM benchmark: the transformer LM at the given widths, AdamW
     through ``DistributedOptimizer`` (its buckets packed in the flax leaf
-    order; ZeRO-1 with ``sharded_update``), and a seeded batch.
-    ``init()`` must have run. Returns ``(step, model, optimizer,
-    tokens)``; ``step(tokens)`` returns the averaged loss.
+    order; ZeRO-1 with ``sharded_update``; ``op`` and ``hierarchical``
+    passed on), and a seeded batch. ``init()`` must have run. Returns
+    ``(step, model, optimizer, tokens)``; ``step(tokens)`` returns the
+    averaged loss.
 
     Without ``mesh``: data-parallel over the world, ``batch`` sequences a
     rank drawn at the seed plus the rank. With ``mesh`` (the installed
-    (data, seq) mesh of ``parallel.mesh.build_mesh``) the JAX package's
-    form: a global batch of ``batch`` sequences a data index, drawn once
-    at the seed and cut by this rank's coordinates, the gradients
-    averaged over ``("data", seq_axis)``, and with ``seq_axis`` the
-    sequence sharded over that axis (ring attention)."""
+    mesh of ``parallel.mesh.build_mesh``: (data, seq), or (dcn, data))
+    the JAX package's form: a global batch of ``batch`` sequences a
+    batch index, drawn once at the seed and cut by this rank's
+    coordinates on the data axes (``mesh.data_axis_names``), the
+    gradients averaged over those and ``seq_axis``, and with
+    ``seq_axis`` the sequence sharded over that axis (ring
+    attention)."""
     from horovod_tpu_torch import basics, convert, hvd_torch, training
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
+    from horovod_tpu_torch.ops import collective
+    from horovod_tpu_torch.parallel import mesh as mesh_lib
 
     device = basics.device()
     cfg = TransformerConfig(vocab_size=vocab, num_layers=layers,
@@ -78,11 +88,13 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
     inner = torch.optim.AdamW(model.parameters(), lr=lr,
                               betas=(0.9, 0.999), eps=1e-8,
                               weight_decay=weight_decay)
-    axes = None if mesh is None else (
-        ("data", seq_axis) if seq_axis else ("data",))
+    batch_axes = mesh_lib.data_axis_names(mesh)
+    axes = None if mesh is None else batch_axes + (
+        (seq_axis,) if seq_axis else ())
     opt = hvd_torch.DistributedOptimizer(
         inner, named_parameters=convert.flax_named_parameters(model),
-        sharded_update=sharded_update, axes=axes)
+        sharded_update=sharded_update, axes=axes, op=op,
+        hierarchical=hierarchical)
     training.create_train_state(model, opt)
     if mesh is None:
         rng = np.random.default_rng(seed + basics.rank())
@@ -91,17 +103,20 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
         rng = np.random.default_rng(seed)
         tokens = training.shard_lm_batch(
             torch.from_numpy(rng.integers(
-                0, vocab, size=(batch * mesh.axis_size("data"), seq_len))),
-            "data", seq_axis).numpy()
+                0, vocab, size=(batch * collective.mesh_size(batch_axes),
+                                seq_len))),
+            batch_axes, seq_axis).numpy()
     tokens = torch.from_numpy(tokens.astype(np.int64)).to(device)
     step = training.make_lm_train_step(model, opt, mesh=mesh,
+                                       batch_axis=batch_axes,
                                        seq_axis=seq_axis)
     return step, model, opt, tokens
 
 
 def make_resnet_bench(*, model="resnet101", batch=256, image_size=224,
                       optimizer="sgd", accum_steps=1, overlap_grads=False,
-                      sharded_update=False, compression=None, seed=0):
+                      sharded_update=False, compression=None, seed=0,
+                      bn_cross_replica_axes=None):
     """``bench.py``'s image-model step on this rank: ``model`` (1000
     classes) in bf16 on fp32 parameters, ``DistributedOptimizer`` over
     ``optimizer`` (``"sgd"``: SGD(0.01, momentum 0.9), the headline's;
@@ -109,12 +124,14 @@ def make_resnet_bench(*, model="resnet101", batch=256, image_size=224,
     matrix's) with the buckets packed in the flax leaf order, and
     ``make_train_step`` with ``accum_steps`` and ``overlap_grads``. The
     batch is ``synthetic_batch`` of ``batch`` images at the seed plus this
-    rank. ``init()`` must have run. Returns ``(step, model, optimizer,
-    (images, labels))``."""
+    rank. ``bn_cross_replica_axes`` synchronizes a ResNet's BatchNorm
+    over those mesh axes. ``init()`` must have run. Returns ``(step,
+    model, optimizer, (images, labels))``."""
     from horovod_tpu_torch import basics, convert, hvd_torch, training
 
     device = basics.device()
-    net = make_model(model, seed=seed, device=device, image_size=image_size)
+    net = make_model(model, seed=seed, device=device, image_size=image_size,
+                     bn_cross_replica_axes=bn_cross_replica_axes)
     if optimizer == "sgd":
         inner = torch.optim.SGD(net.parameters(), lr=0.01, momentum=0.9)
     elif optimizer == "adamw":

@@ -7,7 +7,7 @@ JAX package's, on the same numpy inputs.
 The JAX side runs under ``shard_map`` on the conftest's CPU devices, the
 Pallas kernels in interpret mode; the port's kernel wrappers take their
 plain versions on CPU tensors. The port's ring runs two ways: its n
-shards held in one process (``ring._LocalAxis``, the counterpart of the
+shards held in one process (``axis.LocalAxis``, the counterpart of the
 JAX tests' virtual mesh), and one shard on each of 4 gloo ranks of a
 (data 2 x seq 2) and a (1 x 4) mesh, which must give the same bits.
 fp32 throughout; the measured gaps are in PERF.md.
@@ -30,6 +30,7 @@ from horovod_tpu.ops import collective as jcoll
 from horovod_tpu.ops import flash_attention as jfa
 from horovod_tpu.parallel import ring as jring
 from horovod_tpu_torch.ops import flash_attention as tfa
+from horovod_tpu_torch.parallel import axis as taxis
 from horovod_tpu_torch.parallel import mesh as tmesh
 from horovod_tpu_torch.parallel import ring as tring
 
@@ -75,7 +76,7 @@ def local_ring(kind, q, k, v, n):
         qs, ks, vs = ([t.requires_grad_() for t in _shards(x, n)]
                       for x in (q, k, v))
         pos = _shards(positions(n), n)
-        outs = _port(kind, tring._LocalAxis(n), qs, ks, vs, pos)
+        outs = _port(kind, taxis.LocalAxis(n), qs, ks, vs, pos)
         grads = torch.autograd.grad(sum((o ** 2).sum() for o in outs),
                                     qs + ks + vs)
     finally:
@@ -277,7 +278,7 @@ def test_ring_flash_equals_dense_ring():
 def test_ulysses_rejects_indivisible_heads():
     qs = [torch.zeros(B, SL, 6, D)] * N
     with pytest.raises(ValueError, match="not divisible"):
-        tring._ulysses_attention(tring._LocalAxis(N), qs, qs, qs)
+        tring._ulysses_attention(taxis.LocalAxis(N), qs, qs, qs)
 
 
 # ---------------------------------------------------------------------------

@@ -378,7 +378,8 @@ def train():
         opt.step()
         losses.append(loss.item())
     out = {"rank": hvd.rank(), "size": hvd.size(),
-           "fusion": basics.fusion_threshold(), "losses": losses,
+           "fusion": basics.fusion_threshold(),
+           "hierarchical": opt.hierarchical_resolved(), "losses": losses,
            "params": [p.detach().numpy().ravel().tolist()
                       for p in model.parameters()]}
     hvd.shutdown()
@@ -406,24 +407,29 @@ def test_hvdrun_two_ranks_equal_one_bit_for_bit(tmp_path):
     ``DistributedOptimizer`` on gloo with the same batch on each rank:
     the mean of two equal gradients is that gradient, so both ranks end
     bit for bit where one rank alone does. ``--fusion-threshold-mb``
-    reaches the workers' ``fusion_threshold()``; ``--cycle-time-ms``,
-    which the port does not read, is named on stderr."""
+    reaches the workers' ``fusion_threshold()`` and
+    ``--hierarchical-allreduce`` their optimizers (both acted on, so not
+    named; on one host the mesh has no dcn axis and the reduction stays
+    flat); ``--cycle-time-ms``, which the port does not read, is named
+    on stderr."""
     import runpy
     script = tmp_path / "mlp.py"
     script.write_text(_MLP_WORKER)
     rv = _hvdrun("horovod_tpu_torch",
                  ["-np", "2", "--fusion-threshold-mb", "1",
+                  "--hierarchical-allreduce",
                   "--cycle-time-ms", "5", sys.executable, str(script),
                   str(tmp_path)])
     assert rv.returncode == 0, rv.stdout + rv.stderr
     assert ("hvdrun: horovod_tpu_torch does not act on HOROVOD_CYCLE_TIME "
             "yet") in rv.stderr
     assert "HOROVOD_FUSION_THRESHOLD" not in rv.stderr
+    assert "HOROVOD_HIERARCHICAL_ALLREDUCE" not in rv.stderr
     two = _results(tmp_path)
-    assert [(r["rank"], r["size"], r["fusion"]) for r in two] == \
-        [(0, 2, 1 << 20), (1, 2, 1 << 20)]
+    assert [(r["rank"], r["size"], r["fusion"], r["hierarchical"])
+            for r in two] == [(0, 2, 1 << 20, True), (1, 2, 1 << 20, True)]
     one = runpy.run_path(str(script))["train"]()
-    assert one["size"] == 1
+    assert one["size"] == 1 and not one["hierarchical"]
     for r in two:
         assert r["losses"] == one["losses"]
         assert r["params"] == one["params"]

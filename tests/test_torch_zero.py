@@ -360,8 +360,9 @@ def _wire_env_preaveraged(model):
 
 
 class _BatchNormNet(torch.nn.Module):
-    """Synchronized BatchNorm comes with the GSPMD path; per-rank
-    BatchNorm is averaged by the step."""
+    """torch's ``nn.SyncBatchNorm`` is refused: the port synchronizes
+    BatchNorm as flax does, through ``ResNet(bn_cross_replica_axes=...)``;
+    per-rank BatchNorm is averaged by the step."""
 
     def __init__(self):
         super().__init__()
@@ -412,6 +413,11 @@ REJECTED = {
         m, _adamw(m), accum_steps=2), ValueError, "DistributedOptimizer"),
     "overlap-plain-optimizer": (lambda m: t_training.make_train_step(
         m, _adamw(m), overlap_grads=True), ValueError, "DistributedOptimizer"),
+    # the overlapped pipeline reduce-scatters, which JAX's reducescatter
+    # takes for Sum or Average only
+    "overlap-adasum": (lambda m: t_training.make_train_step(
+        m, _opt(m, op=hvd_t.Adasum), overlap_grads=True), ValueError,
+        "Sum or Average"),
     "two-accumulators": (lambda m: t_training.make_train_step(
         m, _opt(m, backward_passes_per_step=2), accum_steps=2),
         ValueError, "two accumulators"),
@@ -419,7 +425,7 @@ REJECTED = {
                                "microbatches"),
     "batchnorm": (lambda m: t_training.make_train_step(
         _BatchNormNet(), _opt(_BatchNormNet())), NotImplementedError,
-        "BatchNorm"),
+        "bn_cross_replica_axes"),
     # collectives
     "reducescatter-max": (lambda m: hvd_t.reducescatter(torch.ones(2),
                                                         op=hvd_t.Max),
