@@ -87,20 +87,44 @@ runs these phases; any failure raises:
   - 7a_k|`` of 7a's, where the perturbed run is 7a's from weights moved
   by 1e-6 relative (the net's own sensitivity to rounding: at world 1
   the two BatchNorms differ only in how they round), img/s and
-  BatchNorm device ms beside 7a's from the profile.
+  BatchNorm device ms beside 7a's from the profile;
+* 12a: one full-width block (bf16, flash) over R = 2 and 4 model shards
+  held in this process (``parallel.axis.LocalAxis``), forward and
+  backward: each shard's output and input gradient against the
+  unsharded block's, and its weight gradients against the matching
+  slices of the unsharded ones, within R 2^-7 max|want| (the R bf16
+  partial sums against one, ``_shard_bound``); R launches of each
+  kernel; K1-K3 at each shard's attention shape, [B H/R, 2048, 64],
+  against their plain versions; the shards' time against the block's;
+* 12b: phase 5's LM, weights and batch through ``make_tp_lm_train_step``
+  on a (1, 1) (data, model) mesh: one computation with phase 5's, so all
+  five losses bit for bit phase 5's; tokens/s beside phase 5's;
+* 12c: the MoE LM at phase 5's widths (``MOE``: every 2nd block a top-1
+  MoE of 8 experts, capacity 2.0, 8 token groups) through
+  ``make_tp_lm_train_step(model_axis=None, expert_axis="expert")`` on a
+  (1, 1) (data, expert) mesh: losses finite and falling, the auxiliary
+  terms finite; tokens/s, memory, the share of token choices dropped at
+  capacity, and a profile split into the dispatch and combine einsums,
+  the expert FFN, attention and the rest;
+* 12d: one MoE layer at full width (T 16384 x d 768, 8 experts, 8
+  groups) over 4 expert shards in this process, the tokens replicated
+  over the axis and sharded over it: no token routed differently from
+  the unsharded layer, outputs and the gradients of the gate, w_in,
+  w_out and the input within ``_shard_bound``; times.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
 
-Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b and 11b each count the kernels'
-launches from 0 on the card and must launch each kernel once per layer
-and microbatch and step; 9a's worker counts its own. The last line of
-output is
+Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b, 11b, 12b and 12c each count the
+kernels' launches from 0 on the card and must launch each kernel once
+per layer and microbatch and step; 9a's worker counts its own. The last
+line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it a JSON object with each kernel's launches on the
-main paths (phase 5 and 11b's two runs, each counted from 0), error
+main paths (phase 5, 11b's two runs, 12b and 12c, each counted from 0),
+error
 against its plain version, time, plain time, bound and library time. After the timed steps of phases 5 and 6b one
 more step runs under ``torch.profiler`` for the device's busy share and
 the time by layer and by kernel.
@@ -150,6 +174,14 @@ RING_RANKS = (2, 4)
 # relative error of a few 1e-7), each level's combine rounds once more
 ADASUM_RANKS, TWO_LEVEL = 4, (2, 2)
 ADASUM_RTOL = 1e-5
+# phase 12: model shards of one block held in one process (12a), the MoE
+# LM's settings (examples/jax_lm_moe.py's at the LM's full width: every
+# 2nd block a top-1 MoE of 8 experts, capacity factor 2.0, 8 token
+# groups), and the expert axis of 12d's layer
+TP_RANKS = (2, 4)
+MOE = dict(moe_every=2, num_experts=8, moe_top_k=1, moe_capacity_factor=2.0,
+           moe_num_groups=8)
+EXPERT_RANKS = 4
 # the JAX package's compressed-vs-exact contract (__graft_entry__.py
 # WIRE_EPSILON, WIRE_EPSILON_FLOOR): every step's loss within 5 %
 WIRE_EPSILON, WIRE_EPSILON_FLOOR = 0.05, 1e-3
@@ -603,12 +635,13 @@ def _model_flops(lm):
 
 
 def _drive(label, hvd, fa, torch, bench, step, batch, want, per_step_tokens,
-           exchange, profile=False):
+           exchange, profile=False, flops=None):
     """Run ``step(*batch)`` STEPS times with the kernels' launch counts
     set to 0 just before and read just after; print the step time,
     tokens/s, peak memory, the exchange and the launches; hold the
     losses (finite, falling) and the launches (``want`` of each kernel).
-    Returns the losses, the launches and the median step ms."""
+    ``flops`` is the model FLOPs of one rank's step (default phase 5's
+    LM). Returns the losses, the launches and the median step ms."""
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()  # count only this path's launches
     losses, times = [], []
@@ -626,8 +659,9 @@ def _drive(label, hvd, fa, torch, bench, step, batch, want, per_step_tokens,
     print(f"  {label} step ms {[round(1e3 * x, 2) for x in times]} (first "
           f"includes warm-up); median of steps 2..{STEPS}: {step_ms:.2f} ms, "
           f"{ntok / step_ms * 1e3:.0f} tokens/s")
-    rate = _model_flops(LM) / (step_ms / 1e3)  # this rank's FLOP/s
-    print(f"  {label} model FLOPs {_model_flops(LM) / 1e12:.2f} T per step "
+    flops = flops or _model_flops(LM)
+    rate = flops / (step_ms / 1e3)  # this rank's FLOP/s
+    print(f"  {label} model FLOPs {flops / 1e12:.2f} T per step "
           f"and rank: {rate / 1e12:.1f} TFLOP/s, "
           f"{100 * rate / PEAK_FLOPS['bfloat16']:.2f}% of the bf16 peak")
     print(f"  {label} peak device memory {peak / 2**30:.2f} GiB")
@@ -2041,18 +2075,329 @@ def phase_sync_bn(hvd, torch, bench, run_7a):
     hvd.shutdown()
 
 
+def _shard_bound(label, got, want, ranks):
+    """Hold a sharded result to the unsharded one. The R shards' partial
+    products (a row-parallel projection's, or the combine's over the
+    experts) each round to bf16 once, and their sum rounds R - 1 more
+    times, where the unsharded product rounds once: R more roundings, each
+    up to a bf16 ulp (2^-7 relative) of a value that the tensor's largest
+    element bounds. What follows a sum (the residual add, the norm, the
+    MLP, the backward) carries these differences on at the same scale,
+    and a difference of one ulp in a sum can flip the rounding of what
+    adds to it. So every element must lie within R 2^-7 max|want| (a
+    normwise bound: the error of a product is bounded by the size of its
+    operands, not of its result)."""
+    got, want = got.detach().float(), want.detach().float()
+    bound = ranks * 2.0 ** -7 * float(want.abs().max())
+    err = _err(got, want)
+    worst = err / bound if bound > 0 else math.inf * err
+    ok = worst <= 1.0  # False on NaN too
+    print(f"    {label:<40} max_abs_err {err:.3e}  at {worst:.3f} of "
+          f"R 2^-7 max|want| = {bound:.3e}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: max_abs_err {err} is {worst} times "
+                             f"R 2^-7 max|want|, R = {ranks}")
+    return worst
+
+
+def phase_tp_block(fa, torch, dev, bench):
+    """12a: one full-width block over R model shards held in this process
+    (``LocalAxis``), forward and backward, against the unsharded block;
+    K1-K3 at each shard's attention shape against their plain versions;
+    the sharded block's time against the unsharded one's."""
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.models.transformer import (Axes, Transformer,
+                                                      TransformerConfig,
+                                                      block_shards,
+                                                      single_axes)
+    from horovod_tpu_torch.parallel import axis as axis_lib
+    from horovod_tpu_torch.parallel import ring, tensor
+    b, h, s, d = LM["batch"], LM["heads"], LM["seq_len"], LM["d_model"]
+    print(f"== phase 12a: one block at full width (d_model {d}, {h} heads, "
+          f"d_ff {4 * d}, [{b}, {s}] bf16, flash) over R in {TP_RANKS} "
+          "model shards in one process, against the unsharded block")
+    # one layer and a small vocabulary: the block is what is held
+    cfg = TransformerConfig(vocab_size=64, num_layers=1, num_heads=h,
+                            d_model=d, d_ff=4 * d, dtype=torch.bfloat16,
+                            flash_attention=True)
+    gen = torch.Generator().manual_seed(12)
+    x = _rand((b, s, d), torch.bfloat16, gen, dev)
+    g = _rand((b, s, d), torch.bfloat16, gen, dev)
+    positions = ring.default_positions(None, b, s, device=dev)
+
+    def run(blocks, axes):
+        xs = [x.clone().requires_grad_() for _ in blocks]
+        outs = block_shards(blocks, xs, positions, axes)
+        torch.autograd.backward(outs, [g] * len(outs))
+        return outs, xs
+
+    def seeded(shard=None):
+        return Transformer(cfg, generator=torch.Generator().manual_seed(12),
+                           device=dev, shard=shard)
+
+    whole = seeded()
+    blk = whole.blocks[0]
+    fa.reset_launches()
+    (want,), (x_want,) = run([blk], single_axes())
+    # the unsharded gradients in flax layout (zeros where the block's
+    # forward does not reach: the embedding, the head, the final norm)
+    full_grads = convert.flax_from_params(
+        {n: torch.zeros_like(p) if p.grad is None else p.grad
+         for n, p in whole.named_parameters()}, whole)
+    base_ms = bench.cuda_time_ms(lambda: run([blk], single_axes()), iters=3)
+    specs = tensor.transformer_param_specs(whole, "model")
+    rows = {}
+    for ranks in TP_RANKS:
+        print(f"  R = {ranks}: {h // ranks} heads and d_ff {4 * d // ranks} "
+              "a shard")
+        models = [seeded(tensor.Shard("model", i, ranks))
+                  for i in range(ranks)]
+        blocks = [m.blocks[0] for m in models]
+        one = axis_lib.single_axis(ranks)
+        axes = Axes(axis_lib.LocalAxis(ranks), one, one)
+        fa.reset_launches()
+        outs, xs = run(blocks, axes)
+        _want_launches(fa, f"R={ranks} forward + backward", ranks)
+        worst = 0.0
+        for i, (m, out, xg) in enumerate(zip(models, outs, xs)):
+            worst = max(worst, _shard_bound(f"shard {i} output", out, want,
+                                            ranks),
+                        _shard_bound(f"shard {i} input gradient", xg.grad,
+                                     x_want.grad, ranks))
+            block = convert.params_from_flax(convert.shard_flax(
+                full_grads, specs, {"model": (i, ranks)}), m)
+            for name, p in m.blocks[0].named_parameters():
+                worst = max(worst, _shard_bound(
+                    f"shard {i} grad {name}", p.grad,
+                    block[f"blocks.0.{name}"].to(dev), ranks))
+        del outs, xs
+        ms = bench.cuda_time_ms(lambda: run(blocks, axes), iters=3)
+        rows[ranks] = dict(ms=ms, worst=worst)
+        print(f"  R={ranks} worst element at {worst:.3f} of its bound; "
+              f"forward + backward of the {ranks} shards {ms:.3f} ms against "
+              f"the unsharded block's {base_ms:.3f} ms ({ms / base_ms:.2f}x)")
+        print(f"  R={ranks}: K1-K3 at a shard's attention shape against "
+              "their plain versions")
+        _hold_at_shape(fa, torch, dev, b * h // ranks, s, d // h)
+        del models, blocks
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tp_lm(hvd, fa, torch, bench, phase5_losses, phase5_tok_s):
+    """12b: phase 5's LM, weights and batch through
+    ``make_tp_lm_train_step`` on a (1, 1) (data, model) mesh: every axis
+    of one rank, so the step is phase 5's op for op (the operators are
+    identities, the loss ``softmax_cross_entropy``, AdamW the
+    ``DistributedOptimizer``'s inner one) and all five losses must equal
+    phase 5's bit for bit. Returns the kernels' launches."""
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    print("== phase 12b: full-width LM through make_tp_lm_train_step on a "
+          "(1, 1) data x model mesh")
+    hvd.init()
+    mesh = build_mesh((1, 1), ("data", "model"))
+    step, model, opt, tokens = _lm_bench(bench, torch, seq_len=LM["seq_len"],
+                                         mesh=mesh, model_axis="model")
+    assert model.shard.model_axis == "model"
+    losses, launches, step_ms = _drive(
+        "12b", hvd, fa, torch, bench, step, (tokens,),
+        LM["layers"] * STEPS, LM["batch"] * LM["seq_len"],
+        lambda: "plain AdamW, no gradient exchange at data 1")
+    tok_s = LM["batch"] * LM["seq_len"] / step_ms * 1e3
+    same = losses == phase5_losses
+    print(f"  12b losses against phase 5's: "
+          f"{'bit for bit' if same else 'DIFFER'}; tokens/s {tok_s:.1f} "
+          f"against phase 5's {phase5_tok_s:.1f} in this call "
+          f"({100 * (tok_s / phase5_tok_s - 1):+.1f}%)")
+    if not same:
+        raise AssertionError(f"12b losses {losses} against phase 5's "
+                             f"{phase5_losses}")
+    del step, model, opt, tokens
+    hvd.shutdown()
+    return launches
+
+
+def phase_moe_lm(hvd, fa, torch, bench, phase5_tok_s):
+    """12c: the MoE LM at phase 5's widths (``MOE``) through
+    ``make_tp_lm_train_step(model_axis=None, expert_axis="expert")`` on a
+    (1, 1) (data, expert) mesh: falling losses, finite auxiliary terms,
+    each kernel once a layer and step; tokens/s, memory, the share of
+    dropped token choices and the step's device work split four ways.
+    Returns the kernels' launches."""
+    from horovod_tpu_torch.models import moe as moe_lib
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    print(f"== phase 12c: MoE LM at full width ({MOE}) through "
+          "make_tp_lm_train_step(model_axis=None, expert_axis='expert') on "
+          "a (1, 1) data x expert mesh")
+    hvd.init()
+    mesh = build_mesh((1, 1), ("data", "expert"))
+    t0 = time.perf_counter()
+    step, model, opt, tokens = _lm_bench(bench, torch, seq_len=LM["seq_len"],
+                                         mesh=mesh, expert_axis="expert",
+                                         **MOE)
+    bench.sync()
+    moes = [blk.moe for blk in model.blocks if blk.use_moe]
+    nparams = sum(p.numel() for p in model.parameters())
+    ntok = LM["batch"] * LM["seq_len"]
+    print(f"  model: {nparams / 1e6:.2f} M params, {len(moes)} MoE blocks, "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    # model FLOPs: a top-1 token runs one expert, the dense MLP's size,
+    # plus the gate; the capacity's empty slots and the dispatch are not
+    # useful work
+    flops = _model_flops(LM) + 6 * len(moes) * LM["d_model"] * \
+        MOE["num_experts"] * ntok
+
+    def exchange():
+        terms = [(m.sown["load_balance"].item(), m.sown["router_z"].item(),
+                  m.dropped.item()) for m in moes]
+        if not all(math.isfinite(v) for row in terms for v in row):
+            raise AssertionError(f"12c: non-finite auxiliary terms {terms}")
+        return ("MoE blocks (load_balance, router_z, dropped share): "
+                + ", ".join(f"({a:.4f}, {z:.3f}, {100 * dr:.2f}%)"
+                            for a, z, dr in terms))
+
+    dropped = []  # each step's shares, read after the timed steps
+
+    def counted(toks):
+        loss = step(toks)
+        dropped.append(torch.stack([m.dropped for m in moes]))
+        return loss
+
+    losses, launches, step_ms = _drive(
+        "12c", hvd, fa, torch, bench, counted, (tokens,),
+        LM["layers"] * STEPS, ntok, exchange, flops=flops)
+    print(f"  12c tokens/s {ntok / step_ms * 1e3:.1f} against phase 5's "
+          f"{phase5_tok_s:.1f} in this call; token choices dropped at "
+          f"capacity, mean over the MoE blocks, by step: "
+          f"{[round(100 * float(d.mean()), 2) for d in dropped]}%")
+    layers = (("MoE dispatch and combine einsums", ()),
+              ("MoE expert FFN", ()),
+              ("attention kernels", ("flash_",)),
+              (COLLECTIVES, ("nccl",)))
+    profile_step(torch, lambda: step(tokens), step_ms, layers=layers,
+                 ranges={moe_lib.DISPATCH_RANGE: layers[0][0],
+                         moe_lib.EXPERTS_RANGE: layers[1][0]})
+    del step, model, opt, tokens, moes
+    hvd.shutdown()
+    return launches
+
+
+def phase_moe_layer(torch, dev, bench):
+    """12d: one full-width MoE layer (T = B S tokens, ``MOE``'s experts
+    and groups) over an expert axis of ``EXPERT_RANKS`` held in this
+    process, the tokens replicated over it (the train step's layout) and
+    sharded over it (the JAX layer tests'), forward and backward against
+    the unsharded layer: routing, output and gradients."""
+    from horovod_tpu_torch.models import moe as moe_lib
+    from horovod_tpu_torch.parallel import axis as axis_lib
+    T, d = LM["batch"] * LM["seq_len"], LM["d_model"]
+    E, G, n = MOE["num_experts"], MOE["moe_num_groups"], EXPERT_RANKS
+    print(f"== phase 12d: one MoE layer at full width (T {T} x d {d}, E {E}, "
+          f"G {G}, top-1, bf16) over an expert axis of {n} in one process")
+    kw = dict(num_experts=E, d_model=d, d_ff=4 * d, num_groups=G,
+              capacity_factor=MOE["moe_capacity_factor"],
+              dtype=torch.bfloat16, device=dev)
+
+    def layer(shard=(0, 1)):
+        return moe_lib.MoE(**kw, expert_shard=shard,
+                           generator=torch.Generator().manual_seed(13))
+
+    gen = torch.Generator().manual_seed(13)
+    x = _rand((T, d), torch.bfloat16, gen, dev)
+    g = _rand((T, d), torch.bfloat16, gen, dev)
+    whole, shards = layer(), [layer((i, n)) for i in range(n)]
+    # routing: every shard routes the same replicated tokens
+    choice = moe_lib._route(whole, x, G)[2].argmax(-1)
+    differ = sum(int((moe_lib._route(m, x, G)[2].argmax(-1) != choice).sum())
+                 for m in shards)
+    print(f"  tokens whose first choice differs from the unsharded layer's, "
+          f"over the {n} shards: {differ}")
+    if differ:
+        raise AssertionError(f"12d: {differ} tokens route differently")
+
+    def run(mods, axis, sharded):
+        k = len(mods) if sharded else 1
+        xs = [c.clone().requires_grad_() for c in x.chunk(k)] if sharded \
+            else [x.clone().requires_grad_() for _ in mods]
+        gs = list(g.chunk(k)) if sharded else [g] * len(mods)
+        outs = moe_lib.moe_shards(mods, xs, axis,
+                                  axis_lib.single_axis(len(mods)),
+                                  tokens_sharded=sharded)
+        torch.autograd.backward(
+            [(o.float() * gg.float()).sum() + moe_lib.aux_loss(m)
+             for o, gg, m in zip(outs, gs, mods)])
+        return outs, xs
+
+    (want,), (x_want,) = run([whole], axis_lib.single_axis(), False)
+    want_grads = {name: p.grad.clone() for name, p in whole.named_parameters()}
+    base_ms = bench.cuda_time_ms(
+        lambda: run([whole], axis_lib.single_axis(), False), iters=3)
+    for sharded in (False, True):
+        tag = "tokens sharded" if sharded else "tokens replicated"
+        for m in shards:
+            m.zero_grad(set_to_none=True)
+        outs, xs = run(shards, axis_lib.LocalAxis(n), sharded)
+        print(f"  {tag} over the expert axis:")
+        if sharded:
+            _shard_bound("output", torch.cat(outs), want, n)
+            _shard_bound("input gradient", torch.cat([v.grad for v in xs]),
+                         x_want.grad, n)
+        else:
+            for i, (out, v) in enumerate(zip(outs, xs)):
+                _shard_bound(f"shard {i} output", out, want, n)
+                _shard_bound(f"shard {i} input gradient", v.grad,
+                             x_want.grad, n)
+        for i, m in enumerate(shards):
+            _shard_bound(f"shard {i} grad gate", m.gate.grad,
+                         want_grads["gate"], n)
+        for name in ("w_in", "w_out"):
+            _shard_bound(f"grad {name}", torch.cat(
+                [m.get_parameter(name).grad for m in shards]),
+                want_grads[name], n)
+        del outs, xs
+        ms = bench.cuda_time_ms(
+            lambda: run(shards, axis_lib.LocalAxis(n), sharded), iters=3)
+        print(f"  {tag}: forward + backward of the {n} shards {ms:.3f} ms "
+              f"against the unsharded layer's {base_ms:.3f} ms "
+              f"({ms / base_ms:.2f}x); dropped share "
+              f"{100 * whole.dropped.item():.2f}%")
+    del whole, shards
+    torch.cuda.empty_cache()
+
+
 def _launched_in(trace, ranges):
     """The correlation ids of the work launched on the host inside a
-    profiler range named in ``ranges`` (``{range name: layer}``):
-    ``{correlation: layer}``. A launch is inside a range when it falls in
-    the range's interval on the same host thread."""
+    profiler range named in ``ranges`` (``{range name: layer}``), or by
+    the backward of an op run inside one: ``{correlation: layer}``. A
+    launch is inside a range when it falls in the range's interval on the
+    same host thread."""
     events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     spans = [(e["tid"], e["ts"], e["ts"] + e["dur"], ranges[e["name"]])
              for e in events if e.get("cat") == "user_annotation"
              and e.get("name") in ranges]
+
+    def seq(e):
+        return e.get("args", {}).get("Sequence number")
+
+    # an op run inside a range is the range's in backward too: the
+    # autograd engine's evaluate_function event carries its sequence
+    # number, on the engine's thread
+    layer_of = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and seq(e) is not None:
+            for tid, lo, hi, layer in spans:
+                if e["tid"] == tid and lo <= e["ts"] <= hi:
+                    layer_of[seq(e)] = layer
+                    break
+    spans += [(e["tid"], e["ts"], e["ts"] + e["dur"], layer_of[seq(e)])
+              for e in events if e.get("cat") == "cpu_op"
+              and e.get("name", "").startswith(
+                  "autograd::engine::evaluate_function")
+              and seq(e) in layer_of]
     out = {}
     for e in events:
-        if e.get("cat") != "cuda_runtime":
+        # cuBLAS launches through the driver API, the rest the runtime's
+        if e.get("cat") not in ("cuda_runtime", "cuda_driver"):
             continue
         for tid, lo, hi, layer in spans:
             if e["tid"] == tid and lo <= e["ts"] <= hi:
@@ -2192,13 +2537,23 @@ def main(argv=None):
                                       phase5_tok_s)
     torch.cuda.empty_cache()
     phase_sync_bn(hvd, torch, bench, run_7a)
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    phase_tp_block(fa, torch, dev, bench)
+    launches_12 = [phase_tp_lm(hvd, fa, torch, bench, losses, phase5_tok_s)]
+    torch.cuda.empty_cache()
+    launches_12.append(phase_moe_lm(hvd, fa, torch, bench, phase5_tok_s))
+    torch.cuda.empty_cache()
+    phase_moe_layer(torch, dev, bench)
+    print(f"== phase 12 took {time.perf_counter() - t12:.1f} s")
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):
         wrapper, replaces, source, design = KERNELS[kind_]
+        main = [launches, launches_11b] + launches_12
         kernels.append(dict(name=wrapper, route="cuda", source=source,
                             replaces=replaces, design=design,
-                            launches=launches[kind_] + launches_11b[kind_],
+                            launches=sum(n[kind_] for n in main),
                             **rows[kind_]))
     print(card)
     print(json.dumps({"kernels": kernels}))

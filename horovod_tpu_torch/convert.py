@@ -21,6 +21,22 @@ parameter name and a layout:
 * ``conv``: a Conv kernel [kh, kw, in, out] (HWIO) -> a ``Conv2d``
   weight [out, in, kh, kw] (OIHW).
 
+The transformer's MoE blocks map ``block_i/moe/{gate, w_in, w_out}`` to
+``blocks.i.moe.{gate, w_in, w_out}`` as they are (``same``): the port keeps
+flax's ``[d, E]``, ``[E, d, f]`` and ``[E, f, d]``; a ``MoE`` alone maps its
+three leaves the same way.
+
+A tensor- or expert-parallel model holds one shard of each weight, cut
+by a tree of specs (``parallel.tensor.transformer_param_specs``,
+``models.moe.moe_param_specs``: flax's ``PartitionSpec``s as tuples) at
+this rank's coordinates ``{axis: (index, size)}``: ``shard_flax`` cuts a
+flax tree, ``unshard_flax`` puts the shards of every rank back together,
+and ``cut_module`` cuts a module's own parameters in place (each flax dim
+a spec names maps to the torch dim it lies on; the heads of a
+``heads_in`` or ``heads_out`` leaf are the major part of its merged
+dim, so a block of heads is a block of rows or columns). A size the
+axis does not divide raises ``ValueError``, as JAX's placement does.
+
 ``flax_named_parameters`` walks the same table in the order of
 ``jax.tree_util.tree_leaves`` on the flax tree (paths sorted key by key),
 which is the order the JAX package packs its fusion buckets in, and
@@ -43,10 +59,13 @@ import warnings
 import numpy as np
 import torch
 
+from horovod_tpu_torch.models.moe import MoE
 from horovod_tpu_torch.models.resnet import ResNet
 from horovod_tpu_torch.models.simple import MLP, MNISTConvNet
 from horovod_tpu_torch.models.transformer import Transformer, TransformerConfig
 from horovod_tpu_torch.models.vgg import VGG16
+
+_MOE_LEAVES = ("gate", "w_in", "w_out")
 
 
 def _transformer_table(cfg):
@@ -61,11 +80,15 @@ def _transformer_table(cfg):
         rows += [((blk, "attn", "out", "kernel"), pre + "attn.out.weight",
                   "heads_out"),
                  ((blk, "RMSNorm_0", "scale"), pre + "norm1.weight", "same"),
-                 ((blk, "RMSNorm_1", "scale"), pre + "norm2.weight", "same"),
-                 ((blk, "Dense_0", "kernel"), pre + "mlp_in.weight",
-                  "linear"),
-                 ((blk, "Dense_1", "kernel"), pre + "mlp_out.weight",
-                  "linear")]
+                 ((blk, "RMSNorm_1", "scale"), pre + "norm2.weight", "same")]
+        if cfg.use_moe(i):
+            rows += [((blk, "moe", leaf), pre + f"moe.{leaf}", "same")
+                     for leaf in _MOE_LEAVES]
+        else:
+            rows += [((blk, "Dense_0", "kernel"), pre + "mlp_in.weight",
+                      "linear"),
+                     ((blk, "Dense_1", "kernel"), pre + "mlp_out.weight",
+                      "linear")]
     return rows
 
 
@@ -123,6 +146,8 @@ def _table(spec):
         spec = spec.cfg
     if isinstance(spec, TransformerConfig):
         return _transformer_table(spec)
+    if isinstance(spec, MoE):
+        return [((leaf,), leaf, "same") for leaf in _MOE_LEAVES]
     if isinstance(spec, MLP):
         return [row for i in range(len(spec.layers))
                 for row in _dense_rows(f"Dense_{i}", f"layers.{i}")]
@@ -140,9 +165,9 @@ def _table(spec):
     raise TypeError(f"no flax layout for {type(spec).__name__}")
 
 
-def _heads(spec):
+def _head_dim(spec):
     cfg = spec.cfg if isinstance(spec, Transformer) else spec
-    return cfg.num_heads, cfg.d_model // cfg.num_heads
+    return cfg.d_model // cfg.num_heads
 
 
 # each layout: the torch tensor's dims in the order of the flax array's
@@ -179,9 +204,10 @@ def _to_flax(x, layout, spec):
     if perm is None:
         return x
     x = x.permute(perm) if torch.is_tensor(x) else x.transpose(perm)
-    if split is not None:
+    if split is not None:  # a model shard holds fewer heads
         shape = list(x.shape)
-        shape[split:split + 1] = _heads(spec)
+        d = _head_dim(spec)
+        shape[split:split + 1] = [shape[split] // d, d]
         x = x.reshape(shape)
     return x
 
@@ -209,6 +235,113 @@ def flax_from_params(state_dict, spec):
             node = node.setdefault(key, {})
         node[path[-1]] = _to_flax(x, layout, spec).copy()
     return params
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _block(x, dim, coord):
+    """Block ``index`` of ``size`` equal blocks of dim ``dim`` of ``x`` (a
+    tensor or an array), ``coord = (index, size)``."""
+    index, size = coord
+    n = x.shape[dim] // size
+    return x[(slice(None),) * dim + (slice(index * n, (index + 1) * n),)]
+
+
+def _spec_dims(spec, coords, shape, what):
+    """``(flax dim, (index, size))`` for each dim ``spec`` shards, its
+    size checked against the axis's."""
+    out = []
+    for k, axis in enumerate(spec):
+        if axis is None:
+            continue
+        if axis not in coords:
+            raise ValueError(f"{what}: no coordinate on the axis {axis!r}")
+        index, size = coords[axis]
+        if shape[k] % size:
+            raise ValueError(f"{what}: dim {k} of {tuple(shape)} "
+                             f"({shape[k]}) does not divide over the "
+                             f"{axis!r} axis of {size}")
+        out.append((k, (index, size)))
+    return out
+
+
+def shard_flax(params, specs, coords, path=""):
+    """The shard at ``coords`` (``{axis: (index, size)}``) of the flax tree
+    ``params`` (nested dicts of arrays), each leaf cut along every dim
+    its spec (the same nesting, a tuple a leaf) names an axis for."""
+    if isinstance(params, dict):
+        return {k: shard_flax(v, specs[k], coords, f"{path}/{k}")
+                for k, v in params.items()}
+    x = params
+    for k, coord in _spec_dims(specs, coords, x.shape, path[1:]):
+        x = _block(x, k, coord)
+    return x
+
+
+def unshard_flax(shards, specs, coords):
+    """The whole flax tree from the shards of every rank (``shards[i]``
+    at ``coords[i]``): each leaf concatenated along the dim its spec
+    shards, in index order (one sharded dim a leaf, as the rules give)."""
+    first = shards[0]
+    if isinstance(first, dict):
+        return {k: unshard_flax([s[k] for s in shards], specs[k], coords)
+                for k in first}
+    dims = [(k, axis) for k, axis in enumerate(specs) if axis is not None]
+    if not dims:
+        return first
+    if len(dims) > 1:
+        raise NotImplementedError(f"a leaf sharded over {specs}")
+    k, axis = dims[0]
+    by_index = {}
+    for x, c in zip(shards, coords):
+        by_index.setdefault(c[axis][0], x)
+    return np.concatenate([np.asarray(by_index[i])
+                           for i in range(coords[0][axis][1])], axis=k)
+
+
+def _torch_dim(layout, k):
+    """The torch dim that flax dim ``k`` of a ``layout`` leaf lies on."""
+    perm, split = LAYOUTS[layout or "same"]
+    if perm is None:
+        return k
+    if split is not None:
+        if k == split + 1:
+            raise ValueError("a head's own dim does not shard")
+        if k > split + 1:
+            k -= 1
+    return perm[k]
+
+
+def _meta_flax(p, layout, spec):
+    return _to_flax(torch.empty(p.shape, device="meta"), layout, spec)
+
+
+def flax_shapes(model):
+    """``model``'s flax tree of meta tensors: each leaf's flax shape, no
+    data."""
+    return _nest([(path, _meta_flax(model.get_parameter(name), layout, model))
+                  for path, name, layout in _table(model)])
+
+
+def cut_module(module, specs, coords):
+    """Cut ``module``'s parameters in place to the shard at ``coords``:
+    each parameter of its table replaced by its block along the torch
+    dims its spec (``specs``, nested by flax path) shards."""
+    for path, name, layout in _table(module):
+        p = module.get_parameter(name)
+        what = "/".join(path)
+        shape = _meta_flax(p, layout, module).shape
+        x = p.detach()
+        for k, coord in _spec_dims(_leaf(specs, path), coords, shape, what):
+            x = _block(x, _torch_dim(layout, k), coord)
+        if x.shape != p.shape:
+            owner, _, leaf = name.rpartition(".")
+            setattr(module.get_submodule(owner), leaf,
+                    torch.nn.Parameter(x.clone()))
 
 
 def flax_named_parameters(model):

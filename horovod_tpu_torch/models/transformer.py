@@ -1,20 +1,38 @@
 """Decoder-only Transformer: the port of ``horovod_tpu/models/transformer.py``
-(the non-cache, dense-MLP branch).
+(its non-cache branch), with its MoE blocks and the tensor- and
+expert-parallel layouts of ``horovod_tpu/parallel/tensor.py``.
 
-Pre-RMSNorm blocks, rotary position embeddings, a tanh-GELU MLP and fp32
-logits. Parameters are fp32 and every layer casts them to
-``cfg.dtype`` at use (the flax ``dtype=`` contract), so an optimizer
-updates fp32 masters. Attention runs through the flash kernels
+Pre-RMSNorm blocks, rotary position embeddings, a tanh-GELU MLP (or, in
+every ``moe_every``-th block, 1-based, a top-k mixture of experts,
+``models/moe.py``) and fp32 logits. Parameters are fp32 and every layer
+casts them to ``cfg.dtype`` at use (the flax ``dtype=`` contract), so an
+optimizer updates fp32 masters. Attention runs through the flash kernels
 (``ops/flash_attention.py``) or the dense path, by ``cfg.flash_attention``;
 with ``cfg.sequence_axis`` the sequence is sharded over that mesh axis
 and attention is ring attention (``parallel/ring.py``).
-Parameter layouts are PyTorch's (``nn.Linear`` weights are [out, in]);
-``convert.py`` maps them to and from the flax tree.
+
+A module built with a ``parallel.tensor.Shard`` holds one shard of the
+weights, cut by the JAX package's rules (``tensor.transformer_param_specs``)
+over a model axis of R ranks and an expert axis of N: the query, key and
+value projections and the attention output by contiguous blocks of heads
+(``H / R`` a shard), the MLP's hidden dim (``d_ff / R``), the vocabulary of
+``lm_head`` (``vocab / R``), and the experts (``E / N``). The JAX package
+gets the collectives from GSPMD; here they are Megatron's schedule,
+written once over ``parallel/axis.py``'s operators (``block_shards``,
+``forward_shards``): a replicated activation enters each sharded
+projection through ``copy_to`` and the row-parallel partial results leave
+through ``reduce_from``, so ``forward`` returns this shard's block of the
+vocabulary's logits. On axes of one rank every operator is the identity
+and the computation is the unsharded one.
+
+Parameter layouts are PyTorch's (``nn.Linear`` weights are [out, in]; the
+MoE's expert weights keep flax's ``[E, d, f]``); ``convert.py`` maps them
+to and from the flax tree.
 """
 
 import dataclasses
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +40,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.parallel import axis as axis_lib
 from horovod_tpu_torch.parallel import ring
 
 RMS_EPS = 1e-6  # flax nn.RMSNorm default
@@ -41,6 +60,43 @@ class TransformerConfig:
     flash_attention: bool = False
     # mesh axis the sequence is sharded over (ring attention), or None
     sequence_axis: Optional[str] = None
+    # sparse-FFN blocks: every `moe_every`-th block (1-based; 0 = dense
+    # everywhere) replaces its MLP with a top-k MoE of `num_experts`
+    # experts (models/moe.py); a module built with a parallel.tensor.Shard
+    # cuts the experts over the mesh axis `expert_axis`
+    moe_every: int = 0
+    num_experts: int = 8
+    # routing fanout: 1 = Switch, 2 = GShard top-2; raise
+    # moe_capacity_factor with it (top-k needs ~k slots a token)
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 2.0
+    expert_axis: str = "expert"
+    # GShard grouped dispatch: the global B*S tokens split into (at most)
+    # `moe_num_groups` groups, dispatch memory O(T^2/G). `moe_group_axis`
+    # is the JAX layer's sharding of the group dim; the port keeps the
+    # groups whole on the data rank that holds their tokens wherever they
+    # divide over the data axis, whatever it names
+    moe_num_groups: int = 1
+    moe_group_axis: Optional[str] = None
+
+    def use_moe(self, i):
+        """Whether block ``i`` (0-based) is a MoE block."""
+        return self.moe_every > 0 and (i + 1) % self.moe_every == 0
+
+
+class Axes(NamedTuple):
+    """The axis objects (``parallel/axis.py``) a sharded forward moves its
+    shards over: the model axis (heads, d_ff, vocab), the expert axis, and
+    the axis the batch is sharded over (the MoE's token groups)."""
+    model: object
+    expert: object
+    batch: object
+
+
+def single_axes(width=1):
+    """Axes of one rank each, over ``width`` shards: the unsharded model."""
+    one = axis_lib.single_axis(width)
+    return Axes(one, one, one)
 
 
 def _rotary(x, positions):
@@ -95,8 +151,8 @@ def _lecun_linear(in_features, out_features, generator):
 
 
 class RMSNorm(nn.Module):
-    """flax ``nn.RMSNorm``: statistics and scaling in fp32, output cast to
-    ``dtype``."""
+    """flax ``nn.RMSNorm``: statistics and scaling in fp32 (fp64 for an
+    fp64 input, as flax promotes), output cast to ``dtype``."""
 
     def __init__(self, dim, dtype):
         super().__init__()
@@ -104,12 +160,16 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         var = xf.pow(2).mean(dim=-1, keepdim=True)
         return (xf * (torch.rsqrt(var + RMS_EPS) * self.weight)).to(self.dtype)
 
 
 class Attention(nn.Module):
+    """Self-attention over the heads this module holds (all of them, or a
+    model shard's ``H / R``); with a shard, ``forward`` returns the partial
+    output projection of its heads."""
+
     def __init__(self, cfg, generator):
         super().__init__()
         self.cfg = cfg
@@ -122,7 +182,7 @@ class Attention(nn.Module):
     def forward(self, x, positions):
         cfg = self.cfg
         b, s, _ = x.shape
-        h = cfg.num_heads
+        h = self.query.weight.shape[0] // (cfg.d_model // cfg.num_heads)
         dt = cfg.dtype
 
         def proj(lin):
@@ -150,26 +210,70 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, generator):
+    """One pre-norm block: attention, then the MLP, or with ``use_moe``
+    the MoE layer (``moe``). ``forward`` runs ``block_shards`` on this
+    module alone over the mesh axes of its ``shard``."""
+
+    def __init__(self, cfg, generator, use_moe=False):
         super().__init__()
         self.cfg = cfg
+        self.use_moe = use_moe
+        self.shard = None
         self.norm1 = RMSNorm(cfg.d_model, cfg.dtype)
         self.attn = Attention(cfg, generator)
         self.norm2 = RMSNorm(cfg.d_model, cfg.dtype)
-        self.mlp_in = _lecun_linear(cfg.d_model, cfg.d_ff, generator)
-        self.mlp_out = _lecun_linear(cfg.d_ff, cfg.d_model, generator)
+        if use_moe:
+            from horovod_tpu_torch.models.moe import MoE
+            self.moe = MoE(cfg.num_experts, cfg.d_model, cfg.d_ff,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           num_groups=cfg.moe_num_groups, top_k=cfg.moe_top_k,
+                           dtype=cfg.dtype, generator=generator)
+        else:
+            self.mlp_in = _lecun_linear(cfg.d_model, cfg.d_ff, generator)
+            self.mlp_out = _lecun_linear(cfg.d_ff, cfg.d_model, generator)
+
+    def mlp(self, y):
+        dt = self.cfg.dtype
+        y = F.linear(y, self.mlp_in.weight.to(dt))
+        y = F.gelu(y, approximate="tanh")  # flax nn.gelu is tanh-approximate
+        return F.linear(y, self.mlp_out.weight.to(dt))
 
     def forward(self, x, positions):
-        dt = self.cfg.dtype
-        x = x + self.attn(self.norm1(x), positions)
-        y = F.linear(self.norm2(x), self.mlp_in.weight.to(dt))
-        y = F.gelu(y, approximate="tanh")  # flax nn.gelu is tanh-approximate
-        y = F.linear(y, self.mlp_out.weight.to(dt))
-        return x + y
+        return block_shards([self], [x], positions, _axes_of(self))[0]
+
+
+def block_shards(blocks, xs, positions, axes):
+    """The block over shards: ``blocks`` each shard's block, ``xs`` each
+    shard's residual stream (replicated over the model and expert axes),
+    ``axes`` an ``Axes``. Attention and the MLP are column-parallel in
+    and row-parallel out; the MoE routes every token of the shard's
+    batch and runs the shard's experts."""
+    ys = axes.model.copy_to([b.norm1(x) for b, x in zip(blocks, xs)])
+    attn = axes.model.reduce_from([b.attn(y, positions)
+                                   for b, y in zip(blocks, ys)])
+    xs = [x + a for x, a in zip(xs, attn)]
+    ys = [b.norm2(x) for b, x in zip(blocks, xs)]
+    if blocks[0].use_moe:
+        from horovod_tpu_torch.models.moe import moe_shards
+        shape = ys[0].shape
+        ys = moe_shards([b.moe for b in blocks],
+                        [y.reshape(-1, shape[-1]) for y in ys],
+                        axes.expert, axes.batch)
+        ys = [y.reshape(shape) for y in ys]
+    else:
+        hs = axes.model.copy_to(ys)
+        ys = axes.model.reduce_from([b.mlp(h) for b, h in zip(blocks, hs)])
+    return [x + y for x, y in zip(xs, ys)]
+
+
+def _axes_of(module):
+    """The group axes of a module's shard (axes of one rank without)."""
+    return single_axes() if module.shard is None else module.shard.axes()
 
 
 class Transformer(nn.Module):
-    """tokens [B, S] -> fp32 logits [B, S, vocab].
+    """tokens [B, S] -> fp32 logits [B, S, vocab] (with a shard: this
+    shard's block of the vocabulary, ``[B, S, vocab / R]``).
 
     With ``cfg.sequence_axis`` the tokens are this rank's block of the
     sequence, ``[B, S_local]``, and the default positions are absolute:
@@ -178,31 +282,48 @@ class Transformer(nn.Module):
     positions the whole sequence has.
 
     Weights are drawn on the CPU from ``generator`` (a seeded
-    ``torch.Generator``; flax's initializer distributions, not its bits)
-    and then moved to ``device``."""
+    ``torch.Generator``; flax's initializer distributions, not its bits),
+    all of them, then cut to ``shard`` (a ``parallel.tensor.Shard``: this
+    rank's coordinates on the model and expert axes) when one is given,
+    and moved to ``device``: every shard of a seed is a block of the
+    unsharded model of that seed."""
 
-    def __init__(self, cfg, generator=None, device=None):
+    def __init__(self, cfg, generator=None, device=None, shard=None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cfg = cfg
+        self.shard = None
         self.embed = skip_init(nn.Embedding, cfg.vocab_size, cfg.d_model)
         with torch.no_grad():  # flax Embed: normal with variance 1/d_model
             self.embed.weight.normal_(0.0, math.sqrt(1.0 / cfg.d_model),
                                       generator=generator)
-        self.blocks = nn.ModuleList(Block(cfg, generator)
-                                    for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(Block(cfg, generator, cfg.use_moe(i))
+                                    for i in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.d_model, cfg.dtype)
         self.lm_head = _lecun_linear(cfg.d_model, cfg.vocab_size, generator)
+        if shard is not None:
+            from horovod_tpu_torch.parallel import tensor
+            tensor.cut_transformer(self, shard)
         if device is not None:
             self.to(device)
 
     def forward(self, tokens):
-        cfg = self.cfg
-        positions = ring.default_positions(cfg.sequence_axis, tokens.shape[0],
-                                           tokens.shape[1], device=tokens.device)
-        x = F.embedding(tokens, self.embed.weight).to(cfg.dtype)
-        for block in self.blocks:
-            x = block(x, positions)
-        x = self.norm(x)
-        return F.linear(x, self.lm_head.weight.to(cfg.dtype)).float()
+        return forward_shards([self], [tokens], _axes_of(self))[0]
+
+
+def forward_shards(models, tokens, axes):
+    """The transformer over shards: ``models`` each shard's module,
+    ``tokens`` each shard's ``[B, S]`` batch, ``axes`` an ``Axes``.
+    Returns each shard's fp32 logits, its block of the vocabulary."""
+    cfg = models[0].cfg
+    b, s = tokens[0].shape
+    positions = ring.default_positions(cfg.sequence_axis, b, s,
+                                       device=tokens[0].device)
+    xs = [F.embedding(t, m.embed.weight).to(cfg.dtype)
+          for m, t in zip(models, tokens)]
+    for i in range(cfg.num_layers):
+        xs = block_shards([m.blocks[i] for m in models], xs, positions, axes)
+    hs = axes.model.copy_to([m.norm(x) for m, x in zip(models, xs)])
+    return [F.linear(h, m.lm_head.weight.to(cfg.dtype)).float()
+            for m, h in zip(models, hs)]

@@ -1,6 +1,11 @@
 """parallel of the PyTorch/CUDA port: the process mesh (named axes over
-process groups), ZeRO-1, and sequence parallelism (ring attention,
-Ulysses)."""
+process groups), ZeRO-1, sequence parallelism (ring attention,
+Ulysses), and tensor and expert parallelism (``tensor``, whose names
+are imported at first use: it imports the models, which import this
+package)."""
+
+import importlib
+
 
 from horovod_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -21,4 +26,18 @@ __all__ = [
     "DATA_AXIS", "DCN_AXIS", "axis_index", "axis_size", "build_mesh",
     "data_axis_names", "get_mesh", "ici_axis_names", "set_mesh",
     "default_positions", "ring_attention", "ulysses_attention",
+    "Shard", "make_tp_lm_train_step", "shard_lm_state",
+    "transformer_param_specs",
 ]
+
+_TENSOR = ("Shard", "make_tp_lm_train_step", "shard_lm_state",
+           "transformer_param_specs")
+
+
+def __getattr__(name):
+    if name not in _TENSOR:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.tensor"), name)
+    globals()[name] = value
+    return value

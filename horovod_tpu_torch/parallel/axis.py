@@ -1,8 +1,9 @@
 """Mesh axes as the algorithms over them see them: the shards this
 process computes, and how they move between the ranks of one axis.
 
-Ring attention, the two-level reduction and Adasum are each written once,
-against an axis object:
+Ring attention, the two-level reduction, Adasum, the tensor-parallel
+transformer and the expert-parallel MoE are each written once, against
+an axis object:
 
 * ``GroupAxis(name)`` is this rank's one shard on the axis ``name`` of the
   installed mesh (lists of one tensor), moved by the collectives of the
@@ -19,16 +20,89 @@ Each operation takes and returns a list of shards, one entry per shard of
 storage. The sums run over the ranks of the axis in index order in the
 local form and in the collective's order in the group form: over two
 ranks both are one addition, so the two forms give the same bits.
+
+The moves above are plain functions of the shards. For a model whose
+weights are sharded over an axis, both forms also give Megatron's
+operators, each differentiable, with its conjugate as its backward:
+
+* ``copy_to``: the identity forward, the sum over the axis backward (a
+  replicated activation entering a sharded computation);
+* ``reduce_from``: the sum over the axis forward, the identity backward
+  (the partial results of a sharded computation, summed back into a
+  replicated one);
+* ``psum``: the sum both ways (a statistic of sharded data that every
+  rank's replicated loss reads);
+* ``gather_to``: the concatenation along dim 0 forward, this shard's
+  chunk of the gradient backward (tokens sharded over the axis, gathered
+  for a computation replicated over it);
+* ``reduce_scatter_to``: the sum over the axis, chunk ``i`` of dim 0 to
+  index ``i``, forward, and the concatenation backward (its conjugate).
 """
 
 import torch
 
 from horovod_tpu_torch.ops import collective
-from horovod_tpu_torch.ops.reduction import Sum
+from horovod_tpu_torch.ops.reduction import Max, Sum
 from horovod_tpu_torch.parallel import mesh as mesh_lib
 
 
-class GroupAxis:
+class _Op(torch.autograd.Function):
+    """``fwd`` on the shards forward and ``bwd`` on their gradients
+    backward: each a function of a list of tensors to a list of tensors,
+    run without autograd."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *xs):
+        ctx.bwd = bwd
+        outs, seen = [], set()
+        for y in fwd(list(xs)):
+            # every output its own tensor: autograd routes each one's
+            # gradient to the shard that reads it
+            if id(y) in seen or any(y is x for x in xs):
+                y = y.clone()
+            seen.add(id(y))
+            outs.append(y)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + tuple(ctx.bwd(list(gs)))
+
+
+def _identity(xs):
+    return xs
+
+
+class _Operators:
+    """The differentiable operators of an axis, over its moves
+    (``all_reduce``, ``all_gather``, ``reduce_scatter``). On an axis of one
+    rank each is the identity."""
+
+    def _apply(self, fwd, bwd, xs):
+        if self.n == 1:
+            return list(xs)
+        return list(_Op.apply(fwd, bwd, *xs))
+
+    def copy_to(self, xs):
+        return self._apply(_identity, self.all_reduce, xs)
+
+    def reduce_from(self, xs):
+        return self._apply(self.all_reduce, _identity, xs)
+
+    def psum(self, xs):
+        return self._apply(self.all_reduce, self.all_reduce, xs)
+
+    def gather_to(self, xs):
+        return self._apply(self.all_gather, self._own_chunks, xs)
+
+    def reduce_scatter_to(self, xs):
+        return self._apply(self.reduce_scatter, self.all_gather, xs)
+
+    def _own_chunks(self, xs):
+        return [x.chunk(self.n)[i] for x, i in zip(xs, self.indices)]
+
+
+class GroupAxis(_Operators):
     """This rank's shard on ``axis`` of the installed mesh: lists of one
     tensor, moved by the axis's process group."""
 
@@ -69,8 +143,13 @@ class GroupAxis:
         return [collective.allreduce_(xs[0].clone(), op=Sum,
                                       axes=self.axis)]
 
+    def all_max(self, xs):
+        """The elementwise maximum over the axis, on every rank."""
+        return [collective.allreduce_(xs[0].clone(), op=Max,
+                                      axes=self.axis)]
 
-class LocalAxis:
+
+class LocalAxis(_Operators):
     """Every shard of an axis in this process. ``LocalAxis(n)``: one axis
     of ``n`` ranks, shard ``j`` at index ``j``. ``groups`` (lists of shard
     positions, each in index order) lays out an axis of a larger mesh:
@@ -136,6 +215,27 @@ class LocalAxis:
     def all_reduce(self, xs):
         return self._each(lambda g: [self._sum([xs[p] for p in g])] *
                           self.n)
+
+    def all_max(self, xs):
+        def one(g):
+            out = xs[g[0]]
+            for p in g[1:]:
+                out = torch.maximum(out, xs[p])
+            return [out] * self.n
+        return self._each(one)
+
+
+def single_axis(width=1):
+    """An axis of one rank over each of ``width`` shards: the axis a
+    computation that is not sharded over it sees (every move and
+    operator the identity)."""
+    return LocalAxis(1, [[p] for p in range(width)])
+
+
+def group_axis(axis):
+    """``GroupAxis(axis)``, or the axis of one rank where ``axis`` is
+    None."""
+    return single_axis() if axis is None else GroupAxis(axis)
 
 
 def local_axes(shape, names):

@@ -54,7 +54,9 @@ def sync():
 def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
                   dtype=torch.bfloat16, lr=3e-4, weight_decay=1e-4, seed=0,
                   sharded_update=False, mesh=None, seq_axis=None,
-                  op="average", hierarchical=None):
+                  op="average", hierarchical=None, model_axis=None,
+                  expert_axis=None, moe_every=0, num_experts=8, moe_top_k=1,
+                  moe_capacity_factor=2.0, moe_num_groups=1):
     """The LM benchmark: the transformer LM at the given widths, AdamW
     through ``DistributedOptimizer`` (its buckets packed in the flax leaf
     order; ZeRO-1 with ``sharded_update``; ``op`` and ``hierarchical``
@@ -70,25 +72,57 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
     coordinates on the data axes (``mesh.data_axis_names``), the
     gradients averaged over those and ``seq_axis``, and with
     ``seq_axis`` the sequence sharded over that axis (ring
-    attention)."""
+    attention).
+
+    With ``model_axis``, ``expert_axis`` or ``moe_every`` (the MoE fields
+    are ``TransformerConfig``'s) the model is this rank's shard over
+    those axes of ``mesh`` (``parallel.tensor.shard_lm_state``), trained
+    by ``make_tp_lm_train_step`` with a plain AdamW over the ``data``
+    axis, as the JAX package's tensor-parallel and MoE examples do."""
     from horovod_tpu_torch import basics, convert, hvd_torch, training
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
     from horovod_tpu_torch.ops import collective
     from horovod_tpu_torch.parallel import mesh as mesh_lib
+    from horovod_tpu_torch.parallel import tensor
 
     device = basics.device()
     cfg = TransformerConfig(vocab_size=vocab, num_layers=layers,
                             num_heads=heads, d_model=d_model,
                             d_ff=4 * d_model, dtype=dtype,
-                            flash_attention=flash, sequence_axis=seq_axis)
-    model = Transformer(cfg, generator=torch.Generator().manual_seed(seed),
-                        device=device)
+                            flash_attention=flash, sequence_axis=seq_axis,
+                            moe_every=moe_every, num_experts=num_experts,
+                            moe_top_k=moe_top_k,
+                            moe_capacity_factor=moe_capacity_factor,
+                            moe_num_groups=moe_num_groups,
+                            expert_axis=expert_axis or "expert")
+    generator = torch.Generator().manual_seed(seed)
+    batch_axes = mesh_lib.data_axis_names(mesh)
+
+    def global_batch():
+        rng = np.random.default_rng(seed)
+        return training.shard_lm_batch(
+            torch.from_numpy(rng.integers(
+                0, vocab, size=(batch * collective.mesh_size(batch_axes),
+                                seq_len))),
+            batch_axes, seq_axis).contiguous().to(device)
+
+    if model_axis or expert_axis or moe_every:
+        model = tensor.shard_lm_state(cfg, mesh, model_axis=model_axis,
+                                      expert_axis=expert_axis,
+                                      batch_axis="data", generator=generator)
+        opt = torch.optim.AdamW(model.parameters(), lr=lr,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=weight_decay)
+        step = tensor.make_tp_lm_train_step(
+            model, opt, mesh, model_axis=model_axis, batch_axis="data",
+            expert_axis=expert_axis)
+        return step, model, opt, global_batch()
+    model = Transformer(cfg, generator=generator, device=device)
     # optax.adamw's defaults, with the decay stated (torch's is 1e-2)
     inner = torch.optim.AdamW(model.parameters(), lr=lr,
                               betas=(0.9, 0.999), eps=1e-8,
                               weight_decay=weight_decay)
-    batch_axes = mesh_lib.data_axis_names(mesh)
     axes = None if mesh is None else batch_axes + (
         (seq_axis,) if seq_axis else ())
     opt = hvd_torch.DistributedOptimizer(
@@ -98,15 +132,10 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
     training.create_train_state(model, opt)
     if mesh is None:
         rng = np.random.default_rng(seed + basics.rank())
-        tokens = rng.integers(0, vocab, size=(batch, seq_len))
+        tokens = torch.from_numpy(rng.integers(
+            0, vocab, size=(batch, seq_len)).astype(np.int64)).to(device)
     else:
-        rng = np.random.default_rng(seed)
-        tokens = training.shard_lm_batch(
-            torch.from_numpy(rng.integers(
-                0, vocab, size=(batch * collective.mesh_size(batch_axes),
-                                seq_len))),
-            batch_axes, seq_axis).numpy()
-    tokens = torch.from_numpy(tokens.astype(np.int64)).to(device)
+        tokens = global_batch()
     step = training.make_lm_train_step(model, opt, mesh=mesh,
                                        batch_axis=batch_axes,
                                        seq_axis=seq_axis)
