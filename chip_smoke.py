@@ -110,20 +110,35 @@ runs these phases; any failure raises:
   groups) over 4 expert shards in this process, the tokens replicated
   over the axis and sharded over it: no token routed differently from
   the unsharded layer, outputs and the gradients of the gate, w_in,
-  w_out and the input within ``_shard_bound``; times.
+  w_out and the input within ``_shard_bound``; times;
+* 13a: phase 5's LM, weights and batch as the embedding, its 12 blocks
+  stacked over S stages held in this process (``parallel.pipeline``
+  over a ``LocalAxis``) and the head, one step through GPipe, GPipe with
+  remat and 1F1B at (S 2, M 4) and (S 4, M 8), against the unstaged
+  forward and backward: the loss, every gradient within M 2^-7 max
+  (``_pipe_bound``), GPipe against remat and 1F1B within fp32 summation
+  order, K1-K3 launched M L times each (remat: K1 2 M L; 1F1B: K1
+  M L (2S - 1) / S), the peak memory above the step's start (1F1B at most
+  half of GPipe's at S 4), ms against the unstaged step, a profile of
+  1F1B at S 4, and K1-K3 at a micro's attention shape against their
+  plain versions;
+* 13b: 1F1B at S 2, M 4 over 2 model shards of each stage (Megatron's
+  blocks), every shard in this process, against 13a's S 2 1F1B within
+  ``_shard_bound`` over the stack's 24 row-parallel sums.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
 
 Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b, 11b, 12b and 12c each count the
 kernels' launches from 0 on the card and must launch each kernel once
-per layer and microbatch and step; 9a's worker counts its own. The last
-line of output is
+per layer and microbatch and step (13a and 13b as their schedules
+say); 9a's worker counts its own. The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it a JSON object with each kernel's launches on the
-main paths (phase 5, 11b's two runs, 12b and 12c, each counted from 0),
+main paths (phase 5, 11b's two runs, 12b, 12c and phase 13's seven
+runs, each counted from 0),
 error
 against its plain version, time, plain time, bound and library time. After the timed steps of phases 5 and 6b one
 more step runs under ``torch.profiler`` for the device's busy share and
@@ -182,6 +197,13 @@ TP_RANKS = (2, 4)
 MOE = dict(moe_every=2, num_experts=8, moe_top_k=1, moe_capacity_factor=2.0,
            moe_num_groups=8)
 EXPERT_RANKS = 4
+# phase 13: the (stages, micros) of 13a, each through GPipe, GPipe with
+# remat and 1F1B, the steps timed after the checked one, and 13b's model
+# shards of each stage
+PIPE = ((2, 4), (4, 8))
+PIPE_SCHEDULES = ("gpipe", "remat", "1f1b")
+PIPE_TIMED = 3
+PIPE_RANKS = 2
 # the JAX package's compressed-vs-exact contract (__graft_entry__.py
 # WIRE_EPSILON, WIRE_EPSILON_FLOOR): every step's loss within 5 %
 WIRE_EPSILON, WIRE_EPSILON_FLOOR = 0.05, 1e-3
@@ -2075,7 +2097,7 @@ def phase_sync_bn(hvd, torch, bench, run_7a):
     hvd.shutdown()
 
 
-def _shard_bound(label, got, want, ranks):
+def _shard_bound(label, got, want, ranks, sums=1):
     """Hold a sharded result to the unsharded one. The R shards' partial
     products (a row-parallel projection's, or the combine's over the
     experts) each round to bf16 once, and their sum rounds R - 1 more
@@ -2086,17 +2108,21 @@ def _shard_bound(label, got, want, ranks):
     and a difference of one ulp in a sum can flip the rounding of what
     adds to it. So every element must lie within R 2^-7 max|want| (a
     normwise bound: the error of a product is bounded by the size of its
-    operands, not of its result)."""
+    operands, not of its result). Through a stack of ``sums`` such sums
+    (two a block: the attention output's and the MLP's) the residual
+    stream carries each one's difference on, and independent roundings
+    add as a random walk: sqrt(sums) R 2^-7 max|want|."""
     got, want = got.detach().float(), want.detach().float()
-    bound = ranks * 2.0 ** -7 * float(want.abs().max())
+    bound = math.sqrt(sums) * ranks * 2.0 ** -7 * float(want.abs().max())
     err = _err(got, want)
     worst = err / bound if bound > 0 else math.inf * err
     ok = worst <= 1.0  # False on NaN too
+    name = "R 2^-7" if sums == 1 else f"sqrt({sums}) R 2^-7"
     print(f"    {label:<40} max_abs_err {err:.3e}  at {worst:.3f} of "
-          f"R 2^-7 max|want| = {bound:.3e}  {'ok' if ok else 'FAIL'}")
+          f"{name} max|want| = {bound:.3e}  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: max_abs_err {err} is {worst} times "
-                             f"R 2^-7 max|want|, R = {ranks}")
+                             f"{name} max|want|, R = {ranks}")
     return worst
 
 
@@ -2365,6 +2391,321 @@ def phase_moe_layer(torch, dev, bench):
     torch.cuda.empty_cache()
 
 
+def _lm_full(torch, dev, shard=None):
+    """Phase 5's LM: its config, weights (seed 0, cut to ``shard``) and
+    batch (seed 0, rank 0), without the optimizer."""
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    cfg = TransformerConfig(vocab_size=LM["vocab"], num_layers=LM["layers"],
+                            num_heads=LM["heads"], d_model=LM["d_model"],
+                            d_ff=4 * LM["d_model"], dtype=torch.bfloat16,
+                            flash_attention=True)
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(0),
+                        device=dev, shard=shard)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, LM["vocab"], size=(LM["batch"], LM["seq_len"])).astype(
+            np.int64)).to(dev)
+    return cfg, model, tokens
+
+
+def _stacked_blocks(torch, model):
+    """The model's blocks' parameters stacked ``{name: [L, ...]}``: fp32
+    leaves of their own, the model's untouched."""
+    from horovod_tpu_torch.parallel import pipeline
+    with torch.no_grad():
+        stacked = pipeline.stack_params([dict(b.named_parameters())
+                                         for b in model.blocks])
+    return {k: v.requires_grad_() for k, v in stacked.items()}
+
+
+def _normwise(label, got, want, scale, name):
+    """The worst element's error as a share of ``scale`` max|want|;
+    raises above 1 (and on NaN)."""
+    got, want = got.detach().float(), want.detach().float()
+    bound = scale * float(want.abs().max())
+    err = _err(got, want)
+    worst = err / bound if bound > 0 else math.inf * err
+    if not worst <= 1.0:
+        raise AssertionError(f"{label}: max_abs_err {err} is {worst} times "
+                             f"{name} max|want|")
+    return worst
+
+
+def _pipe_bound(label, got, want, micros):
+    """Hold a microbatched gradient to the unstaged one. The GEMMs of a
+    microbatch take other shapes (cuBLAS may sum their K dims in another
+    order, so an activation can round to the next bf16 step), and each
+    micro's weight gradient rounds to bf16 once before the fp32 sum over
+    the micros, where the unstaged product rounds once: M more roundings,
+    each up to a bf16 ulp (2^-7 relative) of a value the leaf's largest
+    element bounds, carried on at that scale through the layers
+    (``_shard_bound``'s argument with M micros for R shards). So every
+    element within M 2^-7 max|want|, a normwise bound."""
+    return _normwise(label, got, want, micros * 2.0 ** -7, "M 2^-7")
+
+
+def _fp32_order(label, got, want, micros):
+    """Two sums of the same M fp32 terms in other orders part by at most
+    2 (M - 1) 2^-24 sum_m |term_m|; with the terms of a leaf bounded by
+    M max|want| in sum (each micro's gradient about 1/M of the whole),
+    every element within 2 M^2 2^-24 max|want|."""
+    return _normwise(label, got, want, 2 * micros ** 2 * 2.0 ** -24,
+                     "2 M^2 2^-24")
+
+
+def _pipe_launches(schedule, stages, micros, layers):
+    """K1-K3 launches of one step: each micro through each layer once
+    forward (K1) and once backward (K2, K3); remat recomputes every
+    layer's forward in backward, 1F1B every stage's but the last's."""
+    n = micros * layers
+    fwd = {"gpipe": n, "remat": 2 * n,
+           "1f1b": n * (2 * stages - 1) // stages}[schedule]
+    return {"fwd": fwd, "dq": n, "dkv": n}
+
+
+def _pipeline_step(torch, schedule, cfg, model, tokens, stacked, stage,
+                   micros, block_fn):
+    """One step of the LM through ``schedule`` over ``stage``: the
+    embedding, the stacked blocks (``stacked``: each shard's whole
+    stack), the final norm, the head and the mean next-token loss, each
+    micro's mean over M (for 1F1B inside ``per_micro_loss`` on the last
+    stage, for GPipe after it). Returns the loss, the blocks' gradients
+    (each shard's, ``{name: [L / S, ...]}``) and the embedding's."""
+    import torch.nn.functional as F
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.parallel import pipeline
+
+    def own(dicts):  # each shard's block of the layers
+        return [pipeline.split_stages(d, stage)[p]
+                for p, d in enumerate(dicts)]
+
+    model.zero_grad(set_to_none=True)
+    embed = model.embed.weight
+    h = F.embedding(tokens, embed).to(cfg.dtype)
+    mb = tokens.shape[0] // micros
+
+    def head(y, m):
+        toks = tokens[m * mb:(m + 1) * mb]
+        logits = F.linear(model.norm(y), model.lm_head.weight.to(cfg.dtype))
+        return training.softmax_cross_entropy(logits.float()[:, :-1],
+                                              toks[:, 1:]) / micros
+
+    if schedule == "1f1b":
+        losses, grads, dh = pipeline.pipeline_train_1f1b(
+            block_fn, own(stacked), [h.detach()] * len(stacked),
+            lambda ys, m: [head(y, m) for y in ys], stage=stage,
+            n_micro=micros, with_input_grad=True)
+        h.backward(dh[0])
+        return losses[0], grads, embed.grad
+    for st in stacked:
+        for v in st.values():
+            v.grad = None
+    outs = pipeline.pipelined_forward(block_fn, own(stacked),
+                                      [h] * len(stacked), stage=stage,
+                                      n_micro=micros,
+                                      remat=schedule == "remat")
+    # the head and loss a micro at a time, as 1F1B's per_micro_loss
+    # runs them: the same function at the same shapes
+    loss = sum(head(y, m) for m, y in enumerate(outs[-1].chunk(micros)))
+    loss.backward()
+    return loss.detach(), own([{k: v.grad for k, v in st.items()}
+                               for st in stacked]), embed.grad
+
+
+def _stage_grads(torch, grads, stages):
+    """Each stage's block gradients (the first shard of each) stacked
+    back into ``{name: [L, ...]}``."""
+    return {k: torch.cat([grads[p][k] for p in stages]) for k in grads[0]}
+
+
+def phase_pipeline(fa, torch, dev):
+    """13a: phase 5's LM split into the embedding, its 12 blocks stacked
+    over S stages held in this process (``LocalAxis``) and the head,
+    trained one step through GPipe, GPipe with remat and 1F1B at each
+    (S, M) of ``PIPE``, against the unstaged step on the same weights and
+    batch: loss and gradients, peak memory, ms, launches, and K1-K3 at a
+    micro's attention shape. Returns the launches and 1F1B's S 2 run."""
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models.transformer import (single_axes,
+                                                      stage_block_fn)
+    from horovod_tpu_torch.parallel import axis as axis_lib
+    L, B, S_len = LM["layers"], LM["batch"], LM["seq_len"]
+    print(f"== phase 13a: full-width LM ({L} layers, d_model "
+          f"{LM['d_model']}, [{B}, {S_len}] bf16, flash) through GPipe, "
+          f"GPipe with remat and 1F1B over (stages, micros) in {PIPE}, "
+          "every stage in one process, against the unstaged step")
+    cfg, model, tokens = _lm_full(torch, dev)
+
+    def unstaged():
+        model.zero_grad(set_to_none=True)
+        loss = training.softmax_cross_entropy(model(tokens)[:, :-1],
+                                              tokens[:, 1:])
+        loss.backward()
+        return loss.detach()
+
+    def measured(run):
+        """``run()`` with the launches counted from 0 and the peak memory
+        above what was held before."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fa.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        return (out, dict(fa.LAUNCHES),
+                (torch.cuda.max_memory_allocated() - held) / 2 ** 30)
+
+    def step_ms(run):
+        times = []
+        for _ in range(PIPE_TIMED):
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        return float(np.median(times))
+
+    loss_u, launches_u, mem_u = measured(unstaged)
+    want = {k: torch.stack([dict(b.named_parameters())[k].grad
+                            for b in model.blocks])
+            for k, _ in model.blocks[0].named_parameters()}
+    want_embed = model.embed.weight.grad.clone()
+    ms_u = step_ms(unstaged)
+    model.zero_grad(set_to_none=True)
+    print(f"  unstaged: loss {loss_u.item()!r}, {ms_u:.2f} ms a step "
+          f"(forward + backward, median of {PIPE_TIMED}), peak "
+          f"{mem_u:.2f} GiB above the held memory, launches {launches_u}")
+    stacked = _stacked_blocks(torch, model)
+    block_fn = stage_block_fn([model.blocks[0]], single_axes())
+    rows, launches, keep = {}, [], None
+    for S, M in PIPE:
+        stage = axis_lib.LocalAxis(S)
+        b = B // M
+        print(f"  S {S}, M {M} ({b} sequence{'s' if b > 1 else ''} a "
+              f"micro, {L // S} layers a stage); each gradient leaf within "
+              f"M 2^-7 max|unstaged| (`_pipe_bound`):")
+        got = {}
+        for schedule in PIPE_SCHEDULES:
+            def run():
+                return _pipeline_step(torch, schedule, cfg, model, tokens,
+                                      [stacked] * S, stage, M, block_fn)
+            (loss, grads, g_embed), n, mem = measured(run)
+            expect = _pipe_launches(schedule, S, M, L)
+            if n != expect:
+                raise AssertionError(f"13a {schedule} S {S} M {M}: launches "
+                                     f"{n}, want {expect}")
+            launches.append(n)
+            grads = _stage_grads(torch, grads, list(range(S)))
+            rel = abs(loss.item() - loss_u.item()) / abs(loss_u.item())
+            if not rel <= 1e-3:
+                raise AssertionError(f"13a {schedule} S {S} M {M}: loss "
+                                     f"{loss.item()} against {loss_u.item()}")
+            worst, name = max((_pipe_bound(f"13a {schedule} {k}", grads[k],
+                                           want[k], M), k) for k in want)
+            worst_e = _pipe_bound(f"13a {schedule} embedding", g_embed,
+                                  want_embed, M)
+            ms = step_ms(run)
+            if (S, M, schedule) == (*PIPE[-1], "1f1b"):
+                profile_step(torch, run, ms)
+            got[schedule] = (loss, grads, g_embed)
+            rows[S, M, schedule] = dict(loss=loss.item(), ms=ms, mem=mem,
+                                        worst=max(worst, worst_e))
+            print(f"    {schedule:<6} loss {loss.item()!r} (rel "
+                  f"{rel:.2e}); worst gradient element at {worst:.3f} of "
+                  f"its bound ({name}), embedding {worst_e:.3f}; "
+                  f"{ms:.2f} ms ({ms / ms_u:.2f}x the unstaged step); "
+                  f"peak {mem:.2f} GiB ({mem / mem_u:.2f}x); launches {n}")
+            del grads, g_embed
+        for other in ("remat", "1f1b"):
+            (la, ga, ea), (lb, gb, eb) = got["gpipe"], got[other]
+            same = (la.item() == lb.item() and torch.equal(ea, eb) and
+                    all(torch.equal(ga[k], gb[k]) for k in ga))
+            worst = max([_fp32_order(f"13a gpipe vs {other} {k}", gb[k],
+                                     ga[k], M) for k in ga] +
+                        [_fp32_order(f"13a gpipe vs {other} embedding", eb,
+                                     ea, M)])
+            print(f"    gpipe against {other}: "
+                  f"{'bit for bit' if same else 'differ'}; worst element "
+                  f"at {worst:.3f} of 2 M^2 2^-24 max|gpipe|; losses "
+                  f"{la.item()!r} and {lb.item()!r}")
+        if S == 2:
+            keep = got["1f1b"]
+        del got
+        mem_g, mem_1 = (rows[S, M, s]["mem"] for s in ("gpipe", "1f1b"))
+        print(f"    1F1B holds {mem_1:.2f} GiB against GPipe's "
+              f"{mem_g:.2f} GiB ({mem_1 / mem_g:.2f}x)")
+        if S == 4 and not mem_1 <= 0.5 * mem_g:
+            raise AssertionError(f"13a S 4: 1F1B's {mem_1} GiB is over half "
+                                 f"GPipe's {mem_g} GiB")
+        print(f"  K1-K3 at a micro's attention shape against their plain "
+              "versions")
+        _hold_at_shape(fa, torch, dev, b * LM["heads"], S_len,
+                       LM["d_model"] // LM["heads"])
+        torch.cuda.empty_cache()
+    del stacked, model, want, want_embed
+    torch.cuda.empty_cache()
+    return launches, keep
+
+
+def phase_pipeline_shards(fa, torch, dev, f1b_s2):
+    """13b: 1F1B at S 2, M 4 over R = ``PIPE_RANKS`` model shards of each
+    stage, every shard in this process (``local_axes((2, R), ("stage",
+    "model"))``), the blocks Megatron's (``copy_to``/``reduce_from`` over
+    the model axis), against 13a's S 2 1F1B run within ``_shard_bound``
+    over the stack's 2 L row-parallel sums. Returns the launches."""
+    from horovod_tpu_torch.models.transformer import Axes, stage_block_fn
+    from horovod_tpu_torch.parallel import axis as axis_lib
+    from horovod_tpu_torch.parallel import tensor
+    S, M, R, L = 2, 4, PIPE_RANKS, LM["layers"]
+    print(f"== phase 13b: 1F1B at S {S}, M {M} over {R} model shards of "
+          "each stage, both axes in one process")
+    models, stacked = [], []
+    for m in range(R):
+        cfg, model, tokens = _lm_full(torch, dev,
+                                      tensor.Shard("model", m, R))
+        models.append(model)
+        stacked.append(_stacked_blocks(torch, model))
+    axes = axis_lib.local_axes((S, R), ("stage", "model"))
+    one = axis_lib.single_axis(R)
+    block_fn = stage_block_fn([m.blocks[0] for m in models],
+                              Axes(axis_lib.LocalAxis(R), one, one))
+    # the unsharded head and loss on every model shard of the last stage
+    whole = _lm_full(torch, dev)[1]
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    loss, grads, g_embed = _pipeline_step(
+        torch, "1f1b", cfg, whole, tokens,
+        [stacked[p % R] for p in range(S * R)], axes["stage"], M, block_fn)
+    torch.cuda.synchronize()
+    n = dict(fa.LAUNCHES)
+    ms = 1e3 * (time.perf_counter() - t0)
+    expect = {k: R * v for k, v in _pipe_launches("1f1b", S, M, L).items()}
+    print(f"  launches {n} (R times 13a's S {S} 1F1B); one step {ms:.2f} ms "
+          "with its first calls")
+    if n != expect:
+        raise AssertionError(f"13b: launches {n}, want {expect}")
+    loss_a, grads_a, embed_a = f1b_s2
+    # the stack's 2 L row-parallel sums, each R shards' partial products
+    sums = 2 * L
+    worst = _shard_bound("13b loss", loss, loss_a, R, sums)
+    worst = max(worst, _shard_bound("13b embedding gradient", g_embed,
+                                    embed_a, R, sums))
+    for m in range(R):
+        mine = _stage_grads(torch, grads, [s * R + m for s in range(S)])
+        for k, g in mine.items():
+            full = grads_a[k]
+            dims = [i for i, (a, c) in enumerate(zip(full.shape, g.shape))
+                    if a != c]
+            want = full if not dims else full.narrow(
+                dims[0], m * g.shape[dims[0]], g.shape[dims[0]])
+            worst = max(worst, _shard_bound(f"13b shard {m} {k}", g, want,
+                                            R, sums))
+    print(f"  13b worst element at {worst:.3f} of sqrt({sums}) R 2^-7 "
+          "max|13a|")
+    del models, stacked, whole, grads
+    torch.cuda.empty_cache()
+    return [n]
+
+
 def _launched_in(trace, ranges):
     """The correlation ids of the work launched on the host inside a
     profiler range named in ``ranges`` (``{range name: layer}``), or by
@@ -2546,11 +2887,17 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase_moe_layer(torch, dev, bench)
     print(f"== phase 12 took {time.perf_counter() - t12:.1f} s")
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    launches_13, f1b_s2 = phase_pipeline(fa, torch, dev)
+    launches_13 += phase_pipeline_shards(fa, torch, dev, f1b_s2)
+    del f1b_s2
+    print(f"== phase 13 took {time.perf_counter() - t13:.1f} s")
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):
         wrapper, replaces, source, design = KERNELS[kind_]
-        main = [launches, launches_11b] + launches_12
+        main = [launches, launches_11b] + launches_12 + launches_13
         kernels.append(dict(name=wrapper, route="cuda", source=source,
                             replaces=replaces, design=design,
                             launches=sum(n[kind_] for n in main),

@@ -14,9 +14,15 @@ hand-written CUDA kernels (``ops/flash_attention.py``). The JAX package
 ``horovod_tpu`` is the reference; this package imports neither it nor
 JAX.
 
-The names below are imported at first use, so that the launcher and its
+The names below, and the subpackages ``checkpoint``, ``ckpt`` and
+``data``, are imported at first use, so that the launcher and its
 middleman, which run ``python -m horovod_tpu_torch.run...`` and need no
-torch, start without importing it.
+torch, start without importing it. Of the JAX package's top-level names
+the port leaves out ``distributed_grad``, ``DistributedGradientTransform``,
+``HorovodOptimizer`` and ``compat`` (optax's and JAX's forms, which
+``DistributedOptimizer`` and ``distributed_value_and_grad`` stand for
+here), and the planes not yet ported: ``elastic``, ``telemetry`` and
+``autotune_fusion_threshold``.
 """
 
 import importlib
@@ -27,8 +33,12 @@ __version__ = "0.1.0"
 _EXPORTS = {
     **dict.fromkeys(("init", "shutdown", "is_initialized", "rank", "size",
                      "local_rank", "local_size", "cross_rank", "cross_size",
-                     "device"), "basics"),
-    **dict.fromkeys(("DistributedOptimizer", "broadcast_parameters",
+                     "device", "num_devices", "mesh", "data_axes",
+                     "nccl_built", "gloo_built", "mpi_built", "mpi_enabled",
+                     "mpi_threads_supported", "ccl_built", "ddl_built"),
+                    "basics"),
+    **dict.fromkeys(("DistributedOptimizer", "distributed_value_and_grad",
+                     "broadcast_variables", "broadcast_parameters",
                      "broadcast_optimizer_state", "allreduce_metrics",
                      "join"), "hvd_torch"),
     **dict.fromkeys(("allreduce", "allreduce_", "allgather", "broadcast",
@@ -38,20 +48,26 @@ _EXPORTS = {
                     "parallel.mesh"),
     **dict.fromkeys(("ring_attention", "ulysses_attention"),
                     "parallel.ring"),
-    "fused_allreduce_": "ops.fusion",
+    **dict.fromkeys(("fused_allreduce", "fused_allreduce_"), "ops.fusion"),
+    "Compression": "ops.compression",
     **dict.fromkeys(("Sum", "Average", "Adasum", "Min", "Max"),
                     "ops.reduction"),
 }
 
-__all__ = list(_EXPORTS)
+_SUBPACKAGES = ("checkpoint", "ckpt", "data")
+
+__all__ = list(_EXPORTS) + list(_SUBPACKAGES)
 
 
 def __getattr__(name):
-    module = _EXPORTS.get(name)
-    if module is None:
+    if name in _SUBPACKAGES:
+        value = importlib.import_module(f"{__name__}.{name}")
+    elif name in _EXPORTS:
+        value = getattr(importlib.import_module(
+            f"{__name__}.{_EXPORTS[name]}"), name)
+    else:
         raise AttributeError(
             f"module {__name__!r} has no attribute {name!r}")
-    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
     globals()[name] = value
     return value
 

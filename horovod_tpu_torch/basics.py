@@ -209,6 +209,57 @@ def device():
     return _state.mesh.device
 
 
+def num_devices():
+    """Ranks in the installed mesh: the data plane's world (one card a
+    rank)."""
+    _cfg()
+    return mesh_lib.get_mesh().size
+
+
+def mesh():
+    """The installed mesh (``parallel/mesh.py``): ``init()``'s, or the
+    last ``build_mesh``."""
+    _cfg()
+    return mesh_lib.get_mesh()
+
+
+def data_axes():
+    """The mesh axes gradients are reduced over, e.g. ``("data",)`` or
+    ``("dcn", "data")``."""
+    return mesh_lib.data_axis_names(mesh())
+
+
+# Horovod's build probes, answered from torch.distributed: the backends
+# this torch can run. The port joins its world over NCCL or gloo, never
+# MPI, oneCCL or DDL.
+def nccl_built():
+    return dist.is_nccl_available()
+
+
+def gloo_built():
+    return dist.is_gloo_available()
+
+
+def mpi_built():
+    return dist.is_mpi_available()
+
+
+def mpi_enabled():
+    return False
+
+
+def mpi_threads_supported():
+    return False
+
+
+def ccl_built():
+    return False
+
+
+def ddl_built():
+    return False
+
+
 def fusion_threshold():
     return _cfg().fusion_threshold
 

@@ -24,7 +24,8 @@ parameter name and a layout:
 The transformer's MoE blocks map ``block_i/moe/{gate, w_in, w_out}`` to
 ``blocks.i.moe.{gate, w_in, w_out}`` as they are (``same``): the port keeps
 flax's ``[d, E]``, ``[E, d, f]`` and ``[E, f, d]``; a ``MoE`` alone maps its
-three leaves the same way.
+three leaves the same way. ``stacked_blocks_from_flax`` stacks the blocks'
+leaves layer by layer, the pipeline's layout (``parallel/pipeline.py``).
 
 A tensor- or expert-parallel model holds one shard of each weight, cut
 by a tree of specs (``parallel.tensor.transformer_param_specs``,
@@ -223,6 +224,22 @@ def params_from_flax(params, spec):
         x = torch.from_numpy(np.array(x, dtype=np.float32))
         sd[name] = _to_torch(x, layout).contiguous()
     return sd
+
+
+def stacked_blocks_from_flax(params, cfg):
+    """A flax transformer's ``block_0`` ... ``block_{L-1}`` subtrees as the
+    port's stacked dict ``{name: [L, ...]}`` (fp32), ``name`` a ``Block``
+    parameter's: what ``parallel.pipeline.stack_params`` makes of the
+    blocks of ``params_from_flax``."""
+    layers = {}
+    for path, name, layout in _table(cfg):
+        if name.startswith("blocks."):
+            _, i, key = name.split(".", 2)
+            x = torch.from_numpy(np.array(_leaf(params, path),
+                                          dtype=np.float32))
+            layers.setdefault(key, {})[int(i)] = _to_torch(x, layout)
+    return {k: torch.stack([v[i] for i in sorted(v)]).contiguous()
+            for k, v in layers.items()}
 
 
 def flax_from_params(state_dict, spec):

@@ -2,8 +2,9 @@
 averaging and Join.
 
 The port of ``horovod_tpu/hvd_jax.py``'s ``DistributedOptimizer``,
-``broadcast_variables``, ``broadcast_optimizer_state``,
-``allreduce_metrics`` and ``join`` in Horovod's PyTorch form:
+``distributed_value_and_grad``, ``broadcast_variables``,
+``broadcast_optimizer_state``, ``allreduce_metrics`` and ``join`` in
+Horovod's PyTorch form:
 ``DistributedOptimizer`` wraps a ``torch.optim`` optimizer, and its
 ``step()`` exchanges the parameters' ``.grad`` across ranks before the
 inner step. Unlike the JAX optimizer, which returns new state,
@@ -326,6 +327,34 @@ def broadcast_parameters(state_dict, root_rank=0):
     ``root_rank``'s, in the order of the names."""
     for name in sorted(state_dict):
         collective.broadcast_(state_dict[name], root_rank=root_rank)
+
+
+@torch.no_grad()
+def broadcast_variables(variables, root_rank=0, axes=None):
+    """Overwrite, in place, every tensor of ``variables`` (an iterable of
+    tensors, in order) with the value of the rank whose
+    ``mesh_rank(axes)`` is ``root_rank``: the startup sync of a list of
+    tensors. Returns them as a list."""
+    variables = list(variables)
+    for v in variables:
+        collective.broadcast_(v, root_rank=root_rank, axes=axes)
+    return variables
+
+
+def distributed_value_and_grad(fun, op=Average, axes=None, compression=None):
+    """``fun(params, *args) -> scalar`` made ``(value, grads)``, the
+    gradients with respect to ``params`` (a list of tensors) reduced over
+    the ranks of ``axes`` through the fused buckets (the JAX package's
+    ``distributed_value_and_grad``, Horovod's ``DistributedGradientTape``)."""
+    def wrapped(params, *args, **kwargs):
+        params = list(params)
+        with torch.enable_grad():
+            value = fun(params, *args, **kwargs)
+            grads = torch.autograd.grad(value, params,
+                                        materialize_grads=True)
+        return value.detach(), fusion.fused_allreduce(
+            list(grads), op=op, axes=axes, compression=compression)
+    return wrapped
 
 
 @torch.no_grad()

@@ -266,6 +266,38 @@ def block_shards(blocks, xs, positions, axes):
     return [x + y for x, y in zip(xs, ys)]
 
 
+class _StageShards(nn.Module):
+    """One stage's shards of a block, as one module: ``forward`` runs
+    ``block_shards`` on them at the default positions."""
+
+    def __init__(self, blocks, axes):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.axes = axes
+
+    def forward(self, xs):
+        b, s = xs[0].shape[:2]
+        positions = ring.default_positions(None, b, s, device=xs[0].device)
+        return block_shards(list(self.blocks), xs, positions, self.axes)
+
+
+def stage_block_fn(blocks, axes):
+    """``block_fn`` of ``parallel/pipeline.py`` for the transformer's
+    blocks: one layer on one stage's shards. ``blocks`` holds one
+    ``Block`` a shard of the stage, each with the layout of that shard
+    (its cut, ``parallel.tensor.Shard``), ``axes`` the ``Axes`` over them.
+    Each call runs ``block_shards`` with the layer's parameters (each
+    shard's ``{name: tensor}``, the names of ``Block.named_parameters``)
+    in place of the blocks' own (``torch.func.functional_call``)."""
+    shards = _StageShards(blocks, axes)
+
+    def block_fn(layer_params, xs):
+        params = {f"blocks.{i}.{k}": v for i, p in enumerate(layer_params)
+                  for k, v in p.items()}
+        return torch.func.functional_call(shards, params, (xs,))
+    return block_fn
+
+
 def _axes_of(module):
     """The group axes of a module's shard (axes of one rank without)."""
     return single_axes() if module.shard is None else module.shard.axes()

@@ -265,6 +265,18 @@ def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
     return buckets
 
 
+def fused_allreduce(tensors, op=collective.Average, axes=None,
+                    compression=None, threshold_bytes=None,
+                    hierarchical=None):
+    """Out-of-place ``fused_allreduce_``: the reduced copies of
+    ``tensors`` (a list), which are left as they are."""
+    out = [t.clone() for t in tensors]
+    fused_allreduce_(out, op=op, threshold_bytes=threshold_bytes,
+                     compression=compression, axes=axes,
+                     hierarchical=hierarchical)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class BucketSchedule:
     """Static plan of the bucketed exchange: the buckets in

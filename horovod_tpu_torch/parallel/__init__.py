@@ -1,8 +1,8 @@
 """parallel of the PyTorch/CUDA port: the process mesh (named axes over
 process groups), ZeRO-1, sequence parallelism (ring attention,
-Ulysses), and tensor and expert parallelism (``tensor``, whose names
-are imported at first use: it imports the models, which import this
-package)."""
+Ulysses), tensor and expert parallelism (``tensor``, whose names are
+imported at first use: it imports the models, which import this
+package), and pipeline parallelism (``pipeline``: GPipe and 1F1B)."""
 
 import importlib
 
@@ -18,6 +18,9 @@ from horovod_tpu_torch.parallel.mesh import (
     ici_axis_names,
     set_mesh,
 )
+from horovod_tpu_torch.parallel.pipeline import (pipeline_train_1f1b,
+                                                 pipelined_forward,
+                                                 split_stages, stack_params)
 from horovod_tpu_torch.parallel.ring import (default_positions,
                                              ring_attention,
                                              ulysses_attention)
@@ -25,7 +28,9 @@ from horovod_tpu_torch.parallel.ring import (default_positions,
 __all__ = [
     "DATA_AXIS", "DCN_AXIS", "axis_index", "axis_size", "build_mesh",
     "data_axis_names", "get_mesh", "ici_axis_names", "set_mesh",
-    "default_positions", "ring_attention", "ulysses_attention",
+    "pipeline_train_1f1b", "pipelined_forward", "split_stages",
+    "stack_params", "default_positions", "ring_attention",
+    "ulysses_attention",
     "Shard", "make_tp_lm_train_step", "shard_lm_state",
     "transformer_param_specs",
 ]

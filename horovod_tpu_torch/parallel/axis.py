@@ -17,9 +17,12 @@ an axis object:
 
 Each operation takes and returns a list of shards, one entry per shard of
 ``indices`` (this shard's coordinate on the axis); outputs may share
-storage. The sums run over the ranks of the axis in index order in the
-local form and in the collective's order in the group form: over two
-ranks both are one addition, so the two forms give the same bits.
+storage. ``shift`` and ``exchange`` move every shard; ``ppermute`` moves
+those a partial permutation names and gives the others zeros, as
+``collective.ppermute`` does. The sums run over the ranks of the axis in
+index order in the local form and in the collective's order in the group
+form: over two ranks both are one addition, so the two forms give the
+same bits.
 
 The moves above are plain functions of the shards. For a model whose
 weights are sharded over an axis, both forms also give Megatron's
@@ -112,18 +115,23 @@ class GroupAxis(_Operators):
         self.n = mesh.axis_size(axis)
         self.indices = [mesh.axis_index(axis)]
 
+    def ppermute(self, xs, perm):
+        """For each pair ``(i, j)`` of the partial permutation ``perm``,
+        index ``i``'s tensor to index ``j``; an index that receives
+        nothing gets zeros (a move that does not wrap)."""
+        return [collective.ppermute(xs[0], self.axis, perm)]
+
     def shift(self, xs):
         """Each rank's tensor to the next rank of the ring."""
         if self.n == 1:
             return xs
-        perm = [(j, (j + 1) % self.n) for j in range(self.n)]
-        return [collective.ppermute(xs[0], self.axis, perm)]
+        return self.ppermute(xs, [(j, (j + 1) % self.n)
+                                  for j in range(self.n)])
 
     def exchange(self, xs, d):
         """Each rank's tensor to its partner at distance ``d``: the rank
         whose index is its own XOR ``d`` (``n`` a power of 2)."""
-        perm = [(j, j ^ d) for j in range(self.n)]
-        return [collective.ppermute(xs[0], self.axis, perm)]
+        return self.ppermute(xs, [(j, j ^ d) for j in range(self.n)])
 
     def all_to_all(self, xs, split_dim, concat_dim):
         return [collective.alltoall(xs[0], axes=self.axis,
@@ -177,13 +185,22 @@ class LocalAxis(_Operators):
                 out[pos] = y
         return out
 
+    def ppermute(self, xs, perm):
+        src = {j: i for i, j in perm}
+        if len(src) != len(perm) or len(set(src.values())) != len(perm) \
+                or not all(0 <= i < self.n for p in perm for i in p):
+            raise ValueError(f"ppermute over an axis of {self.n}: {perm} is "
+                             "not a partial permutation")
+        return self._each(lambda g: [
+            xs[g[src[i]]].view_as(xs[g[i]]) if i in src
+            else torch.zeros_like(xs[g[i]]) for i in range(self.n)])
+
     def shift(self, xs):
-        return self._each(lambda g: [xs[g[(i - 1) % self.n]].view_as(
-            xs[g[i]]) for i in range(self.n)])
+        return self.ppermute(xs, [(j, (j + 1) % self.n)
+                                  for j in range(self.n)])
 
     def exchange(self, xs, d):
-        return self._each(lambda g: [xs[g[i ^ d]].view_as(xs[g[i]])
-                                     for i in range(self.n)])
+        return self.ppermute(xs, [(j, j ^ d) for j in range(self.n)])
 
     def all_to_all(self, xs, split_dim, concat_dim):
         def one(g):
