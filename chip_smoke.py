@@ -110,7 +110,12 @@ runs these phases; any failure raises:
   groups) over 4 expert shards in this process, the tokens replicated
   over the axis and sharded over it: no token routed differently from
   the unsharded layer, outputs and the gradients of the gate, w_in,
-  w_out and the input within ``_shard_bound``; times;
+  w_out and the input within ``_shard_bound``; times; with the tokens
+  sharded, GShard's all-to-all form against the gather form: in bf16
+  the outputs and expert gradients bit for bit, the gate's and input's
+  gradients and the auxiliary terms within ``_shard_bound``, in fp32
+  all within ``_fp32_order`` (M = R); both forms' times and the bytes
+  each moves a shard, from the shapes;
 * 13a: phase 5's LM, weights and batch as the embedding, its 12 blocks
   stacked over S stages held in this process (``parallel.pipeline``
   over a ``LocalAxis``) and the head, one step through GPipe, GPipe with
@@ -124,21 +129,38 @@ runs these phases; any failure raises:
   plain versions;
 * 13b: 1F1B at S 2, M 4 over 2 model shards of each stage (Megatron's
   blocks), every shard in this process, against 13a's S 2 1F1B within
-  ``_shard_bound`` over the stack's 24 row-parallel sums.
+  ``_shard_bound`` over the stack's 24 row-parallel sums;
+* 14a: phase 5's LM, weights and batch, over 2 model shards in this
+  process (``make_tp_lm_train_step_shards``, AdamW): 4 steps unbroken
+  against 2 steps, an ``AsyncCheckpointer`` save of the state gathered
+  whole, a restore and 2 more steps; restored at R = 2 the losses and
+  every leaf bit for bit, restored at R = 1 and R = 4 the next loss
+  within ``_shard_bound``; K1-K3 once a layer, shard and step; the
+  state's bytes, ``save()``'s blocking ms (of it the pinned buffers, the
+  gathers and the device-to-host copy), the write and commit, the
+  restores;
+* 14b: 12c's MoE LM state saved whole and restored with its experts cut
+  4 ways in this process, and saved cut and restored whole (on 4 of
+  phase 5's 8 sequences): the next loss bit for bit the run it resumes
+  where the cut is the same, within ``_shard_bound`` where it is not;
+* 14c: phase 5's LM through ``DistributedOptimizer(
+  backward_passes_per_step=2)`` (optax's ``MultiStepsState``), saved
+  after mini-step 1 (inside a window) and 2 (at its boundary): each
+  resume repeats the unbroken run's losses and state bit for bit.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
 
-Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b, 11b, 12b and 12c each count the
-kernels' launches from 0 on the card and must launch each kernel once
-per layer and microbatch and step (13a and 13b as their schedules
-say); 9a's worker counts its own. The last line of output is
+Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b, 11b, 12b, 12c and 14a-14c each
+count the kernels' launches from 0 on the card and must launch each
+kernel once per layer, shard, microbatch and step (13a and 13b as their
+schedules say); 9a's worker counts its own. The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it a JSON object with each kernel's launches on the
-main paths (phase 5, 11b's two runs, 12b, 12c and phase 13's seven
-runs, each counted from 0),
+main paths (phase 5, 11b's two runs, 12b, 12c, phase 13's seven
+runs and 14a, each counted from 0),
 error
 against its plain version, time, plain time, bound and library time. After the timed steps of phases 5 and 6b one
 more step runs under ``torch.profiler`` for the device's busy share and
@@ -204,6 +226,10 @@ PIPE = ((2, 4), (4, 8))
 PIPE_SCHEDULES = ("gpipe", "remat", "1f1b")
 PIPE_TIMED = 3
 PIPE_RANKS = 2
+# phase 14: 14a's model shards, and 14b's sequences (its 4 expert shards
+# in one process each hold the dense part and its activations)
+TP_CKPT_RANKS = 2
+EP_BATCH = 4
 # the JAX package's compressed-vs-exact contract (__graft_entry__.py
 # WIRE_EPSILON, WIRE_EPSILON_FLOOR): every step's loss within 5 %
 WIRE_EPSILON, WIRE_EPSILON_FLOOR = 0.05, 1e-3
@@ -1297,10 +1323,22 @@ def _flat_tensors(leaves):
 
 
 def _state_copy(torch, leaves):
-    """A device copy of every tensor of a flat train state (numpy counts
-    as they are)."""
-    return [t.detach().clone() if torch.is_tensor(t) else np.array(t)
+    """A device copy of every tensor of a flat train state (a model
+    shard's cut leaves gathered whole; numpy counts as they are)."""
+    from horovod_tpu_torch import ckpt
+    return [t.gather() if isinstance(t, ckpt.GatheredLeaf)
+            else t.detach().clone() if torch.is_tensor(t) else np.array(t)
             for t in _flat_tensors(leaves)]
+
+
+def _leaf_bytes(torch, t):
+    """The bytes of a state leaf (a gathered leaf's whole size)."""
+    if torch.is_tensor(t):
+        return t.numel() * t.element_size()
+    if hasattr(t, "gather"):
+        return math.prod(t.shape) * torch.empty(
+            (), dtype=t.dtype).element_size()
+    return np.asarray(t).nbytes
 
 
 def _state_diff(torch, a, b):
@@ -1336,13 +1374,12 @@ def _timed_save(torch, saver, step_no, leaves, meta):
     write and commit ms."""
     blocking = saver.save(step_no, leaves, meta=meta)
     saver.flush()
-    tensor_bytes = sum(t.numel() * t.element_size() if torch.is_tensor(t)
-                       else np.asarray(t).nbytes
-                       for t in _flat_tensors(leaves))
+    tensor_bytes = sum(_leaf_bytes(torch, t) for t in _flat_tensors(leaves))
     print(f"  save of step {step_no}: state {tensor_bytes / 1e6:.1f} MB in "
           f"tensors, shard file {saver.last_bytes / 1e6:.1f} MB; save() "
           f"blocked {1e3 * blocking:.1f} ms (pinned buffers made "
-          f"{1e3 * saver.last_pin_s:.1f} ms, device-to-host copy "
+          f"{1e3 * saver.last_pin_s:.1f} ms, gathers of cut leaves "
+          f"{1e3 * saver.last_gather_s:.1f} ms, device-to-host copy "
           f"{1e3 * saver.last_copy_s:.1f} ms), background write + commit "
           f"{1e3 * (saver.last_save_s - blocking):.1f} ms")
 
@@ -2389,17 +2426,118 @@ def phase_moe_layer(torch, dev, bench):
               f"{100 * whole.dropped.item():.2f}%")
     del whole, shards
     torch.cuda.empty_cache()
+    _moe_token_forms(torch, dev, bench, kw, x, g)
 
 
-def _lm_full(torch, dev, shard=None):
-    """Phase 5's LM: its config, weights (seed 0, cut to ``shard``) and
-    batch (seed 0, rank 0), without the optimizer."""
+def _moe_token_forms(torch, dev, bench, kw, x, g):
+    """12d, the tokens sharded over the expert axis: GShard's all-to-all
+    form (``moe.tokens_all_to_all``, each shard routing its own G/R
+    groups) against the gather form (``moe.tokens_gathered``), forward
+    and backward on the same layer shards. Both dispatch each slot one
+    token and feed the experts the same ``[G, E/R, C, d]``, so at top-1
+    the outputs and the gradients of w_in and w_out are bit for bit in
+    bf16 (the layer's dtype). The gate's gradient (R shards' partial sums
+    over their tokens against one sum over all of them), the input's and
+    the auxiliary terms (local means summed over the axis) change their
+    summation order: in bf16, where each shard's partial gate gradient
+    rounds to bf16, within ``_shard_bound``; in fp32 within
+    ``_fp32_order`` (M = R), and there the outputs and expert gradients
+    too (the gate's matmul takes another shape). Times of both forms in
+    bf16, and the bytes each moves a shard, from the shapes."""
+    from horovod_tpu_torch.models import moe as moe_lib
+    from horovod_tpu_torch.parallel import axis as axis_lib
+    T, d = x.shape
+    E, G, n = kw["num_experts"], kw["num_groups"], EXPERT_RANKS
+    t = T // G
+    C = moe_lib.capacity(t, E, kw["capacity_factor"])
+    print(f"  12d tokens sharded: the all-to-all form against the gather "
+          f"form over {n} expert shards (G {G}, C {C})")
+
+    def shards(dtype):
+        return [moe_lib.MoE(**dict(kw, dtype=dtype), expert_shard=(i, n),
+                            generator=torch.Generator().manual_seed(13))
+                for i in range(n)]
+
+    def run(form, mods):
+        for m in mods:
+            m.zero_grad(set_to_none=True)
+        xs = [c.to(mods[0].dtype).clone().requires_grad_()
+              for c in x.chunk(n)]
+        outs = form(mods, xs, axis_lib.LocalAxis(n))
+        torch.autograd.backward(
+            [(o.float() * gg.float()).sum() + moe_lib.aux_loss(m)
+             for o, gg, m in zip(outs, g.chunk(n), mods)])
+        return mods, xs, outs
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        (am, ax, ao), (bm, bx, bo) = (
+            run(moe_lib.tokens_all_to_all, shards(dtype)),
+            run(moe_lib.tokens_gathered, shards(dtype)))
+        same = {"output": torch.equal(torch.cat(ao), torch.cat(bo))}
+        for w in ("w_in", "w_out"):
+            same[f"grad {w}"] = all(torch.equal(a.get_parameter(w).grad,
+                                                b.get_parameter(w).grad)
+                                    for a, b in zip(am, bm))
+        print(f"    {name}: bit for bit: {same}")
+        if dtype == torch.bfloat16 and not all(same.values()):
+            raise AssertionError(f"12d {name}: the forms differ: {same}")
+
+        def held(label, pairs):
+            """The worst of the shards' ``(got, want)`` pairs."""
+            got = torch.stack([a.float().reshape(-1) for a, _ in pairs])
+            want = torch.stack([b.float().reshape(-1) for _, b in pairs])
+            if dtype == torch.float32:
+                worst = _fp32_order(label, got, want, n)
+                print(f"    {name} {label:<28} at {worst:.3f} of 2 R^2 "
+                      "2^-24 max|want|")
+            else:
+                _shard_bound(f"{name} {label}", got, want, n)
+
+        if dtype == torch.float32:
+            # the gate's fp32 matmul over G/R groups a shard against G in
+            # one call: cuBLAS picks its kernel by shape, so the logits,
+            # and the combine weights after them, may part in their last
+            # bits
+            held("output", [(torch.cat(ao), torch.cat(bo))])
+            for w in ("w_in", "w_out"):
+                held(f"grad {w}", [(a.get_parameter(w).grad,
+                                    b.get_parameter(w).grad)
+                                   for a, b in zip(am, bm)])
+        held("input gradient", [(torch.cat([v.grad for v in ax]),
+                                 torch.cat([v.grad for v in bx]))])
+        held("grad gate, every shard", [(a.gate.grad, b.gate.grad)
+                                        for a, b in zip(am, bm)])
+        for key in ("load_balance", "router_z"):
+            held(f"{key}, every shard", [(a.sown[key], b.sown[key])
+                                         for a, b in zip(am, bm)])
+        del am, ax, ao, bm, bx, bo
+        torch.cuda.empty_cache()
+    item = torch.empty((), dtype=kw["dtype"]).element_size()
+    a2a = 2 * (n - 1) / n * (G // n) * E * C * d * item
+    gathered = 2 * (n - 1) / n * T * d * item
+    print(f"  12d bytes a shard moves forward ({kw['dtype']}): all-to-all "
+          f"form 2 x (R-1)/R x [G/R, E, C, d] = {a2a / 1e6:.2f} MB; gather "
+          f"form (R-1)/R x T d gathered + as much reduce-scattered = "
+          f"{gathered / 1e6:.2f} MB ({gathered / a2a:.2f}x)")
+    mods = shards(torch.bfloat16)
+    for label, form in (("all-to-all", moe_lib.tokens_all_to_all),
+                        ("gather", moe_lib.tokens_gathered)):
+        ms = bench.cuda_time_ms(lambda: run(form, mods), iters=3)
+        print(f"  12d {label} form, bf16: forward + backward of the {n} "
+              f"shards {ms:.3f} ms")
+
+
+def _lm_full(torch, dev, shard=None, **moe):
+    """Phase 5's LM (12c's with ``MOE`` as ``moe``): its config, weights
+    (seed 0, cut to ``shard``) and batch (seed 0, rank 0), without the
+    optimizer."""
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
     cfg = TransformerConfig(vocab_size=LM["vocab"], num_layers=LM["layers"],
                             num_heads=LM["heads"], d_model=LM["d_model"],
                             d_ff=4 * LM["d_model"], dtype=torch.bfloat16,
-                            flash_attention=True)
+                            flash_attention=True, **moe)
     model = Transformer(cfg, generator=torch.Generator().manual_seed(0),
                         device=dev, shard=shard)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
@@ -2706,6 +2844,288 @@ def phase_pipeline_shards(fa, torch, dev, f1b_s2):
     return [n]
 
 
+def _tp_shards(torch, dev, ranks, moe=False, batch=None):
+    """Phase 5's LM (12c's MoE LM with ``moe``), its seed-0 weights cut
+    into ``ranks`` model shards (expert shards) held in this process,
+    each with phase 5's AdamW, and their step over a ``LocalAxis``
+    (``make_tp_lm_train_step_shards``); ``step()`` runs one step on
+    phase 5's batch (its first ``batch`` sequences) and returns the loss.
+    Returns ``(models, optimizers, step)``."""
+    from horovod_tpu_torch.models.transformer import Axes
+    from horovod_tpu_torch.parallel import axis as axis_lib
+    from horovod_tpu_torch.parallel import tensor
+    models = []
+    for i in range(ranks):
+        shard = (tensor.Shard(expert_axis="expert", expert_index=i,
+                              expert_size=ranks) if moe
+                 else tensor.Shard("model", i, ranks))
+        _, model, tokens = _lm_full(torch, dev, shard, **(MOE if moe else {}))
+        models.append(model)
+    tokens = tokens[:batch]
+    opts = [torch.optim.AdamW(m.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                              eps=1e-8, weight_decay=1e-4) for m in models]
+    one, local = axis_lib.single_axis(ranks), axis_lib.LocalAxis(ranks)
+    inner = tensor.make_tp_lm_train_step_shards(
+        models, opts, Axes(one, local, one) if moe else Axes(local, one, one))
+
+    def step():
+        return float(inner([tokens] * ranks)[0])
+
+    step.state = inner.state
+    return models, opts, step
+
+
+def _gathered_save(torch, saver, step_no, leaves):
+    """``_timed_save`` of a model-shard state, with the device's peak
+    above the state during ``save()``: one leaf at a time is gathered
+    whole (or, where its flax layout is a transposed view, made
+    contiguous for the copy to the host) and freed once that copy is
+    queued, so the peak holds one whole leaf, plus the shards'
+    flax-layout copies of it where a gather needs them (at most one
+    more): within twice the state's largest leaf."""
+    largest = max(_leaf_bytes(torch, t) for t in _flat_tensors(leaves))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _timed_save(torch, saver, step_no, leaves, None)
+    above = torch.cuda.max_memory_allocated() - before
+    print(f"  save's device peak above the state {above / 1e6:.1f} MB: "
+          f"{above / largest:.2f} of its largest leaf, whole "
+          f"({largest / 1e6:.1f} MB)")
+    if not above <= 2 * largest:
+        raise AssertionError(f"save's device peak {above} above the state, "
+                             f"beyond twice its largest leaf {largest}")
+
+
+def _resume_from(bench, root, step_no, build):
+    """A fresh state from ``build()`` (``(model, optimizer, step)``,
+    each a list of shards or not) restored from the newest checkpoint
+    under ``root``, timed (``_timed_restore``)."""
+    from horovod_tpu_torch import convert
+    holder = {}
+
+    def rebuild():
+        holder["run"] = build()
+        m, o, s = holder["run"]
+        return (lambda: convert.train_state_to_flat(m, o, s.state),
+                lambda flat: convert.train_state_from_flat(m, o, s.state,
+                                                           flat))
+
+    _timed_restore(bench, root, step_no, rebuild)
+    return holder.pop("run")
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _same(label, got, want):
+    """Losses bit for bit."""
+    print(f"  {label}: {[round(x, 6) for x in got]} against "
+          f"{[round(x, 6) for x in want]}")
+    if got != want:
+        raise AssertionError(f"{label}: {got} differ from {want}")
+
+
+def _loss_bound(torch, label, got, want, ranks):
+    """A resumed run whose shard layout changed: its loss within
+    ``_shard_bound`` of the unbroken run's."""
+    print(f"  {label}: {got!r} against {want!r} (difference "
+          f"{abs(got - want):.3e})")
+    return _shard_bound(label, torch.tensor([got]), torch.tensor([want]),
+                        ranks)
+
+
+def phase_tp_resume(fa, torch, dev, bench):
+    """14a: phase 5's LM, weights and batch, over ``TP_CKPT_RANKS`` model
+    shards held in this process, each with AdamW: 4 steps unbroken
+    against 2 steps, an ``AsyncCheckpointer`` save of the state (each cut
+    leaf gathered whole: the JAX package's tensor-parallel checkpoint), a
+    restore and 2 more steps. Restored at R = 2 the losses and every leaf
+    equal the unbroken run's bit for bit; restored at R = 1 (the plain
+    tensor-parallel step) and at R = 4 the next loss lies within
+    ``_shard_bound`` of the unbroken run's. K1-K3 launch once a layer,
+    shard and step. Returns the kernels' launches."""
+    import tempfile
+    from horovod_tpu_torch import ckpt, convert
+    R, layers = TP_CKPT_RANKS, LM["layers"]
+    print(f"== phase 14a: full-width LM over R = {R} model shards in one "
+          "process (AdamW), 4 steps unbroken against 2 + save of the "
+          f"gathered state + restore at R = {R}, 1, 4")
+
+    def build(ranks):
+        _free(torch)
+        return _tp_shards(torch, dev, ranks)
+
+    fa.reset_launches()  # count only this path's launches
+    models, opts, step = build(R)
+    unbroken = [step() for _ in range(4)]
+    want = _state_copy(torch, convert.train_state_to_flat(models, opts,
+                                                          step.state))
+    del models, opts, step
+    models, opts, step = build(R)
+    _same("14a first 2 steps against the unbroken run's",
+          [step() for _ in range(2)], unbroken[:2])
+    worst = 0.0
+    with tempfile.TemporaryDirectory() as root:
+        saver = ckpt.AsyncCheckpointer(root, keep=1)
+        _gathered_save(torch, saver, 2, convert.train_state_to_flat(
+            models, opts, step.state))
+        saver.close()
+        del models, opts, step, saver
+        for ranks in (R, 1, 4):
+            models, opts, step = _resume_from(bench, root, 2,
+                                              lambda: build(ranks))
+            if step.state.step != 2:
+                raise AssertionError(f"14a: restored step {step.state.step}")
+            if ranks == R:
+                _same(f"14a R={ranks} resumed steps 3, 4",
+                      [step() for _ in range(2)], unbroken[2:])
+                diff = _state_diff(torch, _state_copy(
+                    torch, convert.train_state_to_flat(models, opts,
+                                                       step.state)), want)
+                print(f"  14a R={ranks} state after 4 steps against the "
+                      f"unbroken run's: largest difference {diff}")
+                if diff != 0:
+                    raise AssertionError(f"14a: state differs by {diff}")
+            else:
+                worst = max(worst, _loss_bound(
+                    torch, f"14a R={ranks} resumed step 3", step(),
+                    unbroken[2], max(ranks, R)))
+            del models, opts, step
+    del want
+    _free(torch)
+    _want_launches(fa, "14a", layers * (4 * R + 2 * R + 2 * R + 1 + 4))
+    print(f"  14a: worst resumed loss at {worst:.3f} of its bound")
+    return dict(fa.LAUNCHES)
+
+
+def phase_ep_resume(fa, torch, dev, bench):
+    """14b: 12c's MoE LM state (``MOE``) saved whole and restored with its
+    experts cut ``EXPERT_RANKS`` ways in this process, and saved so (the
+    expert weights and their moments gathered) and restored whole: the
+    next step's loss bit for bit the run it resumes where the cut is the
+    same, within ``_shard_bound`` where it is not. On the first
+    ``EP_BATCH`` sequences of phase 5's batch: the 4 shards each hold the
+    dense part and its activations."""
+    import tempfile
+    from horovod_tpu_torch import ckpt, convert
+    R, layers = EXPERT_RANKS, LM["layers"]
+    print(f"== phase 14b: the MoE LM ({MOE}) on {EP_BATCH} x "
+          f"{LM['seq_len']} tokens: saved whole and restored cut {R} ways, "
+          "saved cut and restored whole")
+
+    def build(ranks):
+        _free(torch)
+        return _tp_shards(torch, dev, ranks, moe=True, batch=EP_BATCH)
+
+    def resume(root, step_no, ranks):
+        return _resume_from(bench, root, step_no, lambda: build(ranks))
+
+    fa.reset_launches()
+    models, opts, step = build(1)
+    unbroken = [step() for _ in range(3)]
+    del models, opts, step
+    models, opts, step = build(1)
+    _same("14b whole, first 2 steps", [step() for _ in range(2)],
+          unbroken[:2])
+    with tempfile.TemporaryDirectory() as root:
+        saver = ckpt.AsyncCheckpointer(root, keep=2)
+        _timed_save(torch, saver, 2, convert.train_state_to_flat(
+            models, opts, step.state), None)
+        del models, opts, step
+        models, opts, step = resume(root, 2, 1)
+        _same("14b whole -> whole, step 3", [step()], unbroken[2:])
+        del models, opts, step
+        models, opts, step = resume(root, 2, R)
+        c3 = step()
+        worst = _loss_bound(torch, f"14b whole -> {R} shards, step 3", c3,
+                            unbroken[2], R)
+        _gathered_save(torch, saver, 3, convert.train_state_to_flat(
+            models, opts, step.state))
+        saver.close()
+        c4 = step()
+        del models, opts, step, saver
+        models, opts, step = resume(root, 3, R)
+        _same(f"14b {R} shards -> {R} shards, step 4", [step()], [c4])
+        del models, opts, step
+        models, opts, step = resume(root, 3, 1)
+        worst = max(worst, _loss_bound(
+            torch, f"14b {R} shards -> whole, step 4", step(), c4, R))
+        del models, opts, step
+    _free(torch)
+    _want_launches(fa, "14b", layers * (3 + 2 + 1 + 1) + R * layers * 3)
+    print(f"  14b: worst resumed loss at {worst:.3f} of its bound")
+
+
+def phase_multi_steps_resume(hvd, fa, torch, dev, bench):
+    """14c: phase 5's LM, weights and batch, through
+    ``DistributedOptimizer(backward_passes_per_step=2)`` (optax's
+    ``MultiStepsState`` in the checkpoint), 4 mini-steps unbroken against
+    a save after mini-step 1 (inside a window) and after mini-step 2 (at
+    its boundary), each restored into a fresh model and optimizer and
+    run to mini-step 4: every loss and the final state bit for bit."""
+    import tempfile
+    from horovod_tpu_torch import ckpt, convert, training
+    print("== phase 14c: full-width LM through DistributedOptimizer("
+          "backward_passes_per_step=2), saved inside a window and at its "
+          "boundary")
+    hvd.init()
+
+    def build():
+        _free(torch)
+        _, model, tokens = _lm_full(torch, dev)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=3e-4,
+                              betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4),
+            named_parameters=convert.flax_named_parameters(model),
+            backward_passes_per_step=2)
+        inner = training.make_lm_train_step(model, opt)
+
+        def step():
+            return float(inner(tokens))
+
+        step.state = inner.state
+        return model, opt, step
+
+    fa.reset_launches()
+    model, opt, step = build()
+    unbroken = [step() for _ in range(4)]
+    want = _state_copy(torch, convert.train_state_to_flat(model, opt,
+                                                          step.state))
+    del model, opt, step
+    for mini in (1, 2):
+        model, opt, step = build()
+        _same(f"14c first {mini} mini-steps", [step() for _ in range(mini)],
+              unbroken[:mini])
+        with tempfile.TemporaryDirectory() as root:
+            saver = ckpt.AsyncCheckpointer(root, keep=1)
+            _timed_save(torch, saver, mini, convert.train_state_to_flat(
+                model, opt, step.state), None)
+            saver.close()
+            del model, opt, step, saver
+            model, opt, step = _resume_from(bench, root, mini, build)
+        print(f"  14c restored mini_step {opt._mini_step}, gradient_step "
+              f"{opt._gradient_step}")
+        _same(f"14c resumed after mini-step {mini}",
+              [step() for _ in range(mini, 4)], unbroken[mini:])
+        diff = _state_diff(torch, _state_copy(
+            torch, convert.train_state_to_flat(model, opt, step.state)),
+            want)
+        print(f"  14c state after 4 mini-steps against the unbroken run's: "
+              f"largest difference {diff}")
+        if diff != 0:
+            raise AssertionError(f"14c: state differs by {diff}")
+        del model, opt, step
+    del want
+    _free(torch)
+    _want_launches(fa, "14c", LM["layers"] * 12)
+    hvd.shutdown()
+
+
 def _launched_in(trace, ranges):
     """The correlation ids of the work launched on the host inside a
     profiler range named in ``ranges`` (``{range name: layer}``), or by
@@ -2893,11 +3313,18 @@ def main(argv=None):
     launches_13 += phase_pipeline_shards(fa, torch, dev, f1b_s2)
     del f1b_s2
     print(f"== phase 13 took {time.perf_counter() - t13:.1f} s")
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    launches_14 = [phase_tp_resume(fa, torch, dev, bench)]
+    phase_ep_resume(fa, torch, dev, bench)
+    phase_multi_steps_resume(hvd, fa, torch, dev, bench)
+    print(f"== phase 14 took {time.perf_counter() - t14:.1f} s")
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):
         wrapper, replaces, source, design = KERNELS[kind_]
-        main = [launches, launches_11b] + launches_12 + launches_13
+        main = [launches, launches_11b] + launches_12 + launches_13 + \
+            launches_14
         kernels.append(dict(name=wrapper, route="cuda", source=source,
                             replaces=replaces, design=design,
                             launches=sum(n[kind_] for n in main),

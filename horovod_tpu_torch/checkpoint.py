@@ -13,7 +13,10 @@ The file is flax's ``to_bytes`` of ``{"step", "params", "opt_state",
 trees as flax's ``to_state_dict`` writes them
 (``convert.train_state_trees``), so the JAX package's
 ``restore_checkpoint`` reads a file the port wrote, and the other way
-round. Here a model and its ``DistributedOptimizer`` are the state:
+round; a tensor- or expert-parallel state goes in whole and is cut again
+at each rank's coordinates on restore. Here a model and its
+``DistributedOptimizer`` (or a model shard and its plain optimizer) are
+the state:
 saving reads them and restoring writes into them, in place. The
 successor is ``ckpt`` (async per-rank shards, resharded restore).
 """
@@ -47,21 +50,28 @@ def _host_trees(model, optimizer):
 def save_checkpoint(directory, step, model, optimizer=None, meta=None,
                     keep=None):
     """Write ``ckpt-<step>.msgpack`` from rank 0 only; None elsewhere.
+    A tensor- or expert-parallel state is gathered whole first, on every
+    rank (``convert.gathers_across_ranks``: the gathers are collectives),
+    as the JAX package's file holds it.
 
     ``meta`` is a small JSON-able dict (e.g. epoch, seed). ``keep`` (int)
     prunes all but the newest N checkpoints after a successful write."""
+    if basics.rank() != 0 and not convert.gathers_across_ranks(model,
+                                                               optimizer):
+        return None
+    trees = _host_trees(model, optimizer)
     if basics.rank() != 0:
         return None
     return write_checkpoint(directory, step, model, optimizer=optimizer,
-                            meta=meta, keep=keep)
+                            meta=meta, keep=keep, trees=trees)
 
 
 def write_checkpoint(directory, step, model, optimizer=None, meta=None,
-                     keep=None):
+                     keep=None, trees=None):
     """Rank-agnostic checkpoint write (atomic tmp + rename); returns the
-    path."""
+    path. ``trees``: the host ``(params, opt_state)`` when already read."""
     os.makedirs(directory, exist_ok=True)
-    params, opt_state = _host_trees(model, optimizer)
+    params, opt_state = trees or _host_trees(model, optimizer)
     # meta rides as one JSON string leaf, as the JAX package writes it
     payload = {"step": np.asarray(step, dtype=np.int64), "params": params,
                "opt_state": opt_state, "meta": json.dumps(meta or {})}

@@ -11,9 +11,10 @@ by either package restores in the other:
   ``MANIFEST.json`` and retention.
 
 ``convert.train_state_to_flat`` and ``convert.train_state_from_flat``
-carry a model, its ``DistributedOptimizer`` and the step count to and
-from the JAX ``TrainState``'s flat leaf list, the tree these functions
-save and restore.
+carry a model, its ``DistributedOptimizer`` (or a model shard and its
+plain optimizer, the leaves it cuts as ``GatheredLeaf``s) and the step
+count to and from the JAX ``TrainState``'s flat leaf list, the tree
+these functions save and restore.
 """
 
 from horovod_tpu_torch.ckpt.manifest import (  # noqa: F401
@@ -25,6 +26,7 @@ from horovod_tpu_torch.ckpt.manifest import (  # noqa: F401
     retention_gc,
 )
 from horovod_tpu_torch.ckpt.sharded import (  # noqa: F401
+    GatheredLeaf,
     ShardValidationError,
     ZeroLeaf,
     restore_sharded,
@@ -40,6 +42,7 @@ from horovod_tpu_torch.ckpt.snapshot import (  # noqa: F401
 __all__ = [
     "AsyncCheckpointer", "snapshot_tree",
     "save_sharded", "restore_sharded", "ShardValidationError", "ZeroLeaf",
+    "GatheredLeaf",
     "shard_path", "step_dir",
     "MANIFEST_NAME", "read_manifest", "is_complete",
     "list_complete_steps", "latest_complete_step", "retention_gc",

@@ -3,9 +3,13 @@
 
 **The tree.** A state is a tree of dicts (keys sorted, as JAX flattens
 them), lists and tuples whose leaves are arrays (numpy or torch, any
-device), numpy scalars and ``ZeroLeaf``s: ``convert.train_state_to_flat``
-gives the JAX ``TrainState``'s flat leaf list in this form, a
-``ZeroLeaf`` standing where JAX flattens a ``ZeroState`` as one leaf.
+device), numpy scalars, ``ZeroLeaf``s and ``GatheredLeaf``s:
+``convert.train_state_to_flat`` gives the JAX ``TrainState``'s flat leaf
+list in this form, a ``ZeroLeaf`` standing where JAX flattens a
+``ZeroState`` as one leaf, a ``GatheredLeaf`` for a leaf that a tensor-
+or expert-parallel state holds cut over ranks and the JAX package writes
+whole (its ``_host`` is ``device_get`` of the global array): a gathered
+leaf is a replicated leaf.
 
 **What a shard holds.** Replicated leaf ``i`` lives in shard
 ``i % world``. Inside each ``ZeroLeaf`` the ``[world, shard]`` bucket
@@ -83,6 +87,27 @@ class ZeroLeaf:
                 f"world={self.schedule.world}, rank={self.rank})")
 
 
+class GatheredLeaf:
+    """A leaf that a tensor- or expert-parallel state holds cut over the
+    model or expert axes, saved whole as the JAX package writes it
+    (``convert._shard_tree``): ``gather()`` returns the whole leaf on the
+    device; ``shape``, ``dtype`` and ``device`` are the whole leaf's.
+    With ``collective`` the gather runs over process groups, so every
+    rank of the save calls it, in leaf order, whether it writes the leaf
+    or not. A save gathers one leaf at a time and copies it to the host
+    before it gathers the next, so the device holds at most one whole
+    leaf beyond the state."""
+
+    def __init__(self, gather, shape, dtype, device, collective=False):
+        self.gather = gather
+        self.shape, self.dtype, self.device = tuple(shape), dtype, device
+        self.collective = collective
+
+    def __repr__(self):
+        return (f"GatheredLeaf(shape={self.shape}, dtype={self.dtype}, "
+                f"collective={self.collective})")
+
+
 def tree_flatten(tree):
     """The leaves of ``tree`` in JAX's order (dict keys sorted)."""
     if isinstance(tree, dict):
@@ -117,34 +142,70 @@ class Staging:
     place has the same shape, dtype and device kind. Pinning host
     memory is most of a first save's stall; a reused buffer is only
     copied into. A save's payload is views of these buffers, so a
-    staging set serves one save in flight at a time. ``pin_s`` and
-    ``copy_s`` are the latest save's seconds making buffers and copying
-    into them (the device-to-host copy and the wait for it)."""
+    staging set serves one save in flight at a time. ``pin_s``,
+    ``gather_s`` and ``copy_s`` are the latest save's seconds making
+    buffers, gathering ``GatheredLeaf``s (the card's time between events
+    around each gather; the host's on the CPU) and copying into the
+    buffers (the device-to-host copy and the wait for it)."""
 
     def __init__(self):
         self.buffers = []  # per leaf: ((shape, dtype, on card), tensor)
-        self.pin_s = self.copy_s = 0.0
+        self.pin_s = self.gather_s = self.copy_s = 0.0
+
+
+class _GatherOnly:
+    """A collective ``GatheredLeaf`` that another rank writes: this rank
+    joins its gather and keeps nothing."""
+
+    def __init__(self, leaf):
+        self.leaf = leaf
+
+
+def _gather(x, gathers):
+    """``x.gather()``, timed: the card's events around it appended to
+    ``gathers``, or the host's seconds."""
+    if x.device.type == "cuda":
+        marks = (torch.cuda.Event(enable_timing=True),
+                 torch.cuda.Event(enable_timing=True))
+        marks[0].record()
+        out = x.gather()
+        marks[1].record()
+        gathers.append(marks)
+        return out, 0.0
+    t0 = time.perf_counter()
+    out = x.gather()
+    return out, time.perf_counter() - t0
 
 
 def _to_host(leaves, staging=None):
     """Host numpy copies of ``leaves`` that share no memory with them:
     each tensor copied into its buffer of ``staging`` (fresh buffers
     when None), the card's tensors into pinned buffers with one event
-    waited for at the end; other leaves copied by numpy."""
+    waited for at the end; other leaves copied by numpy. A
+    ``GatheredLeaf`` is gathered here, in order, each before the next; a
+    ``_GatherOnly`` is gathered and gives None."""
     staging = Staging() if staging is None else staging
     t0 = time.perf_counter()
     bufs = staging.buffers
     bufs[len(leaves):] = []
     bufs += [None] * (len(leaves) - len(bufs))
     for j, x in enumerate(leaves):
-        if torch.is_tensor(x):
-            key = (tuple(x.shape), x.dtype, x.is_cuda)
+        if torch.is_tensor(x) or isinstance(x, GatheredLeaf):
+            cuda = x.device.type == "cuda"
+            key = (tuple(x.shape), x.dtype, cuda)
             if bufs[j] is None or bufs[j][0] != key:
                 bufs[j] = (key, torch.empty(x.shape, dtype=x.dtype,
-                                            pin_memory=x.is_cuda))
+                                            pin_memory=cuda))
     t1 = time.perf_counter()
-    out, event = [], None
+    out, event, gathers, gather_s = [], None, [], 0.0
     for x, slot in zip(leaves, bufs):
+        if isinstance(x, _GatherOnly):
+            gather_s += _gather(x.leaf, gathers)[1]
+            out.append(None)
+            continue
+        if isinstance(x, GatheredLeaf):
+            x, seconds = _gather(x, gathers)
+            gather_s += seconds
         if torch.is_tensor(x):
             host = slot[1]
             host.copy_(x.detach(), non_blocking=x.is_cuda)
@@ -156,7 +217,11 @@ def _to_host(leaves, staging=None):
     if event is not None:
         event.record()
         event.synchronize()
-    staging.pin_s, staging.copy_s = t1 - t0, time.perf_counter() - t1
+    for a, b in gathers:
+        b.synchronize()
+        gather_s += a.elapsed_time(b) / 1e3
+    staging.pin_s, staging.gather_s = t1 - t0, gather_s
+    staging.copy_s = time.perf_counter() - t1 - gather_s
     return out
 
 
@@ -215,9 +280,13 @@ def snapshot_payload(tree, rank, world, staging=None):
             z += 1
         elif i % world == rank:
             picked.append((("repl", str(i)), leaf))
+        elif isinstance(leaf, GatheredLeaf) and leaf.collective:
+            picked.append((None, _GatherOnly(leaf)))
     host = _to_host([v for _, v in picked], staging)
     repl, zeros = {}, {str(k): {"rows": {}, "repl": {}} for k in range(z)}
     for (where, _), arr in zip(picked, host):
+        if where is None:
+            continue
         if where[0] == "repl":
             repl[where[1]] = arr
         elif where[0] == "zrepl":

@@ -17,9 +17,10 @@ commit barrier is the shared filesystem's ``.ok`` markers.
 
 The JAX package's telemetry counters and flight-recorder events of a
 save are not ported (they come with the telemetry plane);
-``last_blocking_s`` (of which ``last_pin_s`` made buffers and
-``last_copy_s`` copied into them), ``last_save_s`` and ``last_bytes``
-record the latest save's times and size instead.
+``last_blocking_s`` (of which ``last_pin_s`` made buffers,
+``last_gather_s`` gathered a tensor- or expert-parallel state's cut leaves
+and ``last_copy_s`` copied into the buffers), ``last_save_s`` and
+``last_bytes`` record the latest save's times and size instead.
 """
 
 import atexit
@@ -82,6 +83,7 @@ class AsyncCheckpointer:
         self.last_manifest = None
         self.last_blocking_s = None  # the training thread's stall
         self.last_pin_s = None       # of it: making host buffers
+        self.last_gather_s = None    # of it: gathering cut leaves
         self.last_copy_s = None      # of it: copying into them
         self.last_save_s = None      # save() entry to commit
         self.last_bytes = None       # this rank's shard
@@ -117,6 +119,7 @@ class AsyncCheckpointer:
         blocking = time.perf_counter() - t0
         self.last_blocking_s = blocking
         self.last_pin_s, self.last_copy_s = staging.pin_s, staging.copy_s
+        self.last_gather_s = staging.gather_s
         self._ensure_thread()
         self._queue.put((int(step), payload, zero_info, meta, t0, staging))
         if block:

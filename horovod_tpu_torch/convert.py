@@ -52,7 +52,20 @@ the step count) to and from the flat leaf list that
 ``TrainState(params, opt_state, batch_stats, step)`` with a
 ``DistributedOptimizer`` over ``optax.adamw`` or ``optax.sgd``, ZeRO-1's
 ``ZeroState`` a leaf of its own (``ckpt.ZeroLeaf``), in flax layout: the
-list a checkpoint stores leaf by leaf (``ckpt/sharded.py``).
+list a checkpoint stores leaf by leaf (``ckpt/sharded.py``). The same
+calls carry ``backward_passes_per_step > 1`` as ``optax.MultiSteps``
+state, and a tensor- or expert-parallel state, its leaves gathered whole
+as the JAX package writes them, cut again at this rank's coordinates on
+restore.
+
+``backward_passes_per_step``'s accumulator is each rank's own running
+mean of its gradients, in the JAX package as here. A checkpoint holds one
+copy of each leaf, written by the rank that owns it (leaf ``i`` of the
+flat state by rank ``i % world``, as the JAX package's multi-process save
+writes it; a single JAX process driving several devices writes its first
+device's copy). A restore gives every rank that copy: a resume at a
+window's boundary (``mini_step`` 0, the accumulator zero) is exact at any
+world, a resume inside a window exact at world 1.
 """
 
 import warnings
@@ -299,25 +312,45 @@ def shard_flax(params, specs, coords, path=""):
     return x
 
 
+def _cat(parts, dim):
+    if torch.is_tensor(parts[0]):
+        return torch.cat(parts, dim=dim)
+    return np.concatenate([np.asarray(p) for p in parts], axis=dim)
+
+
+def _unshard_leaf(parts, dims, coords):
+    """The whole leaf from ``parts`` (``parts[i]`` at ``coords[i]``), cut
+    along each ``(dim, axis)`` of ``dims``: the blocks along the first dim
+    are concatenated in index order among the parts that share their
+    coordinates on the other axes, and so on down the dims, the inverse
+    of ``shard_flax``'s cuts. A part at coordinates seen before (a replica
+    over an axis the leaf is not cut over) is skipped."""
+    if not dims:
+        return parts[0]
+    (k, axis), rest = dims[0], dims[1:]
+    size = coords[0][axis][1]
+    groups = {}
+    for x, c in zip(parts, coords):
+        key = tuple(c[a] for _, a in rest)
+        groups.setdefault(key, {}).setdefault(c[axis][0], x)
+    merged, where = [], []
+    for key, by_index in groups.items():
+        merged.append(_cat([by_index[i] for i in range(size)], k))
+        where.append({a: coord for (_, a), coord in zip(rest, key)})
+    return _unshard_leaf(merged, rest, where)
+
+
 def unshard_flax(shards, specs, coords):
     """The whole flax tree from the shards of every rank (``shards[i]``
-    at ``coords[i]``): each leaf concatenated along the dim its spec
-    shards, in index order (one sharded dim a leaf, as the rules give)."""
+    at ``coords[i]``): each leaf concatenated along each dim its spec
+    shards, in index order, the inverse of ``shard_flax`` (numpy arrays,
+    or torch tensors)."""
     first = shards[0]
     if isinstance(first, dict):
         return {k: unshard_flax([s[k] for s in shards], specs[k], coords)
                 for k in first}
     dims = [(k, axis) for k, axis in enumerate(specs) if axis is not None]
-    if not dims:
-        return first
-    if len(dims) > 1:
-        raise NotImplementedError(f"a leaf sharded over {specs}")
-    k, axis = dims[0]
-    by_index = {}
-    for x, c in zip(shards, coords):
-        by_index.setdefault(c[axis][0], x)
-    return np.concatenate([np.asarray(by_index[i])
-                           for i in range(coords[0][axis][1])], axis=k)
+    return _unshard_leaf(shards, dims, coords)
 
 
 def _torch_dim(layout, k):
@@ -558,17 +591,198 @@ def _optax_state(inner, params, layouts, spec, tree):
     return (_Named(("trace", trace)), empty)
 
 
-def _hvd_optimizer(optimizer):
+def _is_hvd_optimizer(optimizer):
     from horovod_tpu_torch.hvd_torch import DistributedOptimizer
-    if not isinstance(optimizer, DistributedOptimizer):
+    return isinstance(optimizer, DistributedOptimizer)
+
+
+def _hvd_optimizer(optimizer):
+    if not _is_hvd_optimizer(optimizer):
         raise TypeError("the train state's optimizer is a "
                         "DistributedOptimizer (the JAX TrainState holds "
-                        "its chained state)")
-    if optimizer.backward_passes_per_step > 1:
-        raise NotImplementedError(
-            "backward_passes_per_step > 1 is optax.MultiSteps state in "
-            "the JAX package, which the checkpoint does not map")
+                        "its chained state), or a plain torch.optim.AdamW "
+                        "or SGD of a model shard from "
+                        "parallel.tensor.shard_lm_state")
     return optimizer
+
+
+def _int_slot(obj, attr):
+    """An int attribute of ``obj`` (0 where it has none) as an int32
+    scalar leaf."""
+    return _Slot(lambda: np.asarray(getattr(obj, attr, 0), np.int32),
+                 lambda arr: setattr(obj, attr, int(np.asarray(arr))))
+
+
+def _acc_slot(optimizer, j, layout, spec):
+    """Parameter ``j``'s running mean of ``backward_passes_per_step``'s
+    gradients (``optimizer._acc``) in flax layout: zeros where no window
+    is open, as optax's ``acc_grads`` are after an update."""
+    p = optimizer.params[j]
+
+    def get():
+        acc = optimizer._acc
+        v = torch.zeros_like(p) if acc is None else acc[j]
+        return _to_flax(v.detach(), layout, spec)
+
+    def set(arr):
+        if optimizer._acc is None:
+            optimizer._acc = [torch.zeros_like(q) for q in optimizer.params]
+        _load(optimizer._acc[j], arr, layout)
+
+    return _Slot(get, set)
+
+
+def _multi_steps(optimizer, inner, layouts, spec, tree):
+    """``optax.MultiSteps``'s ``MultiStepsState(mini_step, gradient_step,
+    inner_opt_state, acc_grads, skip_state)`` of a
+    ``DistributedOptimizer(backward_passes_per_step=k)``: ``inner`` the
+    chained state, the accumulator in flax layout, no skip state (optax's
+    default ``should_skip_update_fn`` keeps none)."""
+    acc = tree([_acc_slot(optimizer, j, lay, spec)
+                for j, lay in enumerate(layouts)])
+    return _Named(("mini_step", _int_slot(optimizer, "_mini_step")),
+                  ("gradient_step", _int_slot(optimizer, "_gradient_step")),
+                  ("inner_opt_state", inner), ("acc_grads", acc),
+                  ("skip_state", ()))
+
+
+def _is_model_shard(model, optimizer):
+    """A tensor- or expert-parallel state: a list of model shards held in
+    one process, or one model shard (``parallel.tensor.shard_lm_state``)
+    with the plain optimizer ``make_tp_lm_train_step`` takes."""
+    if isinstance(model, (list, tuple)):
+        return True
+    return getattr(model, "shard", None) is not None and \
+        not _is_hvd_optimizer(optimizer)
+
+
+def _model_leaves(model):
+    """``(params, layouts, tree, p_tree)``: ``model``'s parameters and
+    their layouts in flax order, ``tree(slots)`` nesting one slot a
+    parameter by its flax path, and the parameters' own slots so
+    nested."""
+    table = sorted(_table(model))
+    params = [model.get_parameter(name) for _, name, _ in table]
+    layouts = [layout for _, _, layout in table]
+    paths = [path for path, _, _ in table]
+
+    def tree(slots):
+        return _nest(list(zip(paths, slots)))
+
+    def param_slot(p, layout):
+        return _Slot(lambda: _to_flax(p.detach(), layout, model),
+                     lambda arr: _load(p, arr, layout))
+
+    p_tree = tree([param_slot(p, lay) for p, lay in zip(params, layouts)])
+    return params, layouts, tree, p_tree
+
+
+def _model_tree(model, inner):
+    """``(params, opt_state)`` of one model as trees of ``_Slot``s, the
+    opt state the bare optax state of the plain optimizer ``inner`` (None:
+    ``{}``), as the JAX tensor-parallel ``TrainState`` holds
+    ``tx.init(params)``."""
+    params, layouts, tree, p_tree = _model_leaves(model)
+    opt = {} if inner is None else _optax_state(inner, params, layouts,
+                                                model, tree)
+    return p_tree, opt
+
+
+def _zip_slots(nodes, combine, keys=()):
+    """The trees ``nodes`` (one a shard, the same structure) as one tree:
+    each leaf ``combine(the shards' slots, its dict keys)``."""
+    first = nodes[0]
+    if isinstance(first, dict):
+        return {k: _zip_slots([n[k] for n in nodes], combine, keys + (k,))
+                for k in first}
+    if isinstance(first, tuple):
+        return tuple(_zip_slots([n[i] for n in nodes], combine, keys)
+                     for i in range(len(first)))
+    if isinstance(first, _Named):
+        return _Named(*[(name, _zip_slots([n.fields[i][1] for n in nodes],
+                                          combine, keys))
+                        for i, (name, _) in enumerate(first.fields)])
+    return combine(nodes, keys)
+
+
+def _shard_tree(model, optimizer):
+    """``(params, opt_state)`` of a tensor- or expert-parallel state as
+    the JAX ``TrainState`` of ``parallel/tensor.py``'s ``shard_lm_state``
+    holds it: every leaf whole, in flax layout. ``model`` is one shard
+    (its axes groups of the installed mesh) or a list of shards held in
+    this process, ``optimizer`` its plain optimizer or a list of them.
+
+    A leaf that a spec of ``transformer_param_specs`` cuts (a moment its
+    parameter's) reads as a ``ckpt.GatheredLeaf``: its ``gather()``
+    concatenates the shards over the model and expert axes, over the
+    axes' process groups (``GroupAxis.all_gather``, a collective) or, for
+    shards held here, with ``unshard_flax``'s concatenation. Setting a
+    leaf cuts the whole array at each shard's coordinates, as
+    ``shard_flax`` does, so any (data, model, expert) shape reads what
+    any other wrote."""
+    from horovod_tpu_torch.ckpt import GatheredLeaf
+    from horovod_tpu_torch.parallel import axis as axis_lib
+    from horovod_tpu_torch.parallel import tensor
+    local = isinstance(model, (list, tuple))
+    models = list(model) if local else [model]
+    if optimizer is None:
+        optimizers = [None] * len(models)
+    else:
+        optimizers = list(optimizer) if local else [optimizer]
+    shards = [m.shard or tensor.Shard() for m in models]
+    s0 = shards[0]
+    specs = tensor.transformer_param_specs(models[0], s0.model_axis,
+                                           s0.expert_axis)
+    coords = [s.coords() for s in shards]
+    sizes = {axis: n for axis, (_, n) in coords[0].items()}
+    trees = [_model_tree(m, o) for m, o in zip(models, optimizers)]
+
+    def combine(slots, keys):
+        spec = _leaf(specs, keys) if keys else ()
+        dims = [(k, axis) for k, axis in enumerate(spec)
+                if axis is not None and sizes.get(axis, 1) > 1]
+
+        def set(arr):
+            for slot, c in zip(slots, coords):
+                x = arr
+                for k, axis in dims:
+                    x = _block(x, k, c[axis])
+                slot.set(x)
+
+        if not dims:
+            return _Slot(slots[0].get, set)
+
+        def gather():
+            if local:
+                return _unshard_leaf([s.get() for s in slots], dims, coords)
+            x = slots[0].get()
+            for k, axis in dims:
+                x = axis_lib.GroupAxis(axis).all_gather([x], dim=k)[0]
+            return x
+
+        def get():
+            x = slots[0].get()
+            shape = list(x.shape)
+            for k, axis in dims:
+                shape[k] *= sizes[axis]
+            return GatheredLeaf(gather, tuple(shape), x.dtype, x.device,
+                                collective=not local)
+
+        return _Slot(get, set)
+
+    p_tree = _zip_slots([t[0] for t in trees], combine)
+    opt = _zip_slots([t[1] for t in trees], combine)
+    return p_tree, opt
+
+
+def gathers_across_ranks(model, optimizer=None):
+    """True where reading the train state of ``model`` and ``optimizer``
+    runs collectives that every rank must join: a model shard whose
+    model or expert axis spans ranks of the installed mesh."""
+    if not _is_model_shard(model, optimizer) or \
+            isinstance(model, (list, tuple)):
+        return False
+    return any(n > 1 for _, n in model.shard.coords().values())
 
 
 class _ZeroSlots:
@@ -628,10 +842,10 @@ class _ZeroSlots:
 def _train_state_tree(model, optimizer, step_state):
     """The JAX ``TrainState``'s four children as trees of ``_Slot``s (a
     ``ZeroLeaf`` for ZeRO-1's state)."""
-    table = sorted(_table(model))
-    params = [model.get_parameter(name) for _, name, _ in table]
-    layouts = [layout for _, _, layout in table]
-    paths = [path for path, _, _ in table]
+    step = _int_slot(step_state, "step")
+    if _is_model_shard(model, optimizer):
+        return (*_shard_tree(model, optimizer), {}, step)
+    params, layouts, tree, p_tree = _model_leaves(model)
     if optimizer is not None:
         optimizer = _hvd_optimizer(optimizer)
     if optimizer is not None and \
@@ -639,15 +853,6 @@ def _train_state_tree(model, optimizer, step_state):
         raise ValueError("the optimizer must pack the model's parameters "
                          "in flax order: DistributedOptimizer(named_"
                          "parameters=convert.flax_named_parameters(model))")
-
-    def param_slot(p, layout):
-        return _Slot(lambda: _to_flax(p.detach(), layout, model),
-                     lambda arr: _load(p, arr, layout))
-
-    def tree(slots):
-        return _nest(list(zip(paths, slots)))
-
-    p_tree = tree([param_slot(p, lay) for p, lay in zip(params, layouts)])
     if optimizer is None:
         opt = {}
     elif optimizer.zero_state is not None:
@@ -655,6 +860,8 @@ def _train_state_tree(model, optimizer, step_state):
     else:
         opt = (_Named(), _optax_state(optimizer.optimizer, params, layouts,
                                       model, tree))
+        if optimizer.backward_passes_per_step > 1:
+            opt = _multi_steps(optimizer, opt, layouts, model, tree)
     stats = {}
     if isinstance(model, ResNet):
         def stat_slot(buf):
@@ -662,12 +869,6 @@ def _train_state_tree(model, optimizer, step_state):
                          lambda arr: _load(buf, arr, "same"))
         stats = _nest([(path, stat_slot(model.get_buffer(name)))
                        for path, name in _stats_table(model)])
-
-    def step_set(arr):
-        step_state.step = int(np.asarray(arr))
-
-    step = _Slot(lambda: np.asarray(getattr(step_state, "step", 0),
-                                    np.int32), step_set)
     return p_tree, opt, stats, step
 
 
@@ -694,10 +895,18 @@ def train_state_to_flat(model, optimizer, step_state):
     ``DistributedOptimizer`` over ``torch.optim.AdamW`` or ``SGD``:
     ``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState(),
     EmptyState()))`` or ``(EmptyState(), (TraceState(trace),
-    EmptyState()))``; under ZeRO-1 one ``ckpt.ZeroLeaf``), a ResNet's
-    BatchNorm statistics and ``step_state.step`` as an int32 scalar.
-    Tensors come back as live views (the checkpoint's snapshot copies
-    them); counts as numpy int32 scalars."""
+    EmptyState()))``; under ZeRO-1 one ``ckpt.ZeroLeaf``; with
+    ``backward_passes_per_step > 1`` that chain inside optax's
+    ``MultiStepsState``), a ResNet's BatchNorm statistics and
+    ``step_state.step`` as an int32 scalar. A tensor- or expert-parallel
+    state (``model`` a shard from ``parallel.tensor.shard_lm_state`` with
+    its plain AdamW or SGD, or lists of the shards held in this process
+    and their optimizers, as ``make_tp_lm_train_step_shards`` takes them)
+    is the JAX tensor-parallel ``TrainState(params, tx.init(params), {},
+    step)`` with every leaf whole: a cut leaf comes back as a
+    ``ckpt.GatheredLeaf`` (``_shard_tree``). Tensors come back as live
+    views (the checkpoint's snapshot copies them); counts as numpy int32
+    scalars."""
     leaves = []
     for _, slot in _flat_slots(model, optimizer, step_state):
         if isinstance(slot, _Slot):

@@ -55,7 +55,10 @@ class DistributedOptimizer(torch.optim.Optimizer):
     * ``backward_passes_per_step=k`` keeps a running mean of the
       gradients over k ``step()`` calls (``optax.MultiSteps``'s
       ``acc + (g - acc) / (n + 1)``) and exchanges and steps on every
-      k-th; the other calls leave the parameters as they are.
+      k-th; the other calls leave the parameters as they are. The
+      checkpoint carries it as ``optax.MultiStepsState`` (``convert.py``:
+      each rank's accumulator is its own mean, and a save keeps the copy
+      of the rank that writes each leaf).
     * ``axes`` are the mesh axes the gradients are reduced over
       (``ops/collective.py``): None, the default, is the whole mesh (the
       JAX package defaults to the data axes, the same on a 1-D mesh and
@@ -150,7 +153,9 @@ class DistributedOptimizer(torch.optim.Optimizer):
                 params, op=op, threshold_bytes=threshold_bytes,
                 perms=perms, axes=axes,
                 hierarchical=self.hierarchical_resolved()))
-        self._acc, self._mini_step = None, 0
+        # backward_passes_per_step's running mean and counters, optax
+        # MultiStepsState's acc_grads, mini_step and gradient_step
+        self._acc, self._mini_step, self._gradient_step = None, 0, 0
 
     # the torch.optim.Optimizer surface is the inner optimizer's
     @property
@@ -277,6 +282,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
         for p, acc in zip(self.params, self._acc):
             p.grad = acc
         self._acc, self._mini_step = None, 0
+        self._gradient_step += 1
         return True
 
     def step(self, closure=None):

@@ -35,9 +35,13 @@ Two token layouts: ``make_tp_lm_train_step``'s, tokens replicated over
 the expert axis and sharded over a data axis (groups held whole on a data
 rank route there, with the auxiliary statistics summed over the data
 axis; otherwise the tokens are gathered over it); and the JAX layer
-tests', tokens sharded over the expert axis itself (``tokens_sharded``),
-gathered over it (``gather_to``), routed, and the result reduce-scattered
-(``reduce_scatter_to``).
+tests', tokens sharded over the expert axis itself (``tokens_sharded``).
+There, where the axis divides the groups, GShard's layout
+(``tokens_all_to_all``): each shard routes its own groups and two
+all-to-alls carry the dispatched tokens to their experts and back;
+otherwise the long way (``tokens_gathered``): the tokens gathered over
+the axis (``gather_to``), routed on every shard, and the result
+reduce-scattered (``reduce_scatter_to``).
 
 Flax's ``sow`` of the two fp32 auxiliary terms becomes the attribute
 ``MoE.sown`` (``{"load_balance": ..., "router_z": ...}``), written by each
@@ -62,6 +66,7 @@ from horovod_tpu_torch.models.transformer import lecun_normal_
 from horovod_tpu_torch.parallel import axis as axis_lib
 
 _GROUP_FALLBACKS = set()  # (T, num_groups) pairs already logged
+_A2A_FALLBACKS = set()  # (G, axis size) pairs already logged
 # the profiler ranges of the dispatch and combine (the one-hot tensors
 # and their two einsums) and of the experts' FFN, forward
 DISPATCH_RANGE = "horovod_tpu_torch.moe_dispatch"
@@ -154,14 +159,16 @@ class MoE(nn.Module):
                           tokens_sharded=self.tokens_sharded)[0]
 
 
-def _route(moe, x, G):
+def _route(moe, x, G, gate=None):
     """One shard's routing of ``x [T, d]`` in ``G`` groups, the JAX
     layer's arithmetic: ``(probs, logits, first-choice one-hot, [queue
-    position of each choice], combine weights [K, G, t])``."""
+    position of each choice], combine weights [K, G, t])``. ``gate``: the
+    gate weight to route with (``moe.gate`` by default)."""
     E, K = moe.num_experts, moe.top_k
     T, d = x.shape
     xg = x.reshape(G, T // G, d)
-    logits = (xg @ moe.gate.to(x.dtype)).float()             # [G, t, E]
+    gate = moe.gate if gate is None else gate
+    logits = (xg @ gate.to(x.dtype)).float()                 # [G, t, E]
     probs = torch.softmax(logits, dim=-1)
     remaining, ohs, raw_w = probs, [], []
     for _ in range(K):  # k-th choices by iterated masked argmax
@@ -192,26 +199,158 @@ def moe_shards(moes, xs, eaxis, baxis, tokens_sharded=False):
     over besides (an axis of one where they are not). Returns each
     shard's output and writes each layer's ``sown`` terms.
 
-    ``tokens_sharded``: the tokens are sharded over ``eaxis`` itself;
-    they are gathered over it, routed, and the outputs reduce-scattered
-    back. Otherwise they are replicated over ``eaxis``: the groups of
-    the global ``T_local * baxis.n`` tokens run on the data rank that
-    holds them whole, or, where a group straddles data ranks, the tokens
-    are gathered over ``baxis`` (its backward the sum over the ranks) and
+    ``tokens_sharded``: the tokens are sharded over ``eaxis`` itself.
+    Where the axis divides the groups, ``tokens_all_to_all`` (GShard's
+    layout); otherwise ``tokens_gathered``, logged once. Otherwise the
+    tokens are replicated over ``eaxis``: the groups of the global
+    ``T_local * baxis.n`` tokens run on the data rank that holds them
+    whole, or, where a group straddles data ranks, the tokens are
+    gathered over ``baxis`` (its backward the sum over the ranks) and
     each rank keeps its rows of the output."""
-    single = axis_lib.single_axis(len(xs))
     if tokens_sharded:
-        full = eaxis.gather_to(xs)
-        G = effective_groups(full[0].shape[0], moes[0].num_groups)
-        return _core(moes, full, eaxis, single, G, eaxis.reduce_scatter_to)
+        G = effective_groups(xs[0].shape[0] * eaxis.n, moes[0].num_groups)
+        if G % eaxis.n == 0:
+            return tokens_all_to_all(moes, xs, eaxis)
+        key = (G, eaxis.n)
+        if key not in _A2A_FALLBACKS:
+            _A2A_FALLBACKS.add(key)
+            logging.getLogger("horovod_tpu_torch").info(
+                "MoE all-to-all dispatch: G=%d groups do not divide over "
+                "the expert axis of %d; gathering the tokens instead", G,
+                eaxis.n)
+        return tokens_gathered(moes, xs, eaxis)
     T_local = xs[0].shape[0]
     G = effective_groups(T_local * baxis.n, moes[0].num_groups)
     if G % baxis.n == 0:
         return _core(moes, xs, eaxis, baxis, G // baxis.n, eaxis.reduce_from)
+    single = axis_lib.single_axis(len(xs))
     outs = _core(moes, baxis.all_gather(xs), eaxis, single, G,
                  eaxis.reduce_from)
     return [o.narrow(0, i * T_local, T_local)
             for o, i in zip(outs, baxis.indices)]
+
+
+def tokens_gathered(moes, xs, eaxis):
+    """The layer with its tokens sharded over ``eaxis``, the long way:
+    every shard gathers all ``T`` tokens over the axis (``gather_to``),
+    routes all ``G`` groups, runs its experts on them, and the outputs
+    are reduce-scattered back (``reduce_scatter_to``): each rank moves
+    ``(R - 1) / R`` of ``T d`` elements in the gather and as many in the
+    reduce-scatter, and routes ``R`` times the groups it needs."""
+    full = eaxis.gather_to(xs)
+    G = effective_groups(full[0].shape[0], moes[0].num_groups)
+    return _core(moes, full, eaxis, axis_lib.single_axis(len(xs)), G,
+                 eaxis.reduce_scatter_to)
+
+
+def tokens_all_to_all(moes, xs, eaxis):
+    """The layer with its tokens sharded over ``eaxis`` in GShard's
+    layout (the two all-to-alls that GSPMD places for the JAX layer's
+    sharding constraints on ``expert_in`` and ``out_e``): each of the
+    ``R`` shards routes its own ``G / R`` groups (``R`` must divide the
+    effective ``G``; the groups are blocks of the global token order, so
+    shard ``i`` holds groups ``[i G/R, (i+1) G/R)``), builds ``expert_in
+    [G/R, E, C, d]``, sends expert block ``j`` to shard ``j``
+    (``all_to_all`` split on E, concatenated on G: ``[G, E/R, C, d]``),
+    runs its experts, sends group block ``j`` of their output back, and
+    combines locally. Routing, capacity and the queues are per group, so
+    this is the gather form's arithmetic: at top-1 every dispatch and
+    combine sum has one non-zero term and the experts see the same
+    ``[G, E/R, C, d]``, so the outputs and the expert weights' gradients
+    are the gather form's bits; the gate's gradient sums the shards'
+    partial ones (``copy_to``), and the auxiliary terms are the shards'
+    local means summed over the axis (``reduce_from``: every shard's loss
+    reads the global terms, and the gradient of each shard's reaches its
+    own tokens, so the sum over the shards counts them once, as the gather
+    form's replicated terms are counted). Each all-to-all moves ``(R - 1)
+    / R`` of a ``[G/R, E, C, d]`` tensor a shard."""
+    m0 = moes[0]
+    E, K, R = m0.num_experts, m0.top_k, eaxis.n
+    T_local, d = xs[0].shape
+    G = effective_groups(T_local * R, m0.num_groups) // R
+    t = T_local // G
+    C = capacity(t, E, m0.capacity_factor)
+    gates = eaxis.copy_to([m.gate for m in moes])
+    routes = [_route(m, x, G, gate) for m, x, gate in zip(moes, xs, gates)]
+    _sow_terms(moes, routes, eaxis, eaxis.reduce_from)
+    with torch.no_grad():  # the share of the axis's choices dropped
+        kept = eaxis.all_reduce([_kept(r[3], C) for r in routes])
+    for m, k in zip(moes, kept):
+        m.dropped = 1.0 - k / (T_local * R * K)
+    ins, combines = [], []
+    for x, (_, _, _, queued, w) in zip(xs, routes):
+        with torch.profiler.record_function(DISPATCH_RANGE):
+            disp, combine = _dispatch(queued, w, 0, E, C, x.dtype)
+            ins.append(torch.einsum("gtec,gtd->gecd", disp,
+                                    x.reshape(G, t, d)))
+        combines.append(combine)
+    # expert block j to shard j: [G/R, E, C, d] -> [G, E/R, C, d]
+    ins = eaxis.all_to_all(ins, split_dim=1, concat_dim=0)
+    outs = [_experts(m, x_in) for m, x_in in zip(moes, ins)]
+    # group block j back to shard j: [G, E/R, C, d] -> [G/R, E, C, d]
+    outs = eaxis.all_to_all(outs, split_dim=0, concat_dim=1)
+    parts = []
+    for combine, out_e in zip(combines, outs):
+        with torch.profiler.record_function(DISPATCH_RANGE):
+            parts.append(torch.einsum("gtec,gecd->gtd", combine,
+                                      out_e).reshape(T_local, d))
+    return parts
+
+
+def _sow_terms(moes, routes, axis, reduce):
+    """Write each layer's auxiliary terms, fp32 over every token before
+    capacity: E sum_e f_e P_e (f_e the share of tokens whose first choice
+    is e, P_e the mean router probability of e) and mean(logsumexp^2).
+    Over an ``axis`` of more than one shard of the tokens, the global
+    means are the local means summed over it (``reduce``) and divided by
+    its size, so that every shard's loss reads the global terms."""
+    E = moes[0].num_experts
+    stats = [(first.mean(dim=(0, 1)), probs.mean(dim=(0, 1)),
+              torch.mean(torch.logsumexp(logits, dim=-1) ** 2))
+             for probs, logits, first, _, _ in routes]
+    if axis.n > 1:
+        inv = 1.0 / axis.n
+        frac = axis.all_reduce([s[0] for s in stats])
+        mean_prob = reduce([s[1] for s in stats])
+        z = reduce([s[2] for s in stats])
+        stats = [(f * inv, mp * inv, zz * inv)
+                 for f, mp, zz in zip(frac, mean_prob, z)]
+    for m, (frac, mean_prob, z) in zip(moes, stats):
+        m.sown = {"load_balance": E * torch.sum(frac * mean_prob),
+                  "router_z": z}
+
+
+def _kept(queued, C):
+    """How many token choices found a slot below capacity (fp32)."""
+    with torch.no_grad():
+        return sum(((pos > 0) & (pos <= C)).sum(dtype=torch.float32)
+                   for pos in queued)
+
+
+def _dispatch(queued, w, lo, hi, C, dt):
+    """The dispatch and combine tensors ``[G, t, e, C]`` of the experts
+    ``[lo, hi)``: each kept choice's one-hot slot, and that times its
+    combine weight, summed over the choices."""
+    slots = torch.arange(C, device=queued[0].device)
+    disp = combine = None
+    for k, pos in enumerate(queued):
+        pos = pos[..., lo:hi]                                  # [G, t, e]
+        keep = (pos > 0) & (pos <= C)
+        d_k = ((pos - 1.0).to(torch.int32)[..., None] == slots) \
+            .to(dt) * keep.to(dt)[..., None]                   # [G, t, e, C]
+        c_k = d_k * w[k].to(dt)[..., None, None]
+        disp = d_k if disp is None else disp + d_k
+        combine = c_k if combine is None else combine + c_k
+    return disp, combine
+
+
+def _experts(m, expert_in):
+    """The expert FFN of ``m``'s experts on ``expert_in [G, e, C, d]``."""
+    dt = expert_in.dtype
+    with torch.profiler.record_function(EXPERTS_RANGE):
+        h = F.gelu(torch.einsum("gecd,edf->gecf", expert_in,
+                                m.w_in.to(dt)), approximate="tanh")
+        return torch.einsum("gecf,efd->gecd", h, m.w_out.to(dt))
 
 
 def _core(moes, xs, eaxis, baxis, G, reduce):
@@ -223,52 +362,21 @@ def _core(moes, xs, eaxis, baxis, G, reduce):
     t = T // G
     C = capacity(t, E, m0.capacity_factor)
     routes = [_route(m, x, G) for m, x in zip(moes, xs)]
-    # the auxiliary terms, fp32 over every token before capacity:
-    # E sum_e f_e P_e (f_e the share of tokens whose first choice is e,
-    # P_e the mean router probability of e) and mean(logsumexp^2)
-    stats = [(first.mean(dim=(0, 1)), probs.mean(dim=(0, 1)),
-              torch.mean(torch.logsumexp(logits, dim=-1) ** 2))
-             for probs, logits, first, _, _ in routes]
-    if baxis.n > 1:
-        # tokens on other data ranks: the global means are the local
-        # means summed over baxis, a psum, so that every rank's
-        # replicated loss and its gradient read the global terms
-        inv = 1.0 / baxis.n
-        frac = baxis.all_reduce([s[0] for s in stats])
-        mean_prob = baxis.psum([s[1] for s in stats])
-        z = baxis.psum([s[2] for s in stats])
-        stats = [(f * inv, mp * inv, zz * inv)
-                 for f, mp, zz in zip(frac, mean_prob, z)]
-    for m, (frac, mean_prob, z) in zip(moes, stats):
-        m.sown = {"load_balance": E * torch.sum(frac * mean_prob),
-                  "router_z": z}
+    # the auxiliary terms: tokens on other data ranks read through a
+    # psum, so that every rank's replicated loss and its gradient read
+    # the global terms
+    _sow_terms(moes, routes, baxis, baxis.psum)
     weights = eaxis.copy_to([r[4] for r in routes])
     xds = eaxis.copy_to(xs)
     parts = []
     for m, x, (_, _, _, queued, _), w in zip(moes, xds, routes, weights):
         lo, hi = m.experts
-        dt = x.dtype
-        with torch.no_grad():
-            kept = sum(((pos > 0) & (pos <= C)).sum(dtype=torch.float32)
-                       for pos in queued)
-            m.dropped = 1.0 - kept / (T * K)
+        m.dropped = 1.0 - _kept(queued, C) / (T * K)
         with torch.profiler.record_function(DISPATCH_RANGE):
-            slots = torch.arange(C, device=x.device)
-            disp = combine = None
-            for k, pos in enumerate(queued):
-                pos = pos[..., lo:hi]                          # [G, t, e]
-                keep = (pos > 0) & (pos <= C)
-                d_k = ((pos - 1.0).to(torch.int32)[..., None] == slots) \
-                    .to(dt) * keep.to(dt)[..., None]           # [G, t, e, C]
-                c_k = d_k * w[k].to(dt)[..., None, None]
-                disp = d_k if disp is None else disp + d_k
-                combine = c_k if combine is None else combine + c_k
+            disp, combine = _dispatch(queued, w, lo, hi, C, x.dtype)
             expert_in = torch.einsum("gtec,gtd->gecd", disp,
                                      x.reshape(G, t, d))
-        with torch.profiler.record_function(EXPERTS_RANGE):
-            h = F.gelu(torch.einsum("gecd,edf->gecf", expert_in,
-                                    m.w_in.to(dt)), approximate="tanh")
-            out_e = torch.einsum("gecf,efd->gecd", h, m.w_out.to(dt))
+        out_e = _experts(m, expert_in)
         with torch.profiler.record_function(DISPATCH_RANGE):
             parts.append(torch.einsum("gtec,gecd->gtd", combine,
                                       out_e).reshape(T, d))

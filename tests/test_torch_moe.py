@@ -259,6 +259,104 @@ def test_local_expert_shards_match_one_device(n, tokens_sharded):
                    f"{case} {name}")
 
 
+
+def _fp32_order(got, want, r, what):
+    """Two sums of the same R fp32 partial sums (one a shard's tokens) in
+    other orders part by at most 2 (R - 1) 2^-24 sum_r |partial_r|; with
+    each shard's partial about 1/R of the whole, every element within
+    2 R^2 2^-24 max|want| (chip_smoke's ``_fp32_order`` with R for M)."""
+    bound = 2 * r * r * 2.0 ** -24 * float(np.abs(want).max())
+    err = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+    assert err <= bound, f"{what}: {err} beyond {bound}"
+
+
+def _two_forms(form, r, top_k, seed):
+    """One top-k layer (8 experts, 8 groups, 128 tokens) over ``r``
+    expert shards in one process, its tokens sharded over the axis,
+    through ``form``: the output, the gradients of the input, the gate
+    (each shard's), w_in and w_out, the auxiliary terms and the dropped
+    share, from ``sum(out * g) + aux_loss`` on each shard."""
+    kw = dict(num_experts=8, d_model=16, d_ff=32, num_groups=8, top_k=top_k)
+    mods = [tmoe.MoE(**kw, expert_shard=(i, r),
+                     generator=torch.Generator().manual_seed(3))
+            for i in range(r)]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((128, 16)).astype(np.float32)
+    g = rng.standard_normal((128, 16)).astype(np.float32)
+    xs = [torch.from_numpy(c.copy()).requires_grad_()
+          for c in np.split(x, r)]
+    outs = form(mods, xs, taxis.LocalAxis(r))
+    torch.autograd.backward([
+        (o * torch.from_numpy(gg)).sum() + tmoe.aux_loss(m)
+        for o, gg, m in zip(outs, np.split(g, r), mods)])
+    return {"out": torch.cat(outs).detach().numpy(),
+            "x": torch.cat([v.grad for v in xs]).numpy(),
+            "w_in": torch.cat([m.w_in.grad for m in mods]).numpy(),
+            "w_out": torch.cat([m.w_out.grad for m in mods]).numpy(),
+            "gate": [m.gate.grad.numpy() for m in mods],
+            "aux": [np.asarray([float(m.sown[k].detach())
+                                for k in sorted(m.sown)]) for m in mods],
+            "dropped": [float(m.dropped) for m in mods]}
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_all_to_all_form_matches_the_gather_form(r, top_k):
+    """GShard's all-to-all layout against the gather form, tokens sharded
+    over an expert axis of R in one process (chip_smoke's 12d at a small
+    size). Both forms dispatch each slot one token and feed the experts
+    the same ``[G, E/R, C, d]``, so the expert weights' gradients are
+    bit for bit, and at top-1, where every combine sum has one non-zero
+    term, the output too; the gate's gradient (the shards' partial sums
+    against one sum over all tokens), the auxiliary terms (local means
+    summed over the axis) and the input's gradient, and at top-2 the
+    output (two experts' terms summed in one einsum or over the shards),
+    within fp32 summation order. ``moe_shards`` takes the all-to-all form
+    here, where R divides the 8 groups."""
+    a = _two_forms(tmoe.tokens_all_to_all, r, top_k, seed=r)
+    b = _two_forms(tmoe.tokens_gathered, r, top_k, seed=r)
+    auto = _two_forms(lambda mods, xs, ax: tmoe.moe_shards(
+        mods, xs, ax, taxis.single_axis(len(xs)), tokens_sharded=True),
+        r, top_k, seed=r)
+    for key in ("w_in", "w_out"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    for key in ("out", "x"):
+        if top_k == 1 and key == "out":
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+        else:
+            _fp32_order(a[key], b[key], r, key)
+    for key in ("gate", "aux"):
+        for i, (got, want) in enumerate(zip(a[key], b[key])):
+            _fp32_order(got, want, r, f"shard {i} {key}")
+    assert a["dropped"] == b["dropped"]
+    for key in ("out", "x", "w_in", "w_out"):
+        np.testing.assert_array_equal(auto[key], a[key], err_msg=key)
+
+
+def test_groups_the_axis_does_not_divide_gather_and_log(caplog):
+    """Where the expert axis does not divide the effective groups (G 4
+    over 8 shards), ``moe_shards`` takes the gather form, bit for bit
+    ``tokens_gathered``, and logs it once per (G, R)."""
+    tmoe._A2A_FALLBACKS.discard((4, 8))
+    x = np.random.default_rng(5).standard_normal((64, 16)).astype(np.float32)
+    runs = []
+    with caplog.at_level("INFO", logger="horovod_tpu_torch"):
+        for form in ("auto", "auto", "gathered"):
+            mods = [tmoe.MoE(8, 16, 32, num_groups=4, expert_shard=(i, 8))
+                    for i in range(8)]
+            xs = [torch.from_numpy(c.copy()) for c in np.split(x, 8)]
+            if form == "auto":
+                outs = tmoe.moe_shards(mods, xs, taxis.LocalAxis(8),
+                                       taxis.single_axis(8),
+                                       tokens_sharded=True)
+            else:
+                outs = tmoe.tokens_gathered(mods, xs, taxis.LocalAxis(8))
+            runs.append(torch.cat(outs))
+    assert torch.equal(runs[0], runs[2])
+    assert sum("gathering the tokens" in r.message
+               for r in caplog.records) == 1
+
+
 def _lm_tokens():
     return np.random.default_rng(0).integers(
         0, LM["vocab_size"], size=(4, 16)).astype(np.int64)
@@ -370,6 +468,7 @@ def rank_ep_checks(out_dir):
     the MoE layer's own forward with its tokens sharded over the expert
     axis at G 1 and 4."""
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import ckpt
     mesh = tmesh.build_mesh((2, 2), ("data", "expert"))
     params0 = _nested(dict(np.load(os.path.join(out_dir, "params0.npz"))))
     res = {}
@@ -387,6 +486,26 @@ def rank_ep_checks(out_dir):
             {n: p.detach() for n, p in model.state_dict().items()}, model)
         for k, v in _flat(tree).items():
             res[f"g{groups}/params/{k}"] = v
+        # saved at (data 2 x expert 2), restored at (data 1 x expert 4)
+        root = os.path.join(out_dir, f"ckpt{groups}")
+        ckpt.save_sharded(root, STEPS, convert.train_state_to_flat(
+            model, opt, step.state), rank=hvd.rank(), world=4)
+        mesh4 = tmesh.build_mesh((1, 4), ("data", "expert"))
+        model = ttp.shard_lm_state(_ep_cfg(groups), mesh4, model_axis=None,
+                                   expert_axis="expert").double()
+        opt = _adamw(model)
+        step = ttp.make_tp_lm_train_step(model, opt, mesh4, model_axis=None,
+                                         expert_axis="expert")
+        _, restored, _ = ckpt.restore_sharded(
+            root, convert.train_state_to_flat(model, opt, step.state))
+        convert.train_state_from_flat(model, opt, step.state, restored)
+        res[f"g{groups}/resumed/loss"] = np.asarray(
+            step(torch.from_numpy(_lm_tokens())).item())
+        tree = convert.flax_from_params(
+            {n: p.detach() for n, p in model.state_dict().items()}, model)
+        for k, v in _flat(tree).items():
+            res[f"g{groups}/resumed/{k}"] = v
+        mesh = tmesh.build_mesh((2, 2), ("data", "expert"))
     x, g = _layer_b_inputs()
     e = mesh.axis_index("expert")
     for groups in (1, 4):
@@ -400,6 +519,12 @@ def rank_ep_checks(out_dir):
         res[f"b{groups}/x"] = xs[0].grad.numpy()
         for name in ("gate", "w_in", "w_out"):
             res[f"b{groups}/{name}"] = layer.get_parameter(name).grad.numpy()
+        # the gather form over the same group axis (G 4: the layer's own
+        # forward took the all-to-all form)
+        layer.zero_grad()
+        xs = [torch.from_numpy(x[16 * e:16 * e + 16]).requires_grad_()]
+        outs = tmoe.tokens_gathered([layer], xs, taxis.GroupAxis("expert"))
+        res[f"b{groups}/gathered"] = outs[0].detach().numpy()
     np.savez(os.path.join(out_dir, f"rank{hvd.rank()}.npz"), **res)
 
 
@@ -416,9 +541,10 @@ _WORKER = textwrap.dedent("""
 """)
 
 
-def _jax_ep(groups, params0):
+def _jax_ep(groups, params0, steps=STEPS):
     """JAX's expert-parallel step on a 2 x 2 (data, expert) mesh in fp64
-    from ``params0``: ``(losses, params)``."""
+    from ``params0``, ``steps`` steps: ``(losses, params after each
+    step)``."""
     with jax.enable_x64(True):
         devs = np.asarray(jax.devices()[:4]).reshape(2, 2)
         mesh = jax.sharding.Mesh(devs, ("data", "expert"))
@@ -433,11 +559,12 @@ def _jax_ep(groups, params0):
         step = jtp.make_tp_lm_train_step(model, tx, mesh, model_axis=None,
                                          expert_axis="expert", donate=False)
         tokens = jnp.asarray(_lm_tokens(), jnp.int32)
-        losses = []
-        for _ in range(STEPS):
+        losses, params = [], []
+        for _ in range(steps):
             state, loss = step(state, tokens)
             losses.append(float(loss))
-        return losses, jax.tree_util.tree_map(np.asarray, state.params)
+            params.append(jax.tree_util.tree_map(np.asarray, state.params))
+        return losses, params
 
 
 def _local_ep(groups, params0):
@@ -482,8 +609,13 @@ def test_expert_parallel_step_on_four_ranks(tmp_path):
     rank, the auxiliary statistics summed over it), fp64: losses rtol
     1e-5 and every parameter atol 1e-6 against JAX's step on a 2 x 2 CPU
     mesh, and bit for bit the same step over ``LocalAxis`` shards in one
-    process; the MoE layer with its tokens sharded over the expert axis
-    (G 1, 4), output and gradients bit for bit its ``LocalAxis`` form."""
+    process; the state saved there (expert weights and moments gathered
+    over the expert axis's groups) and restored at (data 1, expert 4)
+    takes JAX's fourth step (the same tolerances); the MoE layer with its
+    tokens sharded over the expert axis (G 1: the gather form; G 4: the
+    all-to-all form), output and gradients bit for bit its ``LocalAxis``
+    form, and at G 4 its output bit for bit the gather form's on the same
+    group axis (top-1)."""
     jm = JTransformer(JConfig(**LM, dtype=jnp.float32))
     params0 = jax.tree_util.tree_map(np.asarray, jm.init(
         jax.random.PRNGKey(0), jnp.asarray(_lm_tokens()[:1]))["params"])
@@ -493,10 +625,23 @@ def test_expert_parallel_step_on_four_ranks(tmp_path):
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
     specs = ttp.transformer_param_specs(params0, None, "expert")
     coords = [{"expert": (r % 2, 2)} for r in range(4)]
+    coords4 = [{"expert": (r, 4)} for r in range(4)]
     for groups in SPAWN_GROUPS:
-        j_losses, j_params = _jax_ep(groups, params0)
-        models, l_losses = _local_ep(groups, params0)
+        j_losses, j_params = _jax_ep(groups, params0, STEPS + 1)
         tag = f"g{groups}"
+        resumed = _flat(convert.unshard_flax(
+            [_nested({k[len(tag) + 9:]: v for k, v in res.items()
+                      if k.startswith(f"{tag}/resumed/")
+                      and k != f"{tag}/resumed/loss"}) for res in ranks],
+            specs, coords4))
+        for res in ranks:
+            np.testing.assert_allclose(res[f"{tag}/resumed/loss"],
+                                       j_losses[STEPS], rtol=1e-5)
+        for k, v in _flat(j_params[STEPS]).items():
+            np.testing.assert_allclose(resumed[k], v, rtol=0, atol=1e-6,
+                                       err_msg=f"{tag} resumed {k}")
+        j_losses, j_params = j_losses[:STEPS], j_params[STEPS - 1]
+        models, l_losses = _local_ep(groups, params0)
         for r, res in enumerate(ranks):
             np.testing.assert_allclose(res[f"{tag}/losses"], j_losses,
                                        rtol=1e-5)
@@ -527,3 +672,5 @@ def test_expert_parallel_step_on_four_ranks(tmp_path):
                 np.testing.assert_array_equal(
                     res[f"{tag}/{name}"],
                     mods[e].get_parameter(name).grad.numpy())
+            np.testing.assert_array_equal(res[f"{tag}/gathered"],
+                                          res[f"{tag}/out"])

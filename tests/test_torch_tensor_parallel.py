@@ -323,16 +323,49 @@ def _rank_tokens(r):
 
 def rank_tp_checks(out_dir):
     """On each of 4 gloo ranks of a (data 2 x model 2) mesh: 3 AdamW steps
-    of ``make_tp_lm_train_step`` from ``params0.npz``."""
+    of ``make_tp_lm_train_step`` from ``params0.npz``; the state saved
+    (``ckpt.save_sharded`` at world 4 and ``checkpoint.save_checkpoint``,
+    every cut leaf gathered over the model axis), restored on a (data 1
+    x model 4) mesh (the file through ``restore_or_init`` too) and one
+    more step on the whole batch."""
+    from horovod_tpu_torch import checkpoint, ckpt
     mesh = tmesh.build_mesh((2, 2), ("data", "model"))
     params0 = _nested(dict(np.load(os.path.join(out_dir, "params0.npz"))))
     cfg = TransformerConfig(**WIDTHS, dtype=torch.float32)
     model = ttp.shard_lm_state(cfg, mesh, params=params0)
-    step = ttp.make_tp_lm_train_step(model, _adamw(model), mesh)
+    opt = _adamw(model)
+    step = ttp.make_tp_lm_train_step(model, opt, mesh)
     res = {"losses": np.asarray([step(_rank_tokens(hvd_t.rank())).item()
                                  for _ in range(STEPS)])}
     for k, v in _flat(_shard_tree(model)).items():
         res[f"params/{k}"] = v
+    root = os.path.join(out_dir, "ckpt")
+    ckpt.save_sharded(root, STEPS, convert.train_state_to_flat(
+        model, opt, step.state), rank=hvd_t.rank(), world=4)
+    # the single file: every rank gathers, rank 0 writes
+    checkpoint.save_checkpoint(os.path.join(out_dir, "file"), STEPS, model,
+                               opt)
+    mesh = tmesh.build_mesh((1, 4), ("data", "model"))
+    model = ttp.shard_lm_state(cfg, mesh)
+    opt = _adamw(model)
+    step = ttp.make_tp_lm_train_step(model, opt, mesh)
+    _, restored, _ = ckpt.restore_sharded(
+        root, convert.train_state_to_flat(model, opt, step.state))
+    convert.train_state_from_flat(model, opt, step.state, restored)
+    # the single file through restore_or_init (rank 0 reads, every leaf
+    # broadcast whole, each rank cuts its shard): the same state
+    other = ttp.shard_lm_state(cfg, mesh)
+    other_opt = _adamw(other)
+    found, _ = checkpoint.restore_or_init(os.path.join(out_dir, "file"),
+                                          other, other_opt)
+    mine = _whole(convert.train_state_to_flat(model, opt, None))
+    theirs = _whole(convert.train_state_to_flat(other, other_opt, None))
+    res["file/same"] = np.asarray(found == STEPS and all(
+        np.array_equal(a, b) for a, b in zip(mine, theirs)))
+    res["resumed/loss"] = np.asarray(step(torch.from_numpy(_tokens()))
+                                     .item())
+    for k, v in _flat(_shard_tree(model)).items():
+        res[f"resumed/{k}"] = v
     np.savez(os.path.join(out_dir, f"rank{hvd_t.rank()}.npz"), **res)
 
 
@@ -349,9 +382,9 @@ _WORKER = textwrap.dedent("""
 """)
 
 
-def _jax_tp(params0):
+def _jax_tp(params0, steps=STEPS):
     """JAX's tensor-parallel step on a 2 x 2 (data, model) mesh from
-    ``params0``: ``(losses, params)``."""
+    ``params0``, ``steps`` steps: ``(losses, params after each step)``."""
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
                              ("data", "model"))
     model = JTransformer(JConfig(**WIDTHS, dtype=jnp.float32))
@@ -362,26 +395,37 @@ def _jax_tp(params0):
                     jax.tree_util.tree_leaves(params0)):
         np.testing.assert_array_equal(np.asarray(a), b)
     step = jtp.make_tp_lm_train_step(model, tx, mesh, donate=False)
-    losses = []
-    for _ in range(STEPS):
+    losses, params = [], []
+    for _ in range(steps):
         state, loss = step(state, jnp.asarray(_tokens(), jnp.int32))
         losses.append(float(loss))
-    return losses, jax.tree_util.tree_map(np.asarray, state.params)
+        params.append(jax.tree_util.tree_map(np.asarray, state.params))
+    return losses, params
 
 
 def _local_tp(params0):
-    """The same step over 4 ``LocalAxis`` shards in this process."""
+    """The same step over 4 ``LocalAxis`` shards in this process:
+    ``(models, each step's losses, the whole state)``, the state
+    gathered by ``convert.train_state_to_flat`` over the shards."""
     shape, names = (2, 2), ("data", "model")
     cfg = TransformerConfig(**WIDTHS, dtype=torch.float32)
     models = [ttp.shard_lm_state(cfg, _rank_mesh(shape, names, r),
                                  params=params0) for r in range(4)]
+    opts = [_adamw(m) for m in models]
     ax = taxis.local_axes(shape, names)
     step = ttp.make_tp_lm_train_step_shards(
-        models, [_adamw(m) for m in models],
-        Axes(ax["model"], taxis.single_axis(4), ax["data"]))
+        models, opts, Axes(ax["model"], taxis.single_axis(4), ax["data"]))
     losses = [step([_rank_tokens(r) for r in range(4)])
               for _ in range(STEPS)]
-    return models, [[x.item() for x in row] for row in losses]
+    whole = _whole(convert.train_state_to_flat(models, opts, step.state))
+    return models, [[x.item() for x in row] for row in losses], whole
+
+
+def _whole(flat):
+    """A flat train state's leaves as numpy, every cut leaf gathered."""
+    from horovod_tpu_torch import ckpt
+    return [np.asarray(x.gather() if isinstance(x, ckpt.GatheredLeaf)
+                       else x) for x in flat]
 
 
 def test_tensor_parallel_step_on_four_ranks(tmp_path):
@@ -389,14 +433,49 @@ def test_tensor_parallel_step_on_four_ranks(tmp_path):
     ``make_tp_lm_train_step`` from JAX's init (the JAX test's model):
     losses rtol 1e-5 and every parameter atol 1e-6 against JAX's step on
     a 2 x 2 CPU mesh, and bit for bit the same step over ``LocalAxis``
-    shards in one process."""
+    shards in one process. The state the four ranks save (its cut leaves
+    gathered over the model axis's groups) is bit for bit the state the
+    local shards gather, and restored on a 1 x 4 mesh its next step is
+    JAX's fourth (the same tolerances). The single file that rank 0
+    writes of it reads back into 4 local shards bit for bit, and through
+    ``restore_or_init`` on the 1 x 4 mesh as the sharded restore does."""
+    from horovod_tpu_torch import checkpoint, ckpt
     params0 = _flax_params(WIDTHS)
     np.savez(tmp_path / "params0.npz", **_flat(params0))
     run_ranks(_WORKER.format(tests=os.path.join(REPO, "tests"),
                              out=str(tmp_path)), 4, timeout=240)
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
-    j_losses, j_params = _jax_tp(params0)
-    models, l_losses = _local_tp(params0)
+    j_losses, j_params = _jax_tp(params0, STEPS + 1)
+    models, l_losses, whole_state = _local_tp(params0)
+    _, saved, _ = ckpt.restore_sharded(
+        str(tmp_path / "ckpt"), [np.zeros(x.shape, x.dtype)
+                                 for x in whole_state])
+    assert len(saved) == len(whole_state)
+    for got, want in zip(saved, whole_state):
+        np.testing.assert_array_equal(got, want)
+    # the single file, read into 4 fresh local shards
+    fresh = [ttp.shard_lm_state(TransformerConfig(**WIDTHS),
+                                _rank_mesh((2, 2), ("data", "model"), r))
+             for r in range(4)]
+    opts = [_adamw(m) for m in fresh]
+    checkpoint.restore_checkpoint(str(tmp_path / "file"), STEPS, fresh, opts)
+    for got, want in zip(_whole(convert.train_state_to_flat(fresh, opts,
+                                                            None))[:-1],
+                         whole_state):
+        np.testing.assert_array_equal(got, want)
+    for r, res in enumerate(ranks):
+        assert res["file/same"], f"rank {r}: restore_or_init"
+        np.testing.assert_allclose(res["resumed/loss"], j_losses[STEPS],
+                                   rtol=1e-5)
+    resumed = _flat(convert.unshard_flax(
+        [_nested({k[8:]: v for k, v in res.items()
+                  if k.startswith("resumed/") and k != "resumed/loss"})
+         for res in ranks], ttp.transformer_param_specs(params0, "model"),
+        [{"model": (r, 4)} for r in range(4)]))
+    for k, v in _flat(j_params[STEPS]).items():
+        np.testing.assert_allclose(resumed[k], v, rtol=0, atol=1e-6,
+                                   err_msg=f"resumed {k}")
+    j_losses, j_params = j_losses[:STEPS], j_params[STEPS - 1]
     shards, coords = [], []
     for r, res in enumerate(ranks):
         np.testing.assert_allclose(res["losses"], j_losses, rtol=1e-5)
