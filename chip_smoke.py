@@ -146,12 +146,27 @@ runs these phases; any failure raises:
 * 14c: phase 5's LM through ``DistributedOptimizer(
   backward_passes_per_step=2)`` (optax's ``MultiStepsState``), saved
   after mini-step 1 (inside a window) and 2 (at its boundary): each
-  resume repeats the unbroken run's losses and state bit for bit.
+  resume repeats the unbroken run's losses and state bit for bit;
+* 15a: phase 5's LM, weights and batch through the GSPMD step
+  (``make_lm_train_step(spmd=True)``: DTensor placements on ``init()``'s
+  ``("data",)`` mesh, the flash kernels as an island a layer): every
+  loss within ``GSPMD_EPSILON`` of phase 5's (and whether bit for bit),
+  tokens/s beside phase 5's, a profile (device work, idle share), the
+  collectives it records (none at world 1);
+* 15b: the same with ZeRO-1 (rows ``Shard(0)``) against 6a's losses, and
+  the peak memory of both;
+* 15c: the int8 chunked island against 15a and the bf16 cast wire with
+  ZeRO-1 against 15b, within ``WIRE_EPSILON`` at every step;
+* 15d: 15b's state saved (``convert``, ``ckpt.AsyncCheckpointer``) and
+  restored into the explicit ZeRO-1 step, and an explicit ZeRO-1 state
+  into the GSPMD step: each next loss bit for bit the step taken from
+  the saved state itself.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
 
-Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b, 11b, 12b, 12c and 14a-14c each
+Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b, 11b, 12b, 12c, 14a-14c and 15
+each
 count the kernels' launches from 0 on the card and must launch each
 kernel once per layer, shard, microbatch and step (13a and 13b as their
 schedules say); 9a's worker counts its own. The last line of output is
@@ -160,9 +175,9 @@ schedules say); 9a's worker counts its own. The last line of output is
 
 and the line before it a JSON object with each kernel's launches on the
 main paths (phase 5, 11b's two runs, 12b, 12c, phase 13's seven
-runs and 14a, each counted from 0),
+runs, 14a and phase 15's runs, each counted from 0),
 error
-against its plain version, time, plain time, bound and library time. After the timed steps of phases 5 and 6b one
+against its plain version, time, plain time, bound and library time. After the timed steps of phases 5, 6b and 15a one
 more step runs under ``torch.profiler`` for the device's busy share and
 the time by layer and by kernel.
 Exits non-zero without printing a result when CUDA is unavailable or the
@@ -714,14 +729,11 @@ def _drive(label, hvd, fa, torch, bench, step, batch, want, per_step_tokens,
           f"{100 * rate / PEAK_FLOPS['bfloat16']:.2f}% of the bf16 peak")
     print(f"  {label} peak device memory {peak / 2**30:.2f} GiB")
     print(f"  {label} {exchange()}")
-    print(f"  {label} launches: {launches}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: loss did not decrease: {losses}")
-    if launches != {"fwd": want, "dq": want, "dkv": want}:
-        raise AssertionError(f"{label}: launches {launches}, want {want} "
-                             "of each")
+    _want_launches(fa, label, want)
     if profile:
         profile_step(torch, lambda: step(*batch), step_ms)
     return losses, launches, step_ms
@@ -849,6 +861,7 @@ def phase_exchange_full(hvd, fa, torch, bench, phase5_losses):
     losses, _, _ = _drive("6a", hvd, fa, torch, bench, step, (tokens,),
                        layers * STEPS, LM["batch"] * seq,
                        lambda: "ZeRO-1 " + _schedule_line(schedule))
+    peak_6a = torch.cuda.max_memory_allocated()
     # the same weights and batch as phase 5, and at world 1 the same
     # math: only the rounding of the update differs (ZeRO-1 adds the
     # gathered delta (p + u) - p where phase 5 adds u, an fp32 ulp at
@@ -881,6 +894,7 @@ def phase_exchange_full(hvd, fa, torch, bench, phase5_losses):
             _layout_cost("6b", torch, bench, step.schedule, opt)
         del step, model, opt, tokens, batch
     hvd.shutdown()
+    return losses, peak_6a
 
 
 def _quantizer_input(torch):
@@ -3126,6 +3140,142 @@ def phase_multi_steps_resume(hvd, fa, torch, dev, bench):
     hvd.shutdown()
 
 
+# phase 15: the GSPMD steps against the explicit ones, every step's loss
+# within the JAX package's bar (__graft_entry__.py GSPMD_EPSILON)
+GSPMD_EPSILON = 1e-4
+
+
+def _rel_gap(label, got, want, bound, floor=0.0):
+    """Every loss of ``got`` within ``bound`` relative (the denominator
+    at least ``floor``) of ``want``'s; says whether they are bit for
+    bit. Returns the largest gap."""
+    worst = max(abs(a - b) / max(abs(b), floor) for a, b in zip(got, want))
+    print(f"  {label}: {[round(x, 6) for x in got]} against "
+          f"{[round(x, 6) for x in want]}: largest relative gap "
+          f"{worst:.3e} (bound {bound:g})"
+          f"{', bit for bit' if got == want else ', not bit for bit'}")
+    if not worst <= bound:
+        raise AssertionError(f"{label}: {got} beyond {bound:g} of {want}")
+    return worst
+
+
+def phase_spmd(hvd, fa, torch, bench, phase5_losses, phase5_tok_s,
+               losses_6a, peak_6a):
+    """15a-15d: phase 5's LM, weights and batch through the GSPMD steps
+    (``make_lm_train_step(spmd=True)``: DTensor placements on ``init()``'s
+    ``("data",)`` mesh at world 1 over NCCL, K1-K3 as an island a layer):
+    15a against phase 5's losses, tokens/s and a profile; 15b ZeRO-1
+    (rows ``Shard(0)``) against 6a's losses and peak memory; 15c the int8
+    chunked island against 15a and the bf16 cast wire with ZeRO-1
+    against 15b (``WIRE_EPSILON``); 15d 15b's state saved (``convert``,
+    ``ckpt.AsyncCheckpointer``) and restored into the explicit ZeRO-1
+    step, and an explicit ZeRO-1 state restored into the GSPMD step: each
+    next loss bit for bit the step taken from the saved state itself.
+    Returns the kernels' launches."""
+    import tempfile
+    from horovod_tpu_torch import ckpt, convert, training
+    print("== phase 15: the GSPMD steps (DTensor placements) at full width")
+    hvd.init()
+    layers, seq = LM["layers"], LM["seq_len"]
+    ntok = LM["batch"] * seq
+    total = {"fwd": 0, "dq": 0, "dkv": 0}
+
+    def count(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def build(**kw):
+        _free(torch)
+        return _lm_bench(bench, torch, seq_len=seq, **kw)
+
+    def state_of(**kw):  # (model, optimizer, step), as _resume_from takes
+        step, model, opt, _ = build(**kw)
+        return model, opt, step
+
+    t0 = time.perf_counter()
+    step, model, opt, tokens = build(spmd=True)
+    print(f"  15a built in {time.perf_counter() - t0:.2f} s; plan: mesh "
+          f"{step.plan.mesh.axis_names} {step.plan.mesh.shape}, "
+          f"{step.plan.device_mesh}, batch "
+          f"{step.program.batch_placements}, parameters Replicate()")
+    losses_a, launches, ms_a = _drive(
+        "15a", hvd, fa, torch, bench, step, (tokens,), layers * STEPS, ntok,
+        lambda: "exchange: Partial buckets redistributed to Replicate()",
+        profile=True)
+    count(launches)
+    _rel_gap("15a against phase 5", losses_a, phase5_losses, GSPMD_EPSILON)
+    tok_a = ntok * hvd.size() / ms_a * 1e3
+    print(f"  15a {tok_a:.1f} tokens/s against phase 5's {phase5_tok_s:.1f}"
+          f" ({tok_a / phase5_tok_s:.3f}x)")
+    print(f"  15a compiled_collectives {step.compiled_collectives}, by axes "
+          f"{step.compiled_axis_collectives} (world 1: DTensor skips the "
+          "collectives of a mesh dim of one rank, so the path issues "
+          "none)")
+    del step, model, opt, tokens
+
+    step, model, opt, tokens = build(spmd=True, sharded_update=True)
+    schedule = opt.zero_state.plan.schedule
+    losses_b, launches, _ = _drive(
+        "15b", hvd, fa, torch, bench, step, (tokens,), layers * STEPS, ntok,
+        lambda: "ZeRO-1 rows Shard(0); " + _schedule_line(schedule))
+    peak_b = torch.cuda.max_memory_allocated()
+    count(launches)
+    _rel_gap("15b against 6a", losses_b, losses_6a, GSPMD_EPSILON)
+    print(f"  15b peak device memory {peak_b / 2**30:.2f} GiB against 6a's "
+          f"{peak_6a / 2**30:.2f} GiB ({peak_b / peak_6a:.3f}x)")
+    print(f"  15b compiled_collectives {step.compiled_collectives}")
+
+    # 15d: 15b's state, saved, restored into the explicit ZeRO-1 step
+    fa.reset_launches()
+    with tempfile.TemporaryDirectory() as root:
+        saver = ckpt.AsyncCheckpointer(root, keep=1)
+        _timed_save(torch, saver, STEPS, convert.train_state_to_flat(
+            model, opt, step.state), None)
+        saver.close()
+        into = _resume_from(bench, root, STEPS,
+                            lambda: state_of(sharded_update=True))
+    restored = float(into[2](tokens))
+    unbroken = float(training.make_lm_train_step(model, opt)(tokens))
+    _same("15d GSPMD state -> explicit ZeRO-1 step, next loss against the "
+          "explicit step from the state itself", [restored], [unbroken])
+    del step, model, opt
+    # and an explicit ZeRO-1 state (one more step of it) into the GSPMD step
+    model, opt, step = into
+    del into
+    step(tokens)
+    with tempfile.TemporaryDirectory() as root:
+        saver = ckpt.AsyncCheckpointer(root, keep=1)
+        _timed_save(torch, saver, STEPS + 2, convert.train_state_to_flat(
+            model, opt, step.state), None)
+        saver.close()
+        into = _resume_from(bench, root, STEPS + 2,
+                            lambda: state_of(spmd=True, sharded_update=True))
+    restored = float(into[2](tokens))
+    unbroken = float(training.make_lm_train_step(model, opt, spmd=True)(
+        tokens))
+    _same("15d explicit ZeRO-1 state -> GSPMD step, next loss against the "
+          "GSPMD step from the state itself", [restored], [unbroken])
+    _want_launches(fa, "15d", layers * 5)
+    count(fa.LAUNCHES)
+    del model, opt, step, into
+
+    for label, kw, want in (
+            ("15c int8 island", dict(compression="int8"), losses_a),
+            ("15c bf16 cast, ZeRO-1", dict(compression="bf16",
+                                           sharded_update=True), losses_b)):
+        step, model, opt, tokens = build(spmd=True, **kw)
+        got, launches, _ = _drive(
+            label, hvd, fa, torch, bench, step, (tokens,), layers * STEPS,
+            ntok, lambda: f"wire {step.wire.name}")
+        count(launches)
+        _rel_gap(f"{label} against {'15a' if want is losses_a else '15b'}",
+                 got, want, WIRE_EPSILON, floor=WIRE_EPSILON_FLOOR)
+        del step, model, opt, tokens
+    _free(torch)
+    hvd.shutdown()
+    return total
+
+
 def _launched_in(trace, ranges):
     """The correlation ids of the work launched on the host inside a
     profiler range named in ``ranges`` (``{range name: layer}``), or by
@@ -3284,7 +3434,7 @@ def main(argv=None):
     phase_parity_exchange(hvd, fa, torch)
     phase_parity_resnet(hvd, torch)
     losses, launches, phase5_tok_s = phase_full(hvd, fa, torch, bench)
-    phase_exchange_full(hvd, fa, torch, bench, losses)
+    losses_6a, peak_6a = phase_exchange_full(hvd, fa, torch, bench, losses)
     run_7a = phase_resnet(hvd, torch, bench)
     phase_resume(hvd, fa, torch, bench)
     phase_resume_resnet(hvd, torch, bench)
@@ -3319,12 +3469,17 @@ def main(argv=None):
     phase_ep_resume(fa, torch, dev, bench)
     phase_multi_steps_resume(hvd, fa, torch, dev, bench)
     print(f"== phase 14 took {time.perf_counter() - t14:.1f} s")
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    launches_15 = phase_spmd(hvd, fa, torch, bench, losses, phase5_tok_s,
+                             losses_6a, peak_6a)
+    print(f"== phase 15 took {time.perf_counter() - t15:.1f} s")
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):
         wrapper, replaces, source, design = KERNELS[kind_]
         main = [launches, launches_11b] + launches_12 + launches_13 + \
-            launches_14
+            launches_14 + [launches_15]
         kernels.append(dict(name=wrapper, route="cuda", source=source,
                             replaces=replaces, design=design,
                             launches=sum(n[kind_] for n in main),

@@ -27,6 +27,7 @@ import threading
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.cluster import procmesh
 from horovod_tpu_torch.config import Config
 from horovod_tpu_torch.parallel import mesh as mesh_lib
 
@@ -126,12 +127,20 @@ def _hosts_tile_world(cfg, dev):
 def init(device=None):
     """Initialize (idempotent). ``device`` is ``None`` for this process's
     card (raises when CUDA is absent), ``"cpu"``, or an explicit device.
-    Installs the mesh of ``parallel/mesh.py``: ``("data",)`` over the
-    world, or ``("dcn", "data")`` of ``(cross_size, local_size)`` when
-    the job spans ``HOROVOD_CROSS_SIZE > 1`` hosts of equal rank counts,
-    as the JAX ``init()`` does. Over hosts of unequal rank counts the
-    mesh stays 1-D and the job runs flat (there the JAX ``build_mesh``
-    raises, or builds a mesh that does not follow the hosts)."""
+    Joins the world through ``cluster.procmesh.ensure_distributed`` and
+    installs the mesh of ``parallel/mesh.py``, as the JAX ``init()`` does
+    (``basics.py:97-106``):
+
+    * under one process mesh across rows (``HOROVOD_COORDINATOR_ADDR``
+      and ``HOROVOD_SPMD_PROCS`` N > 1: hvdrun's ``--spmd-procs``), the
+      ``("dcn", "data")`` mesh of N rows of ``size // N`` ranks
+      (``procmesh.build_process_mesh``, after its contiguity check);
+    * otherwise ``("data",)`` over the world, or ``("dcn", "data")`` of
+      ``(cross_size, local_size)`` when the job spans
+      ``HOROVOD_CROSS_SIZE > 1`` hosts of equal rank counts. Over hosts
+      of unequal rank counts the mesh stays 1-D and the job runs flat
+      (there the JAX ``build_mesh`` raises, or builds a mesh that does
+      not follow the hosts)."""
     with _lock:
         if _state.initialized:
             return
@@ -140,12 +149,16 @@ def init(device=None):
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         backend = "nccl" if dev.type == "cuda" else "gloo"
-        dist.init_process_group(backend, store=_store(cfg), rank=cfg.rank,
-                                world_size=cfg.size)
+        procmesh.ensure_distributed(cfg, backend=backend,
+                                    store=lambda: _store(cfg))
         _state.mesh = mesh_lib.Mesh(group=dist.group.WORLD, device=dev,
                                     size=cfg.size, rank=cfg.rank)
         mesh_lib.set_mesh(_state.mesh)
-        if _hosts_tile_world(cfg, dev):
+        if procmesh.coordinator_spec(cfg) is not None:
+            procmesh.build_process_mesh(procmesh.row_owners(
+                cfg.size, cfg.spmd_procs or cfg.size,
+                cfg.spmd_local_devices))
+        elif _hosts_tile_world(cfg, dev):
             mesh_lib.build_mesh(num_slices=cfg.cross_size)
         _state.config = cfg
         _state.initialized = True
@@ -158,6 +171,7 @@ def shutdown():
             return
         installed = mesh_lib.get_mesh()
         dist.destroy_process_group()
+        procmesh.leave()
         _state.mesh.release()
         installed.release()  # a mesh build_mesh installed over this world
         mesh_lib.set_mesh(None)

@@ -1,5 +1,6 @@
 """Environment-variable configuration: the launcher's rank contract, the
-fusion threshold, the wire format and the two-level reduction, under the
+fusion threshold, the wire format, the two-level reduction and the
+process mesh across hosts (``HOROVOD_SPMD_*``), under the
 same ``HOROVOD_*`` names as the JAX package (``horovod_tpu/config.py``)."""
 
 import dataclasses
@@ -58,6 +59,11 @@ class Config:
     # nothing in either package acts on them (hvdrun names them so)
     hierarchical_allgather: bool = False
     adasum_chunk_size: int = 1 << 26
+    # one process mesh across hosts (hvdrun --spmd-procs N
+    # --spmd-local-devices K): N rows of K ranks each, the (dcn, data)
+    # mesh of cluster/procmesh.py; 0 = unset
+    spmd_procs: int = 0
+    spmd_local_devices: int = 0
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -81,4 +87,6 @@ class Config:
             hierarchical_allgather=_env_bool(
                 "HOROVOD_HIERARCHICAL_ALLGATHER"),
             adasum_chunk_size=_env_int("HOROVOD_ADASUM_CHUNK_SIZE", 1 << 26),
+            spmd_procs=_env_int("HOROVOD_SPMD_PROCS", 0),
+            spmd_local_devices=_env_int("HOROVOD_SPMD_LOCAL_DEVICES", 0),
         )

@@ -309,6 +309,41 @@ class DistributedOptimizer(torch.optim.Optimizer):
         return self.optimizer.step()
 
 
+    def update_spmd(self, grads, plan, wire=None, ag_residuals=None):
+        """The GSPMD path's update (``training.make_train_step(spmd=True)``
+        routes here; JAX ``hvd_jax.py:211-245``). ``grads`` (one per
+        parameter of ``self.params``, in that order) are the global-batch
+        mean as the placements leave it: ``Partial`` DTensors, or this
+        rank's local-mean gradients. No allreduce is chained: ZeRO-1 goes
+        through ``gspmd.apply_shards_spmd``, whose redistributions are the
+        reduce-scatter and the all-gather, and plain data parallelism
+        through ``gspmd.reduce_spmd`` (``Partial`` buckets redistributed
+        to ``Replicate()``) and the inner optimizer, whose state keeps
+        its structure, so that ``state_dict()`` and checkpoints are the
+        explicit path's. ``wire``/``ag_residuals`` narrow ZeRO-1's
+        exchange with a cast wire (``apply_shards_spmd``); on plain data
+        parallelism the step narrows the gradients itself. Returns the new
+        residuals under ZeRO-1, else the inner step's result."""
+        from horovod_tpu_torch.parallel import gspmd
+        if self.sharded_update:
+            return gspmd.apply_shards_spmd(self.zero_state, grads, plan,
+                                           wire=wire,
+                                           ag_residuals=ag_residuals)
+        if self.backward_passes_per_step > 1:
+            raise ValueError(
+                "backward_passes_per_step>1 has no GSPMD path: its "
+                "accumulator lives in the explicit pipeline; use "
+                "make_train_step(accum_steps=...) there")
+        if wire is not None or ag_residuals is not None:
+            raise ValueError(
+                "wire=/ag_residuals= narrow the ZeRO-1 "
+                "(sharded_update=True) placement exchange; the plain "
+                "path's cast narrowing lives in the train step itself")
+        gspmd.reduce_spmd(grads, self.params, plan,
+                          threshold_bytes=self.threshold_bytes)
+        return self.optimizer.step()
+
+
 def require_whole_mesh(axes, what):
     """Raise ``NotImplementedError`` unless ``axes`` (in any order: a
     hierarchical schedule's ``("data", "dcn")``) reduce over the whole

@@ -42,6 +42,7 @@ from horovod_tpu_torch.models.simple import _dense
 from horovod_tpu_torch.ops import collective
 from horovod_tpu_torch.ops.reduction import Average
 from horovod_tpu_torch.models.transformer import lecun_normal_
+from horovod_tpu_torch.parallel import gspmd
 
 
 def same_pads(n, kernel, stride):
@@ -166,7 +167,10 @@ class BatchNorm(nn.BatchNorm2d):
     torch's (the weight of the new batch): 0.1. In evaluation mode the
     running averages normalize. ``cross_replica_axes`` (None: per rank)
     synchronizes the batch statistics over those mesh axes
-    (``_SyncBatchNorm``)."""
+    (``_SyncBatchNorm``). A batch-sharded DTensor input (the GSPMD step's)
+    is normalized over the global batch whatever ``cross_replica_axes``
+    says: ``_SyncBatchNorm`` over the axes it is sharded over, as an
+    island (``parallel.gspmd.sync_batch_norm``)."""
 
     def __init__(self, num_features, zero_scale=False,
                  cross_replica_axes=None):
@@ -179,9 +183,15 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        if self.cross_replica_axes is not None:
-            y, mean, var = _SyncBatchNorm.apply(
-                x, self.weight, self.bias, self.eps, self.cross_replica_axes)
+        sharded = gspmd.is_dtensor(x)
+        if sharded or self.cross_replica_axes is not None:
+            if sharded:
+                y, mean, var = gspmd.sync_batch_norm(x, self.weight,
+                                                     self.bias, self.eps)
+            else:
+                y, mean, var = _SyncBatchNorm.apply(
+                    x, self.weight, self.bias, self.eps,
+                    self.cross_replica_axes)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)

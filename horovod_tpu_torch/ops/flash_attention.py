@@ -277,7 +277,16 @@ def _from_bh(x, b, h):
 def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=0,
                     kv_offset=0):
     """Fused attention on [B, S, H, D] tensors (the transformer layout),
-    differentiable through the flash backward kernels."""
+    differentiable through the flash backward kernels. Batch-sharded
+    DTensors (the GSPMD step's) run the kernels on each rank's rows, as
+    an island (``parallel.gspmd.local_attention``): the kernels take raw
+    pointers and have no DTensor sharding rule."""
+    if type(q) is not torch.Tensor:
+        from horovod_tpu_torch.parallel import gspmd
+        if gspmd.is_dtensor(q):
+            return gspmd.local_attention(
+                flash_attention, q, k, v, causal=causal, sm_scale=sm_scale,
+                q_offset=q_offset, kv_offset=kv_offset)
     b, sq, h, d = q.shape
     if not kernel_supported(sq, k.shape[1], d):
         raise ValueError(
@@ -360,7 +369,15 @@ def flash_attention_bwd_block(q, k, v, g, lse, delta, *, causal=True,
 def attention(q, k, v, *, causal=True, q_offset=0, kv_offset=0):
     """``flash_attention`` where the kernels take the shapes, else K1's
     plain version (differentiable PyTorch): both compute the same
-    function, so the result does not depend on the route."""
+    function, so the result does not depend on the route. Batch-sharded
+    DTensors take the same route on each rank's rows
+    (``flash_attention``'s island)."""
+    if type(q) is not torch.Tensor:
+        from horovod_tpu_torch.parallel import gspmd
+        if gspmd.is_dtensor(q):
+            return gspmd.local_attention(attention, q, k, v, causal=causal,
+                                         q_offset=q_offset,
+                                         kv_offset=kv_offset)
     b, sq, h, d = q.shape
     if kernel_supported(sq, k.shape[1], d):
         return flash_attention(q, k, v, causal=causal, q_offset=q_offset,

@@ -131,6 +131,29 @@ def apply_shards(zstate, grad_shards, wire=None, ag_residuals=None):
     delta shard is carried into the next step's. Returns the new
     residuals (None without ``ag_residuals``)."""
     schedule = zstate.plan.schedule
+    new_residuals = (list(ag_residuals) if ag_residuals is not None
+                     else None)
+    for i, delta in enumerate(step_rows(zstate, grad_shards)):
+        if wire is None:
+            flat = fusion.all_gather_bucket(schedule, i, delta)
+        else:
+            flat, res = fusion.all_gather_bucket_compressed(
+                schedule, i, delta, wire,
+                residual=None if ag_residuals is None else ag_residuals[i])
+            if new_residuals is not None:
+                new_residuals[i] = res
+        add_bucket(zstate, i, flat)
+    return new_residuals
+
+
+@torch.no_grad()
+def step_rows(zstate, grad_shards):
+    """Step the inner optimizer on this rank's rows with its reduced
+    gradient shards (one per bucket, in schedule order) and return each
+    row's parameter delta (rows after - rows before), the payload the
+    all-gather half spreads. The explicit exchange (``apply_shards``)
+    and the GSPMD one (``gspmd.apply_shards_spmd``) share it."""
+    schedule = zstate.plan.schedule
     if len(grad_shards) != len(schedule.buckets):
         raise ValueError(f"{len(grad_shards)} gradient shards for "
                          f"{len(schedule.buckets)} buckets")
@@ -140,22 +163,19 @@ def apply_shards(zstate, grad_shards, wire=None, ag_residuals=None):
         row.copy_(start)
         row.grad = grad.to(row.dtype)
     zstate.inner.step()
-    new_residuals = (list(ag_residuals) if ag_residuals is not None
-                     else None)
-    for i, (row, start) in enumerate(zip(zstate.rows, before)):
+    deltas = []
+    for row, start in zip(zstate.rows, before):
         row.grad = None
-        if wire is None:
-            flat = fusion.all_gather_bucket(schedule, i, row - start)
-        else:
-            flat, res = fusion.all_gather_bucket_compressed(
-                schedule, i, row - start, wire,
-                residual=None if ag_residuals is None else ag_residuals[i])
-            if new_residuals is not None:
-                new_residuals[i] = res
-        for j, delta in fusion.unpack_bucket(schedule, i, flat,
-                                             zstate.params).items():
-            zstate.params[j].add_(delta)
-    return new_residuals
+        deltas.append(row - start)
+    return deltas
+
+
+@torch.no_grad()
+def add_bucket(zstate, idx, flat):
+    """Add bucket ``idx``'s gathered flat deltas to the parameters."""
+    for j, delta in fusion.unpack_bucket(zstate.plan.schedule, idx, flat,
+                                         zstate.params).items():
+        zstate.params[j].add_(delta)
 
 
 @torch.no_grad()

@@ -20,12 +20,16 @@ TASK = "horovod_tpu_torch.run.run_task"
 
 
 def run(fn, args=(), kwargs=None, np=1, hosts=None, extra_env=None,
-        timeout=300):
+        timeout=300, use_jax_coordinator=False):
     """Run ``fn(*args, **kwargs)`` in ``np`` processes and return the
     list of their return values, in rank order. ``hosts`` is ``-H``'s
     ``"h1:2,h2:2"`` (default: ``np`` slots on this machine). Raises
     ``RuntimeError`` with the traceback of a rank whose ``fn`` raised.
-    Without ``cloudpickle``, ``fn`` must be importable by the workers."""
+    Without ``cloudpickle``, ``fn`` must be importable by the workers.
+    ``use_jax_coordinator`` names the run's rendezvous in
+    ``HOROVOD_COORDINATOR_ADDR``, so that ``init()`` installs one process
+    mesh over the ranks (``cluster/procmesh.py``; the rows are
+    ``HOROVOD_SPMD_PROCS`` of ``extra_env``, else one a rank)."""
     kwargs = kwargs or {}
     host_list = (allocation.parse_hosts(hosts) if hosts
                  else [allocation.HostSlots("localhost", np)])
@@ -49,6 +53,9 @@ def run(fn, args=(), kwargs=None, np=1, hosts=None, extra_env=None,
         env[_secret.SECRET_ENV] = _secret.encode_key(auth_key)
     env["PYTHONPATH"] = launcher.repo_pythonpath(
         env if "PYTHONPATH" in env else None)
+    if use_jax_coordinator:
+        env["HOROVOD_COORDINATOR_ADDR"] = \
+            f"{controller_addr}:{rendezvous_port}"
 
     job = launcher.launch(slots, [sys.executable, "-m", TASK],
                           controller_addr, 0,

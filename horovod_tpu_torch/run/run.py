@@ -5,7 +5,10 @@
     hvdrun-torch -np 4 --config-file cfg.yaml python train.py
 
 The parser is the JAX package's, so one argv parses to the same
-namespace in both. The launch is the fixed-size one. Flags whose plane
+namespace in both. The launch is the fixed-size one. ``--spmd-procs N
+--spmd-local-devices K`` launches N x K ranks as one ``(dcn N, data K)``
+process mesh (``cluster/procmesh.py``): the JAX package's N processes of
+K devices, one rank to a device. Flags whose plane
 the port has not yet are refused with exit code 2 and the ``ROADMAP.md``
 item that brings them (``REFUSED``). Tuning flags set the same
 ``HOROVOD_*`` env as the JAX package's; of each the port's ``init()``
@@ -37,12 +40,6 @@ REFUSED = (
     ("doctor", "--doctor", "the diagnosis plane", 5),
     ("goodput_report", "--goodput-report", "the telemetry plane", 5),
     ("merge_timeline", "--merge-timeline", "the telemetry plane", 5),
-    ("jax_coordinator", "--jax-coordinator",
-     "one process mesh across processes (cluster/procmesh.py)", 4),
-    ("spmd_procs", "--spmd-procs",
-     "one process mesh across processes (cluster/procmesh.py)", 4),
-    ("spmd_local_devices", "--spmd-local-devices",
-     "one process mesh across processes (cluster/procmesh.py)", 4),
 )
 
 
@@ -120,11 +117,21 @@ def build_parser():
     p.add_argument("--config-file", default=None,
                    help="YAML file providing any of the tuning params")
     p.add_argument("--jax-coordinator", action="store_true",
-                   help="refused: ROADMAP.md Queue 1 item 4")
+                   help="name the job's rendezvous in "
+                        "HOROVOD_COORDINATOR_ADDR, so that init() installs "
+                        "one process mesh over every rank "
+                        "(cluster/procmesh.py)")
     p.add_argument("--spmd-procs", type=int, default=None, metavar="N",
-                   help="refused: ROADMAP.md Queue 1 item 4")
+                   help="run the job as ONE logical (dcn, data) mesh of N "
+                        "rows (hosts) of --spmd-local-devices ranks each "
+                        "(implies --jax-coordinator; defaults -np to N x "
+                        "K)")
     p.add_argument("--spmd-local-devices", type=int, default=None,
-                   metavar="K", help="refused: ROADMAP.md Queue 1 item 4")
+                   metavar="K",
+                   help="ranks in each --spmd-procs row (sets "
+                        "HOROVOD_SPMD_LOCAL_DEVICES; one rank drives one "
+                        "device, so on the CPU the K ranks of a row stand "
+                        "in for a host's devices)")
     p.add_argument("--network-interface", "--nic", dest="nic", default=None,
                    help="restrict control-plane traffic to this interface "
                         "(skips automatic interface discovery)")
@@ -199,6 +206,26 @@ def parse_args(argv=None):
                          f"does not have yet (ROADMAP.md Queue 1 item "
                          f"{item})")
     args.elastic = False
+    if args.spmd_procs is not None:
+        # the JAX launcher's N processes of K devices are N x K ranks
+        # here, a rank to a device (run/run.py:220-236 of the JAX package)
+        if args.spmd_procs < 1:
+            parser.error(f"--spmd-procs must be >= 1 "
+                         f"(got {args.spmd_procs})")
+        local = args.spmd_local_devices or 1
+        if local < 1:
+            parser.error(f"--spmd-local-devices must be >= 1 (got {local})")
+        ranks = args.spmd_procs * local
+        if args.num_proc is None:
+            args.num_proc = ranks
+        elif args.num_proc != ranks:
+            parser.error(f"--spmd-procs ({args.spmd_procs}) x "
+                         f"--spmd-local-devices ({local}) must equal -np "
+                         f"({args.num_proc}): one rank per device of the "
+                         "mesh")
+        args.jax_coordinator = True
+    elif args.spmd_local_devices is not None:
+        parser.error("--spmd-local-devices requires --spmd-procs")
     # after the config overlay: the YAML may supply num-proc
     if not args.check_build and args.num_proc is None:
         parser.error("-np/--num-proc is required")
@@ -311,6 +338,22 @@ def _base_worker_env(args, auth_key, all_local, hosts, rendezvous_port):
     return extra_env
 
 
+def spmd_env(args, controller_addr, rendezvous_port):
+    """The workers' env of one process mesh across rows: the job's
+    rendezvous (the key-value store the launcher already runs) as
+    ``HOROVOD_COORDINATOR_ADDR``, and ``HOROVOD_SPMD_PROCS`` /
+    ``HOROVOD_SPMD_LOCAL_DEVICES`` (``cluster/procmesh.py`` reads them)."""
+    env = {}
+    if args.jax_coordinator:
+        env["HOROVOD_COORDINATOR_ADDR"] = f"{controller_addr}:" \
+                                          f"{rendezvous_port}"
+    if args.spmd_procs is not None:
+        env["HOROVOD_SPMD_PROCS"] = str(args.spmd_procs)
+        if args.spmd_local_devices:
+            env["HOROVOD_SPMD_LOCAL_DEVICES"] = str(args.spmd_local_devices)
+    return env
+
+
 def _run(args):
     if not args.command:
         raise SystemExit("hvdrun: no training command given")
@@ -326,6 +369,7 @@ def _run(args):
     try:
         extra_env = _base_worker_env(args, auth_key, all_local, hosts,
                                      rendezvous_port)
+        extra_env.update(spmd_env(args, controller_addr, rendezvous_port))
         if args.verbose:
             print(f"hvdrun: launching {args.num_proc} processes: "
                   f"{[(s.rank, s.hostname, s.local_rank) for s in slots]}",

@@ -74,7 +74,7 @@ def _batch_stats(model):
 
 def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                     dropout_seed=0, accum_steps=1, overlap_grads=False,
-                    error_feedback=True, loader=None):
+                    error_feedback=True, loader=None, spmd=False):
     """Build a classification train step over the data axis.
     ``step(inputs, labels)`` takes this rank's shard of the batch, puts
     the model in training mode, runs forward, backward and the optimizer
@@ -133,7 +133,20 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
     ``models.simple.MNISTConvNet``) is given a generator seeded from
     ``dropout_seed``, ``state.step``, this rank and the microbatch index,
     so every rank and microbatch draws its own masks, and a run restored
-    with its ``StepState`` draws the masks of the unbroken run."""
+    with its ``StepState`` draws the masks of the unbroken run.
+
+    ``spmd=True`` builds the GSPMD step instead (``_make_spmd_train_step``,
+    ``parallel/gspmd.py``): ``step(inputs, labels)`` takes the GLOBAL
+    batch, the same on every rank, the placements own the exchange, the
+    loss is the global-batch mean, BatchNorm normalizes with global-batch
+    statistics and dropout draws one stream a step. It refuses
+    ``accum_steps`` and ``overlap_grads``, the explicit pipeline's
+    knobs."""
+    if spmd:
+        return _make_spmd_train_step(
+            model, optimizer, loss_fn=loss_fn, dropout_seed=dropout_seed,
+            accum_steps=accum_steps, overlap_grads=overlap_grads,
+            error_feedback=error_feedback, loader=loader)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     pipelined = overlap_grads or accum_steps > 1
@@ -365,7 +378,7 @@ def _add_waited(acc, pending):
 
 
 def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
-                       seq_axis=None):
+                       seq_axis=None, spmd=False):
     """Build a language-model train step (next-token loss).
     ``optimizer`` is a ``DistributedOptimizer`` (any exchange: fused
     allreduce, ZeRO-1, ``backward_passes_per_step``) whose axes are the
@@ -392,7 +405,21 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
     gradients over both axes gives the full-sequence mean loss and
     gradient. The normalization is the same without ``seq_axis``: the
     local sum is scaled by ``n_shards / global_count``, exact even when
-    ranks hold different numbers of targets."""
+    ranks hold different numbers of targets.
+
+    ``spmd=True`` builds the GSPMD LM step (``_make_spmd_lm_train_step``):
+    ``step(tokens)`` takes the GLOBAL ``[B, S]`` batch and the
+    placements own the exchange. It refuses ``seq_axis``: a sharded
+    sequence needs the ring's collectives, which the explicit step
+    runs."""
+    if spmd:
+        if seq_axis is not None:
+            raise ValueError(
+                "make_lm_train_step(spmd=True) shards the batch only; a "
+                "sequence axis is the explicit step's (spmd=False), whose "
+                "ring attention moves the K/V blocks")
+        return _make_spmd_lm_train_step(model, optimizer, mesh=mesh,
+                                        batch_axis=batch_axis)
     if not isinstance(optimizer, hvd_torch.DistributedOptimizer):
         raise TypeError("make_lm_train_step needs a DistributedOptimizer")
     installed = mesh_lib.get_mesh()
@@ -475,3 +502,392 @@ def shard_lm_batch(tokens, batch_axis=None, seq_axis=None):
         size = tokens.shape[dim] // n
         tokens = tokens.narrow(dim, i * size, size)
     return tokens
+
+
+# -- the GSPMD steps (parallel/gspmd.py) ------------------------------------
+
+def _spmd_gate(optimizer, what):
+    """The GSPMD builders' checks (JAX ``training.py:661``): torch's
+    DTensor API and the optimizer's contract. Returns the resolved wire
+    format (None or a compressor: a chunked one runs as an island, a
+    cast one narrows the placement exchange)."""
+    from horovod_tpu_torch.parallel import gspmd
+
+    ok, reason = gspmd.gspmd_supported()
+    if not ok:
+        raise RuntimeError(
+            f"{what}(spmd=True) needs torch's DTensor API: {reason}. Use "
+            "the explicit pipeline (spmd=False) on this torch; "
+            "parallel/gspmd.gspmd_supported owns this gate.")
+    if not isinstance(optimizer, hvd_torch.DistributedOptimizer):
+        raise ValueError(
+            f"{what}(spmd=True) needs the optimizer built by "
+            "DistributedOptimizer(...): the GSPMD step routes its "
+            "gradient exchange through the plan")
+    if optimizer.op != Average:
+        raise ValueError(
+            f"the GSPMD step computes the global-batch mean loss, which is "
+            f"op=Average; got {optimizer.op!r}. Adasum/Sum/Min/Max "
+            "reductions live on the explicit path (spmd=False)")
+    if optimizer.backward_passes_per_step > 1:
+        raise ValueError(
+            "backward_passes_per_step>1 has no GSPMD path: its "
+            "accumulator lives in the explicit pipeline")
+    return optimizer.compression
+
+
+class _SpmdProgram:
+    """What both GSPMD steps share (JAX ``_SpmdProgram``,
+    ``training.py:691``, without the jit: the placement program runs op
+    by op): the plan, the model's parameters as ``Replicate()`` DTensors,
+    the batch placement, and the accounting of the collectives (one
+    record per batch signature, ``gspmd.CompiledProgramCache``).
+
+    The DTensor parameters share each parameter's storage
+    (``gspmd.param_views``), and the model runs on them through
+    ``torch.func.functional_call``; the module keeps its own parameters,
+    which the optimizer updates in place. So the optimizer is never
+    rebound: its state, hyperparameters, ``state_dict()`` and the
+    checkpoints (``convert``) are the explicit path's, and a
+    ``load_state_dict`` of the model or the optimizer is the step's next
+    state. A parameter whose storage was replaced (``module.to``) gets a
+    new view at the next step."""
+
+    def __init__(self, plan, model, optimizer):
+        from horovod_tpu_torch.parallel import gspmd
+        self.plan = plan
+        self.model = model
+        names = {id(p): n for n, p in model.named_parameters()}
+        missing = [i for i, p in enumerate(optimizer.params)
+                   if id(p) not in names]
+        if missing:
+            raise ValueError(
+                f"the optimizer's parameters {missing} are not the "
+                "model's: the GSPMD step runs the model on its own "
+                "parameters")
+        self.order = [names[id(p)] for p in optimizer.params]
+        self._params = dict(model.named_parameters())
+        self._views = None
+        self.views()  # the parameters' Replicate() DTensors, at build
+        self._cache = gspmd.CompiledProgramCache(mesh=plan.mesh)
+        self.batch_placements = plan.placements(plan.batch_spec)
+        self.compiled_collectives = None
+        self.compiled_axis_collectives = None
+
+    def views(self):
+        from horovod_tpu_torch.parallel import gspmd
+        fresh = self._views is not None and all(
+            self._views[n]._local_tensor.data_ptr() == p.data_ptr()
+            for n, p in self._params.items())
+        if not fresh:
+            self._params = dict(self.model.named_parameters())
+            self._views = gspmd.param_views(self.plan,
+                                            self._params.items())
+        return self._views
+
+    def take_grads(self):
+        """The views' gradients in the optimizer's order, cleared."""
+        grads = []
+        for n in self.order:
+            v = self._views[n]
+            grads.append(v.grad)
+            v.grad = None
+        return grads
+
+    def place(self, x):
+        """A global batch (the same on every rank) as this rank's rows of
+        a batch-sharded DTensor, with no collective
+        (``procmesh.shard_from_global``); a placed DTensor as it is."""
+        from horovod_tpu_torch.cluster import procmesh
+        if not torch.is_tensor(x):
+            x = torch.as_tensor(x)
+        return procmesh.place(x, self.plan.device_mesh,
+                              self.batch_placements)
+
+    def run(self, fn, *args):
+        out = self._cache.run(fn, *args)
+        self.compiled_collectives = self._cache.last_collectives
+        self.compiled_axis_collectives = self._cache.last_axis_collectives
+        return out
+
+
+def _spmd_wire_drift_checker(optimizer, wire):
+    """Warn once when ``optimizer.compression`` no longer resolves to the
+    format the GSPMD step was built with (JAX ``training.py:773``): the
+    step fixes its exchange (the island, the narrowed placements, or
+    neither) when it is built."""
+    warned = [False]
+
+    def check():
+        if warned[0]:
+            return
+        now = optimizer.compression
+        if now is not wire:
+            warned[0] = True
+            built = (f"built with {wire.name!r}" if wire is not None
+                     else "built uncompressed")
+            warnings.warn(
+                f"optimizer.compression now resolves to "
+                f"{getattr(now, 'name', None)!r} but this GSPMD step was "
+                f"{built}: the wire format is fixed when make_train_step "
+                "runs. Rebuild the step after setting HOROVOD_WIRE_DTYPE "
+                "for the new format to take effect.", stacklevel=3)
+
+    return check
+
+
+def _spmd_step_common(step, prog, plan, state):
+    step.state = state
+    step.plan = plan
+    step.spmd = True
+    step.compiled_collectives = None  # set at the first call
+    step.compiled_axis_collectives = None
+    step.program = prog
+
+
+def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
+                          dropout_seed=0, accum_steps=1, overlap_grads=False,
+                          error_feedback=True, loader=None):
+    """The GSPMD step behind ``make_train_step(spmd=True)`` (JAX
+    ``training.py:804``). ``step(inputs, labels)`` takes the global batch,
+    the same on every rank (or DTensors already placed); each rank keeps
+    its rows (``procmesh.shard_from_global``). The model runs on
+    ``Replicate()`` parameters (see ``_SpmdProgram``) and batch-sharded
+    inputs; its parameters' gradients leave the backward ``Partial``, and
+    ``DistributedOptimizer.update_spmd`` reduces them by redistributing
+    (DTensor issues the all-reduce, or ZeRO-1's reduce-scatter and
+    all-gather): the step's own code calls no collective. It returns the
+    loss, the global-batch mean, as an fp32 scalar on this rank's device,
+    the same on every rank (one scalar collective). ``step.state``,
+    ``step.plan``, ``step.spmd`` and ``step.compiled_collectives`` /
+    ``compiled_axis_collectives`` (the collectives of the first call of
+    the latest batch signature) ride on the step.
+
+    Semantics, as the JAX step's (``training.py:143-146``): the loss is
+    the global-batch mean; BatchNorm normalizes with global-batch
+    statistics (``models.resnet.BatchNorm`` runs
+    ``gspmd.sync_batch_norm`` on a DTensor); a model that takes
+    ``dropout_generator`` draws its masks from a generator keyed by
+    ``dropout_seed`` and the step only, at the global batch's shape, so
+    each rank's mask is its rows of one mask whatever the world.
+
+    Wire compression is built in place, never a fallback:
+
+    * a chunked quantizer (fp8, int8) runs the explicit overlapped step
+      (per-shard forward and backward, the compressed bucket exchange,
+      error feedback, per-shard BatchNorm statistics averaged after,
+      per-rank dropout) as one island (``gspmd.shard_map_island``);
+    * a cast wire (bf16, float16) keeps the placement program: ZeRO-1's
+      rows are cast before both redistributions (delta error feedback on
+      the all-gather half); plain data parallelism reduces its gradient
+      buckets at the wire dtype (stateless).
+    """
+    from horovod_tpu_torch.parallel import gspmd
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    wire = _spmd_gate(optimizer, "make_train_step")
+    if accum_steps != 1 or overlap_grads:
+        raise ValueError(
+            "accum_steps/overlap_grads are the explicit pipeline's "
+            "microbatch knobs; the GSPMD step runs the whole batch through "
+            "the placements")
+    if any(isinstance(m, nn.SyncBatchNorm) for m in model.modules()):
+        raise NotImplementedError(
+            "torch's nn.SyncBatchNorm keeps an unbiased running variance; "
+            "the GSPMD step normalizes models.resnet.BatchNorm over the "
+            "global batch")
+    mesh = mesh_lib.get_mesh()
+    plan = gspmd.derive_plan(mesh)
+    sharded = optimizer.sharded_update
+    chunked = wire is not None and wire.chunked
+    use_ef = wire is not None and error_feedback and (chunked or sharded)
+    prog = _SpmdProgram(plan, model, optimizer)
+    check_wire_drift = _spmd_wire_drift_checker(optimizer, wire)
+    takes_rng = "dropout_generator" in inspect.signature(
+        model.forward).parameters
+    residuals = None  # the cast + ZeRO-1 path's all-gather carry
+
+    if chunked:
+        # the explicit overlapped step, whole, as the island
+        inner = make_train_step(model, optimizer, loss_fn=loss_fn,
+                                dropout_seed=dropout_seed,
+                                overlap_grads=True,
+                                error_feedback=error_feedback)
+        state = inner.state
+        spec = plan.batch_spec
+        global_step = gspmd.shard_map_island(
+            inner, plan, in_specs=(spec, spec), out_specs=())
+    else:
+        state = StepState()
+
+        def global_step(inputs, labels):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)  # free the last grads
+            views = prog.views()
+            kwargs = {}
+            if takes_rng:
+                kwargs["dropout_generator"] = _dropout_generator(
+                    mesh.device, dropout_seed, state.step)
+            with implicit_replication():
+                logits = torch.func.functional_call(model, views, (inputs,),
+                                                    kwargs)
+                loss = loss_fn(logits, labels)
+                # the backward of an op that mixed in a host tensor
+                # (positions, a dropout mask) mixes it in again
+                loss.backward()
+            grads = prog.take_grads()
+            with torch.no_grad():
+                if wire is not None and not sharded:
+                    grads = [None if g is None else
+                             gspmd.narrow(g, wire.wire_dtype) for g in grads]
+                if wire is not None and sharded:
+                    new_ag = optimizer.update_spmd(
+                        grads, plan, wire=wire,
+                        ag_residuals=residuals if use_ef else None)
+                    if use_ef:
+                        residuals[:] = new_ag
+                else:
+                    optimizer.update_spmd(grads, plan)
+            return gspmd.full_value(loss, plan)
+
+    if loader is not None:
+        loader.attach_placement(data.device_placement(mesh.device),
+                                spec=(plan.device_mesh,
+                                      tuple(prog.batch_placements)))
+
+    def loader_batch():
+        if loader is None:
+            raise TypeError(
+                "step() with no batch needs a loader: build the step with "
+                "make_train_step(..., loader=...) or pass (inputs, labels)")
+        batch = next(loader)
+        if not (isinstance(batch, (tuple, list)) and len(batch) == 2):
+            raise TypeError(
+                "the loader's source must yield (inputs, labels) batches "
+                f"for this step; got {type(batch).__name__}")
+        return data.ready(batch)
+
+    def step(inputs=None, labels=None):
+        nonlocal residuals
+        if inputs is None and labels is None:
+            inputs, labels = loader_batch()
+        elif inputs is None or labels is None:
+            raise TypeError("step() takes (inputs, labels), or nothing "
+                            "when a loader feeds it")
+        check_wire_drift()
+        placed = (prog.place(inputs), prog.place(labels))
+        if use_ef and not chunked and residuals is None:
+            schedule = optimizer.zero_state.plan.schedule
+            residuals = [torch.zeros(
+                n if b.dtype.is_floating_point else 0, dtype=torch.float32,
+                device=mesh.device)
+                for b, n in zip(schedule.buckets, schedule.shard_sizes)]
+        try:
+            loss = prog.run(global_step, *placed)
+        except BaseException:
+            residuals = None
+            raise
+        step.compiled_collectives = prog.compiled_collectives
+        step.compiled_axis_collectives = prog.compiled_axis_collectives
+        if chunked:
+            return loss.to_local()
+        state.step += 1
+        return loss
+
+    def reset_error_feedback():
+        """Drop the carried residuals; the next step starts from zeros."""
+        nonlocal residuals
+        residuals = None
+        if chunked:
+            inner.reset_error_feedback()
+
+    _spmd_step_common(step, prog, plan, state)
+    step.wire = wire
+    step.reset_error_feedback = reset_error_feedback
+    step.residuals = (inner.residuals if chunked else lambda: residuals)
+    return step
+
+
+def _make_spmd_lm_train_step(model, optimizer, mesh=None, batch_axis=None):
+    """The GSPMD LM step behind ``make_lm_train_step(spmd=True)`` (JAX
+    ``training.py:1248``): ``step(tokens)`` takes the global ``[B, S]``
+    batch (the same on every rank, or a DTensor already placed), runs the
+    model on ``Replicate()`` parameters and batch-sharded tokens, and
+    returns the next-token loss, the global-batch mean, as an fp32
+    scalar on this rank's device, the same on every rank. The flash
+    kernels run as an island a layer (``gspmd.local_attention``, through
+    ``ops/flash_attention.attention``); the step's own code calls no
+    collective. The step carries what ``_make_spmd_train_step``'s does.
+
+    Compression is built in place, as there, and stateless (no error
+    feedback, as the explicit LM step's ``optimizer.step()``): a chunked
+    wire runs the explicit LM step whole as an island; a cast wire
+    narrows ZeRO-1's placement exchange, or the plain path's gradient
+    buckets."""
+    from horovod_tpu_torch.parallel import gspmd
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    wire = _spmd_gate(optimizer, "make_lm_train_step")
+    installed = mesh_lib.get_mesh()
+    if mesh is not None and mesh is not installed:
+        raise ValueError("make_lm_train_step(mesh=...) must be the installed "
+                         "mesh: parallel.mesh.build_mesh installs the mesh "
+                         "it builds")
+    mesh = installed
+    if batch_axis is None:
+        batch_axis = mesh_lib.data_axis_names(mesh)
+    batch_axes = ((batch_axis,) if isinstance(batch_axis, str)
+                  else tuple(batch_axis))
+    if mesh.group_of(batch_axes)[1] != mesh.group_of(optimizer.axes)[1]:
+        raise ValueError(
+            f"the optimizer reduces over {optimizer.axes!r}, the step over "
+            f"{batch_axes}: build DistributedOptimizer(axes={batch_axes})")
+    plan = gspmd.derive_plan(mesh)
+    if set(batch_axes) != set(plan.data_axes):
+        raise ValueError(f"the GSPMD LM step shards the batch over the data "
+                         f"axes {plan.data_axes}, not {batch_axes}")
+    sharded = optimizer.sharded_update
+    chunked = wire is not None and wire.chunked
+    prog = _SpmdProgram(plan, model, optimizer)
+    check_wire_drift = _spmd_wire_drift_checker(optimizer, wire)
+
+    if chunked:
+        inner = make_lm_train_step(model, optimizer, batch_axis=batch_axis)
+        state = inner.state
+        global_step = gspmd.shard_map_island(
+            inner, plan, in_specs=(plan.batch_spec,), out_specs=())
+    else:
+        state = StepState()
+
+        def global_step(tokens):
+            optimizer.zero_grad(set_to_none=True)  # free the last grads
+            views = prog.views()
+            with implicit_replication():
+                logits = torch.func.functional_call(model, views, (tokens,))
+                loss = softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
+                loss.backward()
+            grads = prog.take_grads()
+            with torch.no_grad():
+                if wire is not None and not sharded:
+                    grads = [None if g is None else
+                             gspmd.narrow(g, wire.wire_dtype) for g in grads]
+                if wire is not None and sharded:
+                    optimizer.update_spmd(grads, plan, wire=wire)
+                else:
+                    optimizer.update_spmd(grads, plan)
+            return gspmd.full_value(loss, plan)
+
+    def step(tokens):
+        check_wire_drift()
+        placed = prog.place(tokens)
+        loss = prog.run(global_step, placed)
+        step.compiled_collectives = prog.compiled_collectives
+        step.compiled_axis_collectives = prog.compiled_axis_collectives
+        if chunked:
+            return loss.to_local()
+        state.step += 1
+        return loss
+
+    _spmd_step_common(step, prog, plan, state)
+    step.wire = wire
+    return step

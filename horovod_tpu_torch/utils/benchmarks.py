@@ -56,7 +56,8 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
                   sharded_update=False, mesh=None, seq_axis=None,
                   op="average", hierarchical=None, model_axis=None,
                   expert_axis=None, moe_every=0, num_experts=8, moe_top_k=1,
-                  moe_capacity_factor=2.0, moe_num_groups=1):
+                  moe_capacity_factor=2.0, moe_num_groups=1, spmd=False,
+                  compression=None):
     """The LM benchmark: the transformer LM at the given widths, AdamW
     through ``DistributedOptimizer`` (its buckets packed in the flax leaf
     order; ZeRO-1 with ``sharded_update``; ``op`` and ``hierarchical``
@@ -78,7 +79,12 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
     are ``TransformerConfig``'s) the model is this rank's shard over
     those axes of ``mesh`` (``parallel.tensor.shard_lm_state``), trained
     by ``make_tp_lm_train_step`` with a plain AdamW over the ``data``
-    axis, as the JAX package's tensor-parallel and MoE examples do."""
+    axis, as the JAX package's tensor-parallel and MoE examples do.
+
+    ``spmd`` builds the GSPMD step (``make_lm_train_step(spmd=True)``),
+    whose ``tokens`` are the global batch: every rank's batch of the
+    data-parallel form, in rank order, so each rank's rows are the ones
+    it trains on there. ``compression`` is ``DistributedOptimizer``'s."""
     from horovod_tpu_torch import basics, convert, hvd_torch, training
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
@@ -128,17 +134,19 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
     opt = hvd_torch.DistributedOptimizer(
         inner, named_parameters=convert.flax_named_parameters(model),
         sharded_update=sharded_update, axes=axes, op=op,
-        hierarchical=hierarchical)
+        hierarchical=hierarchical, compression=compression)
     training.create_train_state(model, opt)
     if mesh is None:
-        rng = np.random.default_rng(seed + basics.rank())
-        tokens = torch.from_numpy(rng.integers(
-            0, vocab, size=(batch, seq_len)).astype(np.int64)).to(device)
+        ranks = range(basics.size()) if spmd else [basics.rank()]
+        tokens = torch.cat([torch.from_numpy(
+            np.random.default_rng(seed + r).integers(
+                0, vocab, size=(batch, seq_len)).astype(np.int64))
+            for r in ranks]).to(device)
     else:
         tokens = global_batch()
     step = training.make_lm_train_step(model, opt, mesh=mesh,
                                        batch_axis=batch_axes,
-                                       seq_axis=seq_axis)
+                                       seq_axis=seq_axis, spmd=spmd)
     return step, model, opt, tokens
 
 

@@ -76,3 +76,19 @@ def test_phase_14_rehearsed(rehearsal, phase):
         cs.phase_ep_resume(fa, torch, DEV, bench)
     else:
         cs.phase_multi_steps_resume(hvd_t, fa, torch, DEV, bench)
+
+
+def test_phase_15_rehearsed(rehearsal, monkeypatch):
+    """15a-15d (the GSPMD LM steps against phase 5's and 6a's losses,
+    the int8 island and the bf16 cast wire, the checkpoints crossing
+    between the explicit and the GSPMD ZeRO-1 steps): every hold passes,
+    as on the card."""
+    monkeypatch.setattr(cs, "profile_step", lambda *a, **k: None)
+    losses, _, tok_s = cs.phase_full(hvd_t, fa, torch, bench)
+    hvd_t.init()
+    step, _, _, tokens = cs._lm_bench(bench, torch,
+                                      seq_len=cs.LM["seq_len"],
+                                      sharded_update=True)
+    losses_6a = [float(step(tokens)) for _ in range(cs.STEPS)]
+    hvd_t.shutdown()
+    cs.phase_spmd(hvd_t, fa, torch, bench, losses, tok_s, losses_6a, 1)

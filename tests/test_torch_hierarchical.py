@@ -487,6 +487,20 @@ def rank_checks(out_dir, state_path):
     res["zero_saved_rows"] = np.asarray(sorted(
         {int(row) for leaf in payload["zero"].values()
          for rows in leaf["rows"].values() for row in rows}))
+    # one process mesh over 2 rows of 2 ranks, and the GSPMD step on it
+    from horovod_tpu_torch.cluster import procmesh
+    import test_torch_gspmd as tg
+    pm = procmesh.build_process_mesh(procmesh.row_owners(4, 2))
+    res["procmesh"] = np.asarray(list(pm.axis_names) + list(pm.shape))
+    for hier in (False, True):
+        tag = "spmd_hier" if hier else "spmd_flat"
+        res[f"{tag}/explicit"] = np.asarray(tg.run_1b4(False, hier)[0])
+        losses, _, _, step = tg.run_1b4(True, hier)
+        res[f"{tag}/losses"] = np.asarray(losses)
+        res[f"{tag}/axes"] = np.asarray(sorted(
+            (label, op, v["calls"])
+            for label, v in step.compiled_axis_collectives.items()
+            for op in v["ops"])).astype(str)
     tmesh.build_mesh((4,), ("data",))
     res["group/ada_flat"] = collective.allreduce(
         torch.from_numpy(_group_inputs()["ada"][r]), op=hvd_t.Adasum).numpy()
@@ -676,7 +690,11 @@ def test_four_gloo_ranks_two_level_adasum_and_sync_bn(tmp_path):
     Adasum in their group form equal the in-process form bit for bit;
     synchronized BatchNorm matches flax's
     ``BatchNorm(axis_name="data")`` (outputs and statistics within 1e-5,
-    gradients within 1e-4 of the largest)."""
+    gradients within 1e-4 of the largest); ``procmesh.build_process_mesh``
+    of 2 rows of 2 installs the same (dcn, data) mesh, and on it the
+    GSPMD ZeRO-1 step (flat and ICI-first rows) holds the dryrun's 1b4
+    bar against the explicit overlapped step, its collectives over the
+    axes its rows are sharded over."""
     start = _flax_start()
     model = _torch_resnet()
     model.load_state_dict(convert.params_from_flax(start[0], model),
@@ -744,6 +762,22 @@ def test_four_gloo_ranks_two_level_adasum_and_sync_bn(tmp_path):
             np.testing.assert_allclose(loss, j_loss, rtol=1e-5)
             _assert_params(params, o_params, f"{tag} rank {r} vs oracle")
             _assert_params(params, j_params, f"{tag} rank {r} vs JAX")
+    # one process mesh of 2 rows (build_process_mesh) and the GSPMD ZeRO-1
+    # step on it against the explicit overlapped step: flat rows ride the
+    # whole mesh in one collective, ICI-first rows a collective an axis
+    for r, res in enumerate(ranks):
+        assert list(res["procmesh"]) == ["dcn", "data", "2", "2"]
+        for tag in ("spmd_flat", "spmd_hier"):
+            got, want = res[f"{tag}/losses"], res[f"{tag}/explicit"]
+            assert np.max(np.abs(got - want) / np.abs(want)) <= 1e-4, \
+                (tag, got, want)
+        assert {tuple(x[:2]) for x in res["spmd_flat/axes"]} == {
+            ("dcn+data", "all-gather"), ("dcn+data", "all-reduce"),
+            ("dcn+data", "reduce-scatter")}
+        assert {tuple(x[:2]) for x in res["spmd_hier/axes"]} == {
+            ("data", "reduce-scatter"), ("dcn", "reduce-scatter"),
+            ("data", "all-gather"), ("dcn", "all-gather"),
+            ("dcn+data", "all-reduce")}
     # synchronized BatchNorm against flax
     want = _jax_sync_bn()
     grad_scale = {k: float(np.abs(want[k]).max()) for k in ("dx", "dw",

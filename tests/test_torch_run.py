@@ -467,9 +467,6 @@ REFUSED = [
     (["--chaos", "seed=1"], "--chaos", 6), (["--doctor", "d"], "--doctor", 5),
     (["--goodput-report", "d"], "--goodput-report", 5),
     (["--merge-timeline", "o.json"], "--merge-timeline", 5),
-    (["--jax-coordinator"], "--jax-coordinator", 4),
-    (["--spmd-procs", "2"], "--spmd-procs", 4),
-    (["--spmd-local-devices", "2"], "--spmd-local-devices", 4),
 ]
 
 
@@ -480,6 +477,42 @@ def test_refused_flags_exit_2_naming_their_item(capsys, flags, flag, item):
     assert ei.value.code == 2
     err = capsys.readouterr().err
     assert flag in err and f"ROADMAP.md Queue 1 item {item}" in err
+
+
+# (flags, -np the launch takes, the workers' process-mesh env): the JAX
+# launcher's N processes of K devices are N x K ranks of the port
+SPMD_FLAGS = [
+    (["--spmd-procs", "2", "--spmd-local-devices", "2"], 4,
+     {"HOROVOD_SPMD_PROCS": "2", "HOROVOD_SPMD_LOCAL_DEVICES": "2"}),
+    (["-np", "6", "--spmd-procs", "3", "--spmd-local-devices", "2"], 6,
+     {"HOROVOD_SPMD_PROCS": "3", "HOROVOD_SPMD_LOCAL_DEVICES": "2"}),
+    (["--spmd-procs", "2"], 2, {"HOROVOD_SPMD_PROCS": "2"}),
+    (["-np", "2", "--jax-coordinator"], 2, {}),
+]
+
+
+@pytest.mark.parametrize("flags,np_,env", SPMD_FLAGS)
+def test_spmd_flags_set_the_ranks_and_the_process_mesh_env(flags, np_, env):
+    """``--spmd-procs N --spmd-local-devices K`` (and ``--jax-coordinator``)
+    launch N x K ranks and name the job's rendezvous (the launcher's
+    key-value store) as ``HOROVOD_COORDINATOR_ADDR``."""
+    from horovod_tpu_torch.run.run import spmd_env
+    args = parse_args([*flags, "python", "x.py"])
+    assert args.num_proc == np_ and args.jax_coordinator
+    got = spmd_env(args, "10.0.0.1", 4321)
+    assert got == {"HOROVOD_COORDINATOR_ADDR": "10.0.0.1:4321", **env}
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["-np", "3", "--spmd-procs", "2", "--spmd-local-devices", "2"],
+     "must equal -np"),
+    (["-np", "2", "--spmd-local-devices", "2"], "requires --spmd-procs"),
+    (["--spmd-procs", "0"], "must be >= 1"),
+])
+def test_spmd_flags_refuse_a_mismatch(capsys, flags, message):
+    with pytest.raises(SystemExit) as ei:
+        main([*flags, "python", "x.py"])
+    assert ei.value.code == 2 and message in capsys.readouterr().err
 
 
 def test_num_proc_is_required_and_check_build_lists_the_planes(capsys):
