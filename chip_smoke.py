@@ -160,7 +160,25 @@ runs these phases; any failure raises:
 * 15d: 15b's state saved (``convert``, ``ckpt.AsyncCheckpointer``) and
   restored into the explicit ZeRO-1 step, and an explicit ZeRO-1 state
   into the GSPMD step: each next loss bit for bit the step taken from
-  the saved state itself.
+  the saved state itself;
+* 16a: the telemetry and diagnosis planes on (``init()`` with a metrics
+  server on an ephemeral loopback port and the flight recorder armed):
+  the kernels rebuilt into a fresh directory (booked to the goodput
+  ledger's ``compile``), phase 5's LM through ``make_lm_train_step(
+  telemetry=True)`` and 6b's through ``make_train_step(telemetry=True)``:
+  losses bit for bit phase 5's and 6b's, each kernel once per layer,
+  microbatch and step, ``hvd_step_total`` and the collective and bucket
+  counters of ``/metrics`` equal to the steps' schedules, ``/healthz``
+  200, and after a final settle the ledger's unattributed time under 2 %
+  of its wall; tokens/s beside phase 5's and the ledger's phases;
+* 16b: ``step.xray(k=3)`` (``telemetry/xprof.py``) on phase 5's step and
+  on 15a's GSPMD step: the named share of device time at least 0.95 and
+  its busy time within 1 % of this script's own union of the capture's
+  kernels, copies and memsets; each category's ms per step, the verdict,
+  and ``matmul_conv`` beside ``profile_step``'s matmuls; then
+  ``/profile?seconds=1&wait=1`` while steps run must return a summary;
+* 16c: ``/flightrec?dump=1``, and the doctor over the dump after
+  ``shutdown()``'s final one: healthy, naming the last step.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
@@ -175,7 +193,7 @@ schedules say); 9a's worker counts its own. The last line of output is
 
 and the line before it a JSON object with each kernel's launches on the
 main paths (phase 5, 11b's two runs, 12b, 12c, phase 13's seven
-runs, 14a and phase 15's runs, each counted from 0),
+runs, 14a, phase 15's and phase 16's runs, each counted from 0),
 error
 against its plain version, time, plain time, bound and library time. After the timed steps of phases 5, 6b and 15a one
 more step runs under ``torch.profiler`` for the device's busy share and
@@ -193,9 +211,12 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -885,16 +906,18 @@ def phase_exchange_full(hvd, fa, torch, bench, phase5_losses):
                                         overlap_grads=True)
         batch = (tokens[:, :seq], tokens[:, 1:seq + 1])
         what = "ZeRO-1" if sharded else "all-gather + AdamW"
-        _drive(label, hvd, fa, torch, bench, step, batch,
-               2 * layers * STEPS, LM["batch"] * seq,
-               lambda: (f"2 microbatches, overlapped reduce-scatter, "
-                        f"{what}; {_schedule_line(step.schedule)}"),
-               profile=label == "6b")
+        got, _, _ = _drive(label, hvd, fa, torch, bench, step, batch,
+                           2 * layers * STEPS, LM["batch"] * seq,
+                           lambda: (f"2 microbatches, overlapped "
+                                    f"reduce-scatter, {what}; "
+                                    f"{_schedule_line(step.schedule)}"),
+                           profile=label == "6b")
         if label == "6b":
+            losses_6b = got
             _layout_cost("6b", torch, bench, step.schedule, opt)
         del step, model, opt, tokens, batch
     hvd.shutdown()
-    return losses, peak_6a
+    return losses, peak_6a, losses_6b
 
 
 def _quantizer_input(torch):
@@ -3276,6 +3299,309 @@ def phase_spmd(hvd, fa, torch, bench, phase5_losses, phase5_tok_s,
     return total
 
 
+def _scrape(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=180) as resp:
+        return resp.status, resp.read().decode()
+
+
+def _metric(text, name, labels=""):
+    """The value of one sample line of a Prometheus exposition."""
+    head = name + ("{" + labels + "}" if labels else "") + " "
+    for line in text.splitlines():
+        if line.startswith(head):
+            return float(line[len(head):])
+    raise AssertionError(f"/metrics has no sample {head.strip()}")
+
+
+def _counts(text, fill, calls):
+    return {"steps": _metric(text, "hvd_step_total"),
+            "rs": _metric(text, fill + "_count", 'kind="rs"')
+            if 'kind="rs"' in text else 0.0,
+            "ag": _metric(text, fill + "_count", 'kind="ag"')
+            if 'kind="ag"' in text else 0.0,
+            "allreduce": _metric(text, calls, 'op="allreduce"')
+            if 'op="allreduce"' in text else 0.0}
+
+
+def _xray_check(label, torch, xprof, summary, profile_dir, steps):
+    """16b's holds on one X-ray: the gate, and its busy time against this
+    script's union of the capture's kernels, copies and memsets. Prints
+    each category's ms per step and the verdict; returns the device's
+    busy ms per step from the union."""
+    _, paths = xprof.find_capture(profile_dir)
+    events = [e for p in paths for e in xprof.load_trace_file(p)]
+    work = sorted((float(e["ts"]), float(e.get("dur", 0.0)))
+                  for e in events if isinstance(e, dict)
+                  and e.get("ph") == "X" and e.get("cat") in DEVICE_WORK)
+    union_ms = _union_ms(work)
+    busy_ms = 1e3 * summary["busy_seconds"]
+    gap = abs(busy_ms - union_ms) / union_ms
+    print(f"  {label} x-ray over {steps} steps: {summary['device_lanes']} "
+          f"lanes, busy {busy_ms:.3f} ms against the union of kernels, "
+          f"copies and memsets {union_ms:.3f} ms ({100 * gap:.3f}% apart, "
+          f"bound 1%); named {100 * summary['bucketed_fraction']:.3f}% "
+          f"(gate {100 * xprof.BUCKETED_GATE:.0f}%)")
+    for cat in xprof.CATEGORIES:
+        sec = summary["device_seconds"][cat]
+        if sec > 0:
+            print(f"    {1e3 * sec / steps:9.3f} ms/step  {cat}")
+    idle = summary["device_seconds"]["idle"]
+    total = sum(summary["device_seconds"].values())
+    print(f"  {label} verdict {summary['verdict']}; device idle "
+          f"{100 * idle / total:.1f}% of the capture's attributed time")
+    if summary["bucketed_fraction"] < xprof.BUCKETED_GATE:
+        raise AssertionError(f"{label}: the x-ray named "
+                             f"{summary['bucketed_fraction']} of the "
+                             "device time, under the gate")
+    if gap > 0.01:
+        raise AssertionError(f"{label}: x-ray busy {busy_ms} ms against "
+                             f"the union {union_ms} ms")
+    return union_ms / steps
+
+
+def phase_telemetry(hvd, fa, torch, bench, phase5_losses, losses_6b,
+                    phase5_tok_s, card):
+    """16a-16c (module docstring): the telemetry and diagnosis planes on
+    phase 5's LM and 6b's configuration, at world 1 over NCCL. Returns
+    the kernels' launches."""
+    import tempfile
+    from horovod_tpu_torch import _build, basics, telemetry, training
+    from horovod_tpu_torch.diag import doctor
+    from horovod_tpu_torch.telemetry import instruments as tinst
+    from horovod_tpu_torch.telemetry import xprof
+    print("== phase 16: the telemetry and diagnosis planes on the LM step")
+    print(f"  {card}")
+    layers, seq = LM["layers"], LM["seq_len"]
+    ntok = LM["batch"] * seq
+    total = {"fwd": 0, "dq": 0, "dkv": 0}
+
+    def count():
+        for k in total:
+            total[k] += fa.LAUNCHES[k]
+
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        env = {"HOROVOD_METRICS_PORT": "0", "HOROVOD_FLIGHTREC": "1",
+               "HOROVOD_FLIGHTREC_DIR": str(root / "flightrec"),
+               "HOROVOD_PROFILE_DIR": str(root / "profile")}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            hvd.init()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        port = basics._state.metrics_server.port
+        print(f"  metrics on http://127.0.0.1:{port}/metrics; flight "
+              f"recorder {basics._state.flight_recorder.dump_path()}")
+        # the kernels' build at first use, into a fresh directory: the
+        # port's compile time
+        built_in, _build._lib = _build.BUILD_DIR, None
+        _build.BUILD_DIR = root / "build"
+        t0 = time.perf_counter()
+        try:
+            _build.load()
+        finally:
+            _build.BUILD_DIR = built_in
+        build_s = time.perf_counter() - t0
+        print(f"  16a kernels rebuilt in {build_s:.2f} s")
+
+        # 16a: phase 5's LM with telemetry on
+        _free(torch)
+        step, model, opt, tokens = _lm_bench(bench, torch, seq_len=seq,
+                                             telemetry=True)
+        _, text0 = _scrape(port, "/metrics")
+        before = _counts(text0, tinst.BUCKET_FILL_RATIO,
+                         tinst.COLLECTIVE_CALLS)
+        losses, _, ms = _drive("16a", hvd, fa, torch, bench, step,
+                               (tokens,), layers * STEPS, ntok,
+                               lambda: (f"fused allreduce: "
+                                        f"{len(opt.last_buckets)} buckets"))
+        count()
+        _same("16a make_lm_train_step(telemetry=True) against phase 5",
+              losses, phase5_losses)
+        tok_s = ntok * hvd.size() / ms * 1e3
+        print(f"  16a {tok_s:.1f} tokens/s against phase 5's "
+              f"{phase5_tok_s:.1f} ({tok_s / phase5_tok_s:.4f}x)")
+        code, text = _scrape(port, "/metrics")
+        after = _counts(text, tinst.BUCKET_FILL_RATIO,
+                        tinst.COLLECTIVE_CALLS)
+        # a step: the target count, one allreduce a bucket, the loss
+        want = {"steps": STEPS,
+                "allreduce": STEPS * (len(opt.last_buckets) + 2)}
+        got = {k: after[k] - before[k] for k in want}
+        print(f"  16a /metrics: {got} (want {want}); loss "
+              f"{_metric(text, tinst.LOSS):.6f}, grad norm "
+              f"{_metric(text, tinst.GRAD_NORM):.6f}")
+        if code != 200 or got != want:
+            raise AssertionError(f"16a: /metrics counts {got}, want {want}")
+        by_layer = profile_step(torch, lambda: step(tokens), ms)
+        _grad_norm_check("16a", torch, step, opt)
+        count_5 = (step, tokens, by_layer, model, opt)
+        del model, opt
+
+        # 6b's configuration through make_train_step(telemetry=True)
+        _, model6, opt6, tokens6 = _lm_bench(bench, torch, seq_len=seq + 1,
+                                             sharded_update=True)
+        step6 = training.make_train_step(model6, opt6, accum_steps=2,
+                                         overlap_grads=True, telemetry=True)
+        _, text = _scrape(port, "/metrics")
+        before = _counts(text, tinst.BUCKET_FILL_RATIO,
+                         tinst.COLLECTIVE_CALLS)
+        fa.reset_launches()
+        got6 = [float(step6(tokens6[:, :seq], tokens6[:, 1:seq + 1]))
+                for _ in range(STEPS)]
+        torch.cuda.synchronize()
+        count()
+        _want_launches(fa, "16a 6b", 2 * layers * STEPS)
+        _same("16a make_train_step(telemetry=True) against 6b", got6,
+              losses_6b)
+        _, text = _scrape(port, "/metrics")
+        after = _counts(text, tinst.BUCKET_FILL_RATIO,
+                        tinst.COLLECTIVE_CALLS)
+        nb = len(step6.schedule.buckets)
+        want = {"steps": STEPS, "rs": 2 * STEPS * nb, "ag": STEPS * nb}
+        got = {k: after[k] - before[k] for k in want}
+        print(f"  16a 6b /metrics: {got} (want {want}); {nb} buckets; "
+              f"grad norm {_metric(text, tinst.GRAD_NORM):.6f}")
+        if got != want:
+            raise AssertionError(f"16a 6b: /metrics counts {got}, want "
+                                 f"{want}")
+        print(f"  16a hvd_step_total {_metric(text, tinst.STEP_TOTAL):.0f} "
+              "(phase 5's steps and profile_step's, 6b's)")
+        code, body = _scrape(port, "/healthz")
+        print(f"  16a /healthz {code} {body}")
+        if code != 200:
+            raise AssertionError(f"16a: /healthz answered {code}")
+        del step6, model6, opt6, tokens6
+        _free(torch)
+        # the planes' cost on phase 5's step: telemetry on and off over
+        # one model, in turns (off, on, on, off), 3 steps a turn
+        step, tokens, by_layer, model, opt = count_5
+        step_off = training.make_lm_train_step(model, opt, telemetry=False)
+        turns = {"on": [], "off": []}
+        for turn in ("off", "on", "on", "off"):
+            run = step if turn == "on" else step_off
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run(tokens)
+                bench.sync()
+                turns[turn].append(1e3 * (time.perf_counter() - t0))
+        on_ms, off_ms = (float(np.median(turns[k])) for k in ("on", "off"))
+        print(f"  16a in turns (off, on, on, off; 3 steps each): telemetry "
+              f"on {on_ms:.2f} ms, off {off_ms:.2f} ms ({on_ms / off_ms:.4f}x)"
+              f"; on {[round(x, 2) for x in turns['on']]}, off "
+              f"{[round(x, 2) for x in turns['off']]}")
+        count_5 = (step, tokens, by_layer)
+        del step_off, model, opt
+        led = telemetry.get_ledger()
+        snap = led.finalize()
+        wall = snap["wall_seconds"]
+        print(f"  16a ledger: wall {wall:.3f} s, {snap['steps']} steps, "
+              f"goodput {snap['goodput_ratio']:.4f}, unattributed "
+              f"{snap['unattributed_seconds']:.6f} s")
+        for ph, sec in snap["phases"].items():
+            print(f"    {sec:10.4f} s {100 * sec / wall:5.1f}%  {ph}")
+        if snap["unattributed_seconds"] >= 0.02 * wall:
+            raise AssertionError("16a: the ledger left 2% or more of the "
+                                 "wall unattributed")
+        # the build's own clock starts inside the timed call
+        if snap["phases"]["compile"] < 0.99 * build_s:
+            raise AssertionError("16a: the kernel build is not in the "
+                                 "ledger's compile phase")
+
+        # 16b: x-ray of phase 5's step, then of 15a's GSPMD step
+        step, tokens, by_layer = count_5
+        fa.reset_launches()
+        _, summary = step.xray(tokens, k=3, profile_dir=str(root / "x5"))
+        count()
+        _want_launches(fa, "16b phase 5", layers * 4)
+        busy5 = _xray_check("16b phase 5", torch, xprof, summary,
+                            str(root / "x5"), 3)
+        mm = 1e3 * summary["device_seconds"]["matmul_conv"] / 3
+        print(f"  16b phase 5 matmul_conv {mm:.3f} ms/step against "
+              f"profile_step's matmuls {by_layer['matmuls']:.3f} ms; "
+              f"busy {busy5:.3f} ms/step")
+        del step, tokens, count_5
+        _free(torch)
+        step, model, opt, tokens = _lm_bench(bench, torch, seq_len=seq,
+                                             spmd=True)
+        fa.reset_launches()
+        _, summary = step.xray(tokens, k=3, profile_dir=str(root / "x15"))
+        count()
+        _want_launches(fa, "16b 15a", layers * 4)
+        _xray_check("16b 15a", torch, xprof, summary, str(root / "x15"), 3)
+
+        # /profile during the steps: the window opens and closes on them
+        got = {}
+        ask = threading.Thread(target=lambda: got.update(r=_scrape(
+            port, "/profile?seconds=1&wait=1")))
+        fa.reset_launches()
+        ask.start()
+        n = 0
+        while ask.is_alive():
+            step(tokens)
+            n += 1
+            ask.join(0.001)
+        torch.cuda.synchronize()
+        count()
+        _want_launches(fa, "16b /profile", layers * n)
+        code, body = got["r"]
+        prof = json.loads(body).get("summary") or {}
+        print(f"  16b /profile?seconds=1&wait=1 -> {code} over {n} steps: "
+              f"verdict {prof.get('verdict')}, "
+              f"{prof.get('steps')} steps captured, named "
+              f"{prof.get('bucketed_fraction')}")
+        if code != 200 or "verdict" not in prof:
+            raise AssertionError(f"16b: /profile returned {code} {body}")
+        _grad_norm_check("16b 15a", torch, step, opt)
+        del step, model, opt, tokens
+        _free(torch)
+
+        # 16c: a dump on demand, then the doctor
+        events = basics._state.flight_recorder.snapshot()["events"]
+        last_step = [e for e in events if e["k"] == "step"][-1]["step"]
+        code, body = _scrape(port, "/flightrec?dump=1")
+        dump = root / "flightrec" / "flightrec.rank0.json"
+        if code != 200 or not dump.is_file():
+            raise AssertionError(f"16c: /flightrec?dump=1 answered {code}")
+        live = doctor.diagnose(doctor.load_dumps(str(root / "flightrec"))[0],
+                               expected_size=1)
+        print(f"  16c on-demand dump: {live['classification']} "
+              "(an on-demand dump carries no clean-exit reason), last "
+              f"event {live['per_rank'][0]['last_event']}")
+        hvd.shutdown()  # the recorder's final dump: reason shutdown
+        report = doctor.run(str(root / "flightrec"), expected_size=1,
+                            stream=sys.stdout)
+        ev = report["per_rank"][0]["last_event"] or {}
+        if report["classification"] != "healthy" or \
+                ev.get("step") != last_step:
+            raise AssertionError(f"16c: the doctor says "
+                                 f"{report['classification']}, last event "
+                                 f"{ev}; want healthy at step {last_step}")
+        print(f"  16c doctor: healthy, last step {ev.get('step')}")
+    return total
+
+
+def _grad_norm_check(name, torch, step, opt):
+    """The step's last ``hvd_grad_norm`` against an fp64 norm of the
+    gradients it left in ``.grad``: with plain data parallelism those
+    are the reduced global-mean gradients the norm is defined over. fp32
+    sums over 134 M elements in another order: rtol 1e-5."""
+    got = step.instruments.grad_norm.value
+    want = float(torch.linalg.vector_norm(torch.cat(
+        [p.grad.detach().double().reshape(-1) for p in opt.params])))
+    print(f"  {name} hvd_grad_norm {got:.6f}, fp64 norm of the reduced "
+          f"gradients {want:.6f}")
+    if not abs(got - want) <= 1e-5 * want:
+        raise AssertionError(f"{name}: hvd_grad_norm {got} against the "
+                             f"reduced gradients' norm {want}")
+
+
 def _launched_in(trace, ranges):
     """The correlation ids of the work launched on the host inside a
     profiler range named in ``ranges`` (``{range name: layer}``), or by
@@ -3317,6 +3643,17 @@ def _launched_in(trace, ranges):
     return out
 
 
+def _union_ms(work):
+    """Milliseconds covered by the union of ``work``'s intervals (tuples
+    starting ``(ts, dur)`` in microseconds, sorted by ``ts``): overlaps
+    counted once."""
+    busy, end = 0.0, -math.inf
+    for ts, dur, *_ in work:
+        busy += max(0.0, ts + dur - max(ts, end))
+        end = max(end, ts + dur)
+    return busy / 1e3
+
+
 def profile_step(torch, run, step_ms, layers=LAYERS, ranges=None):
     """Device time by layer and by kernel over one more ``run()``, read
     from the profiler's trace (kernels, copies and memsets only), and the
@@ -3347,11 +3684,7 @@ def profile_step(torch, run, step_ms, layers=LAYERS, ranges=None):
                    for e in trace["traceEvents"]
                    if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK),
                   key=lambda w: w[0])
-    busy, end = 0.0, -math.inf  # microseconds, overlaps counted once
-    for ts, dur, _, _, _ in work:
-        busy += max(0.0, ts + dur - max(ts, end))
-        end = max(end, ts + dur)
-    busy /= 1e3
+    busy = _union_ms(work)
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
     per_stream = {}
@@ -3434,7 +3767,8 @@ def main(argv=None):
     phase_parity_exchange(hvd, fa, torch)
     phase_parity_resnet(hvd, torch)
     losses, launches, phase5_tok_s = phase_full(hvd, fa, torch, bench)
-    losses_6a, peak_6a = phase_exchange_full(hvd, fa, torch, bench, losses)
+    losses_6a, peak_6a, losses_6b = phase_exchange_full(hvd, fa, torch,
+                                                        bench, losses)
     run_7a = phase_resnet(hvd, torch, bench)
     phase_resume(hvd, fa, torch, bench)
     phase_resume_resnet(hvd, torch, bench)
@@ -3474,12 +3808,17 @@ def main(argv=None):
     launches_15 = phase_spmd(hvd, fa, torch, bench, losses, phase5_tok_s,
                              losses_6a, peak_6a)
     print(f"== phase 15 took {time.perf_counter() - t15:.1f} s")
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    launches_16 = phase_telemetry(hvd, fa, torch, bench, losses, losses_6b,
+                                  phase5_tok_s, card)
+    print(f"== phase 16 took {time.perf_counter() - t16:.1f} s")
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):
         wrapper, replaces, source, design = KERNELS[kind_]
         main = [launches, launches_11b] + launches_12 + launches_13 + \
-            launches_14 + [launches_15]
+            launches_14 + [launches_15, launches_16]
         kernels.append(dict(name=wrapper, route="cuda", source=source,
                             replaces=replaces, design=design,
                             launches=sum(n[kind_] for n in main),

@@ -14,14 +14,16 @@ hand-written CUDA kernels (``ops/flash_attention.py``). The JAX package
 ``horovod_tpu`` is the reference; this package imports neither it nor
 JAX.
 
-The names below, and the subpackages ``checkpoint``, ``ckpt`` and
-``data``, are imported at first use, so that the launcher and its
+The names below, and the subpackages ``checkpoint``, ``ckpt``, ``data``,
+``telemetry`` (the metrics registry and endpoint, the goodput ledger,
+the step X-ray) and ``diag`` (the flight recorder and the doctor), are
+imported at first use, so that the launcher and its
 middleman, which run ``python -m horovod_tpu_torch.run...`` and need no
 torch, start without importing it. Of the JAX package's top-level names
 the port leaves out ``distributed_grad``, ``DistributedGradientTransform``,
 ``HorovodOptimizer`` and ``compat`` (optax's and JAX's forms, which
 ``DistributedOptimizer`` and ``distributed_value_and_grad`` stand for
-here), and the planes not yet ported: ``elastic``, ``telemetry`` and
+here), and the planes not yet ported: ``elastic`` and
 ``autotune_fusion_threshold``.
 """
 
@@ -54,7 +56,7 @@ _EXPORTS = {
                     "ops.reduction"),
 }
 
-_SUBPACKAGES = ("checkpoint", "ckpt", "data")
+_SUBPACKAGES = ("checkpoint", "ckpt", "data", "telemetry", "diag")
 
 __all__ = list(_EXPORTS) + list(_SUBPACKAGES)
 

@@ -11,6 +11,11 @@ static runtime is linked. The build runs at first use, is cached under
 ``_build/`` by a hash of every source and header under ``csrc/`` and of
 the flags, and is guarded by a file lock so that concurrent processes
 build once. A failed build raises with the compiler's output.
+
+The build (or the load of a cached one) is the port's compile time: its
+seconds go to ``hvd_compile_seconds_total`` and the goodput ledger's
+``compile`` phase (``telemetry/instruments.record_compile``), a cached
+library counting a cache hit.
 """
 
 import ctypes
@@ -19,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
@@ -151,12 +157,16 @@ def load():
     global _lib
     if _lib is not None:
         return _lib
+    t0 = time.perf_counter()
+    cached = library_path().exists()
     lib = ctypes.CDLL(str(build()))
     for name, (argtypes, restype) in ENTRY_POINTS.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     _lib = lib
+    from horovod_tpu_torch.telemetry import instruments
+    instruments.record_compile(time.perf_counter() - t0, cache_hit=cached)
     return lib
 
 

@@ -30,6 +30,7 @@ import torch.distributed as dist
 from horovod_tpu_torch.cluster import procmesh
 from horovod_tpu_torch.config import Config
 from horovod_tpu_torch.parallel import mesh as mesh_lib
+from horovod_tpu_torch.runtime import services
 
 _lock = threading.Lock()
 
@@ -40,6 +41,11 @@ class _State:
         self.config = None
         self.mesh = None
         self.kv_inits = 0  # inits through the launcher's KV store
+        # the run's telemetry and diagnosis services (runtime/services.py)
+        self.ledger = None
+        self.flight_recorder = None
+        self.timeline = None
+        self.metrics_server = None
 
 
 _state = _State()
@@ -140,35 +146,58 @@ def init(device=None):
       ``HOROVOD_CROSS_SIZE > 1`` hosts of equal rank counts. Over hosts
       of unequal rank counts the mesh stays 1-D and the job runs flat
       (there the JAX ``build_mesh`` raises, or builds a mesh that does
-      not follow the hosts)."""
+      not follow the hosts).
+
+    Before the rendezvous it starts the run's telemetry and diagnosis
+    services (``runtime/services.py``): a fresh goodput ledger, the
+    flight recorder, the host timeline and the metrics server, each as
+    its ``HOROVOD_*`` variable asks."""
     with _lock:
         if _state.initialized:
             return
         cfg = Config.from_env()
         dev = _resolve_device(device, cfg)
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev)
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-        procmesh.ensure_distributed(cfg, backend=backend,
-                                    store=lambda: _store(cfg))
-        _state.mesh = mesh_lib.Mesh(group=dist.group.WORLD, device=dev,
-                                    size=cfg.size, rank=cfg.rank)
-        mesh_lib.set_mesh(_state.mesh)
-        if procmesh.coordinator_spec(cfg) is not None:
-            procmesh.build_process_mesh(procmesh.row_owners(
-                cfg.size, cfg.spmd_procs or cfg.size,
-                cfg.spmd_local_devices))
-        elif _hosts_tile_world(cfg, dev):
-            mesh_lib.build_mesh(num_slices=cfg.cross_size)
         _state.config = cfg
+        try:
+            # the ledger, the flight recorder (armed before the
+            # rendezvous it should explain), the timeline and the metrics
+            # server
+            services.start(_state)
+            _join(cfg, dev)
+        except BaseException:
+            # a retried init() starts the services afresh
+            services.stop(_state, reason="init_failed")
+            _state.config = None
+            raise
         _state.initialized = True
 
 
+def _join(cfg, dev):
+    """The rendezvous and the mesh of ``init()``."""
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    procmesh.ensure_distributed(cfg, backend=backend,
+                                store=lambda: _store(cfg))
+    _state.mesh = mesh_lib.Mesh(group=dist.group.WORLD, device=dev,
+                                size=cfg.size, rank=cfg.rank)
+    mesh_lib.set_mesh(_state.mesh)
+    if procmesh.coordinator_spec(cfg) is not None:
+        procmesh.build_process_mesh(procmesh.row_owners(
+            cfg.size, cfg.spmd_procs or cfg.size,
+            cfg.spmd_local_devices))
+    elif _hosts_tile_world(cfg, dev):
+        mesh_lib.build_mesh(num_slices=cfg.cross_size)
+
+
 def shutdown():
-    """Destroy the process group; a later ``init()`` starts afresh."""
+    """Destroy the process group and stop the run's services (the
+    goodput dump, the server, the timeline, the recorder's final dump);
+    a later ``init()`` starts afresh."""
     with _lock:
         if not _state.initialized:
             return
+        services.stop(_state)
         installed = mesh_lib.get_mesh()
         dist.destroy_process_group()
         procmesh.leave()

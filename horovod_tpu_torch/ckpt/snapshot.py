@@ -15,12 +15,16 @@ the later ones (``sharded.Staging``): one set for each save that may be
 in flight. The background thread never touches the collective plane: the
 commit barrier is the shared filesystem's ``.ok`` markers.
 
-The JAX package's telemetry counters and flight-recorder events of a
-save are not ported (they come with the telemetry plane);
-``last_blocking_s`` (of which ``last_pin_s`` made buffers,
-``last_gather_s`` gathered a tensor- or expert-parallel state's cut leaves
-and ``last_copy_s`` copied into the buffers), ``last_save_s`` and
-``last_bytes`` record the latest save's times and size instead.
+Telemetry (JAX ``ckpt/snapshot.py:74-75``, ``:101``, ``:160-161``,
+``:210-240``): the ``hvd_ckpt_*`` instruments (end-to-end save seconds,
+the training thread's blocking seconds, shard bytes written, saves in
+flight), the goodput ledger's ``ckpt_stall`` (a save's blocking time and
+a ``flush()``'s wait), and the flight recorder's ``ckpt`` B at a save and
+E at its commit or failure, which let the doctor name a save a crash
+interrupted. ``last_blocking_s`` (of which ``last_pin_s`` made buffers,
+``last_gather_s`` gathered a tensor- or expert-parallel state's cut
+leaves and ``last_copy_s`` copied into the buffers), ``last_save_s`` and
+``last_bytes`` keep the latest save's times and size besides.
 """
 
 import atexit
@@ -32,6 +36,9 @@ import time
 
 from horovod_tpu_torch.ckpt import manifest as manifest_lib
 from horovod_tpu_torch.ckpt import sharded
+from horovod_tpu_torch.diag import recorder as _flightrec
+from horovod_tpu_torch.telemetry import instruments as _tele
+from horovod_tpu_torch.telemetry import ledger as _ledger_lib
 
 logger = logging.getLogger("horovod_tpu_torch")
 
@@ -54,10 +61,13 @@ class AsyncCheckpointer:
     ``max_inflight`` caps queued-but-uncommitted saves: when the budget
     is spent, ``save()`` blocks until the oldest save commits, and the
     wait counts in its blocking time. ``keep`` is the retention depth
-    (complete checkpoints, enforced by rank 0 at each commit)."""
+    (complete checkpoints, enforced by rank 0 at each commit).
+    ``registry`` takes the ``hvd_ckpt_*`` instruments (default: the
+    process registry)."""
 
     def __init__(self, directory, keep=DEFAULT_KEEP, max_inflight=1,
-                 rank=None, world=None, barrier_timeout=None):
+                 rank=None, world=None, barrier_timeout=None,
+                 registry=None):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got "
                              f"{max_inflight}")
@@ -71,6 +81,7 @@ class AsyncCheckpointer:
         self.world = env_world if world is None else int(world)
         self.barrier_timeout = barrier_timeout
         self.max_inflight = max_inflight
+        self._metrics = _tele.ckpt_instruments(registry)
         # host buffers: one set for each save in flight, reused after it
         self._staging = [sharded.Staging() for _ in range(max_inflight)]
         self._queue = queue.Queue()
@@ -103,7 +114,10 @@ class AsyncCheckpointer:
                 self._lock.wait(0.005)
             self._reraise()
             self._inflight += 1
+            self._metrics.inflight.set(self._inflight)
             staging = self._staging.pop()
+        _flightrec.record_event("ckpt", ph="B", step=int(step),
+                                rank=self.rank, world=self.world)
         try:
             # a re-save of a step whose earlier attempt was torn, or whose
             # damaged manifest a fallback restore skipped: clear the old
@@ -115,8 +129,13 @@ class AsyncCheckpointer:
         except BaseException:
             # no job was queued: give the budget slot back
             self._release(staging)
+            _flightrec.record_event("ckpt", ph="E", step=int(step),
+                                    rank=self.rank, ok=False,
+                                    error="snapshot failed")
             raise
         blocking = time.perf_counter() - t0
+        self._metrics.blocking_seconds.observe(blocking)
+        _ledger_lib.get_ledger().charge("ckpt_stall", blocking)
         self.last_blocking_s = blocking
         self.last_pin_s, self.last_copy_s = staging.pin_s, staging.copy_s
         self.last_gather_s = staging.gather_s
@@ -128,16 +147,24 @@ class AsyncCheckpointer:
 
     def flush(self, timeout=None):
         """Block until every queued save has committed; re-raise the
-        first background failure. Returns the last manifest."""
+        first background failure. Returns the last manifest. The wait
+        blocks the training thread: the ledger books it as
+        ``ckpt_stall``."""
+        t0 = time.perf_counter()
         deadline = (time.monotonic() + timeout) if timeout is not None \
             else None
-        with self._lock:
-            while self._inflight > 0 and self._error is None:
-                if deadline is not None and time.monotonic() >= deadline:
-                    raise TimeoutError(
-                        f"ckpt flush: {self._inflight} save(s) still in "
-                        f"flight after {timeout:.0f}s")
-                self._lock.wait(0.01)
+        try:
+            with self._lock:
+                while self._inflight > 0 and self._error is None:
+                    if deadline is not None and \
+                            time.monotonic() >= deadline:
+                        raise TimeoutError(
+                            f"ckpt flush: {self._inflight} save(s) still "
+                            f"in flight after {timeout:.0f}s")
+                    self._lock.wait(0.01)
+        finally:
+            _ledger_lib.get_ledger().charge("ckpt_stall",
+                                            time.perf_counter() - t0)
         self._reraise()
         return self.last_manifest
 
@@ -181,6 +208,9 @@ class AsyncCheckpointer:
             step, payload, zero_info, meta, t0, staging = job
             try:
                 if self._abandoned:
+                    _flightrec.record_event("ckpt", ph="E", step=int(step),
+                                            rank=self.rank, ok=False,
+                                            error="abandoned before write")
                     continue
                 info = sharded.write_shard(self.directory, step, payload)
                 man = manifest_lib.commit(
@@ -190,12 +220,21 @@ class AsyncCheckpointer:
                 self.last_manifest = man
                 self.last_save_s = time.perf_counter() - t0
                 self.last_bytes = info["bytes"]
+                self._metrics.bytes_written.inc(info["bytes"])
+                self._metrics.save_seconds.observe(self.last_save_s)
+                _flightrec.record_event("ckpt", ph="E", step=int(step),
+                                        rank=self.rank, ok=True,
+                                        bytes=info["bytes"],
+                                        save_s=round(self.last_save_s, 4))
                 logger.debug("ckpt: committed step %d (%d bytes, %.1f ms "
                              "end to end)", step, info["bytes"],
                              self.last_save_s * 1e3)
             except Exception as e:  # noqa: BLE001 - surfaced by flush()
                 logger.error("ckpt: background save of step %s failed: %s",
                              step, e)
+                _flightrec.record_event("ckpt", ph="E", step=int(step),
+                                        rank=self.rank, ok=False,
+                                        error=str(e)[:160])
                 with self._lock:
                     if self._error is None:
                         self._error = e
@@ -207,6 +246,7 @@ class AsyncCheckpointer:
         with self._lock:
             self._staging.append(staging)
             self._inflight -= 1
+            self._metrics.inflight.set(self._inflight)
             self._lock.notify_all()
 
     def _reraise(self):

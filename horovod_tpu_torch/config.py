@@ -1,7 +1,9 @@
 """Environment-variable configuration: the launcher's rank contract, the
 fusion threshold, the wire format, the two-level reduction and the
-process mesh across hosts (``HOROVOD_SPMD_*``), under the
-same ``HOROVOD_*`` names as the JAX package (``horovod_tpu/config.py``)."""
+process mesh across hosts (``HOROVOD_SPMD_*``) and the observability
+planes (timeline, metrics endpoint, profile directory, flight recorder),
+under the same ``HOROVOD_*`` names as the JAX package
+(``horovod_tpu/config.py``)."""
 
 import dataclasses
 import os
@@ -11,7 +13,9 @@ DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 # The tuning variables that the port acts on; hvdrun says of every other
 # one it sets that the port does not act on it.
 ACTED_ON = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_WIRE_DTYPE",
-            "HOROVOD_HIERARCHICAL_ALLREDUCE")
+            "HOROVOD_HIERARCHICAL_ALLREDUCE", "HOROVOD_TIMELINE",
+            "HOROVOD_TIMELINE_MARK_CYCLES", "HOROVOD_METRICS_PORT",
+            "HOROVOD_METRICS_ADDR")
 
 
 def _env_int(name, default):
@@ -64,6 +68,27 @@ class Config:
     # mesh of cluster/procmesh.py; 0 = unset
     spmd_procs: int = 0
     spmd_local_devices: int = 0
+    # --- observability (JAX config.py:103-127) ---
+    # the per-rank host trace (utils/timeline.py); a multi-process job
+    # writes <base>.rank<r><ext>
+    timeline: str = None
+    timeline_mark_cycles: bool = False
+    # metrics endpoint (telemetry/server.py): None = off, 0 = an
+    # ephemeral port; loopback by default (the endpoints are
+    # unauthenticated)
+    metrics_port: int = None
+    metrics_addr: str = "127.0.0.1"
+    profile_dir: str = None
+    # flight recorder (diag/): None = on for a multi-process job, off for
+    # one process; HOROVOD_FLIGHTREC=0/1 forces; _CAPACITY bounds the
+    # ring; _DIR is where flightrec.rank<r>.json dumps land
+    flightrec: bool = None
+    flightrec_capacity: int = 4096
+    flightrec_dir: str = None
+
+    @property
+    def flightrec_enabled(self):
+        return self.size > 1 if self.flightrec is None else self.flightrec
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -89,4 +114,13 @@ class Config:
             adasum_chunk_size=_env_int("HOROVOD_ADASUM_CHUNK_SIZE", 1 << 26),
             spmd_procs=_env_int("HOROVOD_SPMD_PROCS", 0),
             spmd_local_devices=_env_int("HOROVOD_SPMD_LOCAL_DEVICES", 0),
+            timeline=_env_str("HOROVOD_TIMELINE"),
+            timeline_mark_cycles=_env_bool("HOROVOD_TIMELINE_MARK_CYCLES"),
+            metrics_port=_env_int("HOROVOD_METRICS_PORT", None),
+            metrics_addr=_env_str("HOROVOD_METRICS_ADDR", "127.0.0.1"),
+            profile_dir=_env_str("HOROVOD_PROFILE_DIR"),
+            flightrec=(None if _env_str("HOROVOD_FLIGHTREC") is None
+                       else _env_bool("HOROVOD_FLIGHTREC")),
+            flightrec_capacity=_env_int("HOROVOD_FLIGHTREC_CAPACITY", 4096),
+            flightrec_dir=_env_str("HOROVOD_FLIGHTREC_DIR"),
         )

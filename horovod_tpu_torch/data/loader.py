@@ -26,24 +26,34 @@ batch, on the producer thread, into pinned host memory and from there
 records an event; ``ready(batch)`` makes the consuming stream wait for
 that event before the step reads the batch.
 
-The JAX package's telemetry instruments, goodput ledger and
-flight-recorder events of the loader are not ported (they come with the
-telemetry plane): ``PrefetchLoader(telemetry=...)`` raises
-``NotImplementedError``.
+**Telemetry** (JAX ``data/loader.py:52``, ``:121``, ``:208``,
+``:322``): the ``hvd_data_*`` instruments (the training thread's wait,
+the producer's load seconds and staged bytes, the queue depth, the
+batches delivered), the goodput ledger's ``data_wait`` (the training
+thread's wait for each batch), and the flight recorder's ``data`` B/E
+around each batch the producer assembles and ``data_wait`` B/E around a
+consumer wait past ``STALL_EVENT_S``, which let the doctor's data-stall
+verdict name the starving producer.
 """
 
 import logging
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
 
 from horovod_tpu_torch.data import sharding
+from horovod_tpu_torch.diag import recorder as flightrec
+from horovod_tpu_torch.telemetry import ledger as _ledger
 
 logger = logging.getLogger("horovod_tpu_torch")
 
 CURSOR_VERSION = 1
+# a consumer wait longer than this is a real pipeline stall: bracketed
+# with flight-recorder data_wait B/E
+STALL_EVENT_S = 0.05
 # queue poll granularity of the consumer and of a producer's bounded put
 _GET_POLL_S = 0.05
 
@@ -103,8 +113,8 @@ class PrefetchLoader:
         ``training.make_train_step(loader=...)`` installs
         ``device_placement`` here, so the host-to-device copy overlaps
         the step too.
-    telemetry : the JAX package's ``hvd_data_*`` instruments, not
-        ported: anything but None raises ``NotImplementedError``.
+    telemetry : override the ``hvd_data_*`` registry instruments (a
+        ``telemetry.DataInstruments``); default: the process registry.
     """
 
     def __init__(self, source, batch_size, *, depth=2, rank=None,
@@ -137,10 +147,10 @@ class PrefetchLoader:
         self._closed = False
         self._exhausted = False
         if telemetry is not None:
-            raise NotImplementedError(
-                "PrefetchLoader(telemetry=...): the data plane's telemetry "
-                "comes with the port's telemetry plane (ROADMAP Queue 1 "
-                "item 5)")
+            self._metrics = telemetry
+        else:
+            from horovod_tpu_torch.telemetry import data_instruments
+            self._metrics = data_instruments()
 
     # -- stream identity ----------------------------------------------------
     @property
@@ -190,14 +200,27 @@ class PrefetchLoader:
 
     # -- the producer -------------------------------------------------------
     def _produce(self, gen, q, stop, start):
+        src_name = type(self._source).__name__
         place = self._placement
         try:
             for idx, after in self._plan(*start):
                 if stop.is_set():
                     return
+                t0 = time.perf_counter()
+                flightrec.record_event("data", ph="B",
+                                       epoch=int(start[0]),
+                                       batch=int(start[2]),
+                                       source=src_name)
                 batch = self._source.batch(idx)
+                nbytes = sum(getattr(leaf, "nbytes", 0)
+                             for leaf in _leaves(batch))
                 if place is not None:
                     batch = place(batch)
+                load_s = time.perf_counter() - t0
+                flightrec.record_event("data", ph="E", source=src_name,
+                                       nbytes=int(nbytes))
+                self._metrics.load_seconds.observe(load_s)
+                self._metrics.bytes_staged.inc(nbytes)
                 if not _put(q, (gen, "batch", batch, after), stop):
                     return
                 start = after
@@ -296,10 +319,19 @@ class PrefetchLoader:
             raise StopIteration
         self._ensure_producer()
         q, gen = self._queue, self._gen
+        t0 = time.perf_counter()
+        stalled = False
         while True:
             try:
                 item = q.get(timeout=_GET_POLL_S)
             except queue.Empty:
+                waited = time.perf_counter() - t0
+                if not stalled and waited >= STALL_EVENT_S:
+                    stalled = True
+                    flightrec.record_event(
+                        "data_wait", ph="B",
+                        source=type(self._source).__name__,
+                        epoch=self._epoch, batch=self._batch_index)
                 t = self._thread
                 if (t is None or not t.is_alive()) and q.empty():
                     raise RuntimeError(
@@ -310,6 +342,10 @@ class PrefetchLoader:
             if g != gen:
                 continue  # stale generation raced the restart
             break
+        waited = time.perf_counter() - t0
+        if stalled:
+            flightrec.record_event("data_wait", ph="E",
+                                   seconds=round(waited, 6))
         if kind == "error":
             self._halt_producer()
             raise payload
@@ -317,6 +353,12 @@ class PrefetchLoader:
             self._exhausted = True
             self._halt_producer()
             raise StopIteration
+        self._metrics.wait_seconds.observe(waited)
+        # the wait blocked the training thread: the goodput ledger books
+        # it as data_wait, not as the next step's compute
+        _ledger.get_ledger().charge("data_wait", waited)
+        self._metrics.queue_depth.set(q.qsize())
+        self._metrics.batches.inc()
         self._epoch, self._offset, self._batch_index = after
         return payload
 
@@ -502,3 +544,17 @@ def ready(batch):
         return t
 
     return tuple(_map(tuple(batch), mark))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        out = []
+        for v in tree.values():
+            out.extend(_leaves(v))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for v in tree:
+            out.extend(_leaves(v))
+        return out
+    return [tree]

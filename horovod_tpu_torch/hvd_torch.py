@@ -309,7 +309,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
         return self.optimizer.step()
 
 
-    def update_spmd(self, grads, plan, wire=None, ag_residuals=None):
+    def update_spmd(self, grads, plan, wire=None, ag_residuals=None,
+                    on_reduced=None):
         """The GSPMD path's update (``training.make_train_step(spmd=True)``
         routes here; JAX ``hvd_jax.py:211-245``). ``grads`` (one per
         parameter of ``self.params``, in that order) are the global-batch
@@ -322,13 +323,18 @@ class DistributedOptimizer(torch.optim.Optimizer):
         its structure, so that ``state_dict()`` and checkpoints are the
         explicit path's. ``wire``/``ag_residuals`` narrow ZeRO-1's
         exchange with a cast wire (``apply_shards_spmd``); on plain data
-        parallelism the step narrows the gradients itself. Returns the new
-        residuals under ZeRO-1, else the inner step's result."""
+        parallelism the step narrows the gradients itself.
+        ``on_reduced(tensors)`` is called with the reduced global-mean
+        gradient before the inner step reads it: this rank's ZeRO-1
+        shards, or every parameter's whole ``.grad`` (the train step's
+        gradient norm). Returns the new residuals under ZeRO-1, else the
+        inner step's result."""
         from horovod_tpu_torch.parallel import gspmd
         if self.sharded_update:
             return gspmd.apply_shards_spmd(self.zero_state, grads, plan,
                                            wire=wire,
-                                           ag_residuals=ag_residuals)
+                                           ag_residuals=ag_residuals,
+                                           on_reduced=on_reduced)
         if self.backward_passes_per_step > 1:
             raise ValueError(
                 "backward_passes_per_step>1 has no GSPMD path: its "
@@ -341,6 +347,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
                 "path's cast narrowing lives in the train step itself")
         gspmd.reduce_spmd(grads, self.params, plan,
                           threshold_bytes=self.threshold_bytes)
+        if on_reduced is not None:
+            on_reduced([p.grad for p in self.params])
         return self.optimizer.step()
 
 

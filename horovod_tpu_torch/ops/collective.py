@@ -22,11 +22,35 @@ tree over one axis, its two-level composite over several.
 ``ppermute``'s backward is ``ppermute`` with the inverse permutation,
 ``alltoall``'s the reverse all-to-all and ``allgather``'s a Sum
 reduce-scatter.
+
+Telemetry (JAX ``ops/collective.py:26-60``). Every call runs eagerly in
+the port, so each one is recorded when it is issued: its op name, wire
+bytes and logical bytes into ``hvd_collective_*``
+(``telemetry/instruments.record_collective``, one count a call), and a
+flight-recorder entry (``mode="eager"``) closed when its works end
+(``Pending.wait``), so a rank parked in a collective, or killed inside
+one, leaves an open entry naming it. The desync digest hashes each
+call's ``op|name|shape|dtype``, dtypes under numpy's names
+(``diag/recorder.py``); ``allgather`` leaves its shape out, as the JAX
+eager ``allgather`` does. As in the JAX package, only the collectives a
+user calls outside a train step (``hvd.allreduce`` and its siblings)
+charge the goodput ledger's ``exposed_collective`` with the host time
+from issue to the end of their wait: the collectives inside a step
+builder's body (``training.py`` brackets them with ``in_step``) book as
+the step's ``compute``, where the JAX package compiles them into the
+step.
 """
+
+import contextlib
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from horovod_tpu_torch.diag import recorder as _flightrec
+from horovod_tpu_torch.telemetry import instruments as _tele
+from horovod_tpu_torch.telemetry import ledger as _ledger
 
 from horovod_tpu_torch.ops import compression as compression_lib
 from horovod_tpu_torch.ops.reduction import Adasum, Average, Max, Min, Sum
@@ -34,6 +58,64 @@ from horovod_tpu_torch.parallel import mesh as mesh_lib
 
 _OPS = {Sum: dist.ReduceOp.SUM, Average: dist.ReduceOp.SUM,
         Min: dist.ReduceOp.MIN, Max: dist.ReduceOp.MAX}
+
+
+# how many step bodies are running (``in_step``): a module count, not a
+# thread-local, since a backward on the card runs on autograd's threads
+_step_depth = 0
+
+
+@contextlib.contextmanager
+def in_step():
+    """Bracket a train step's body: its collectives book as the step's
+    compute, not as exposed collective time. The bracket is the
+    process's, not the thread's: an ``hvd.allreduce`` that another
+    thread calls while a step runs books as that step's compute too."""
+    global _step_depth
+    _step_depth += 1
+    try:
+        yield
+    finally:
+        _step_depth -= 1
+
+
+def _nbytes(x):
+    return x.numel() * x.element_size()
+
+
+class _Record:
+    """One collective's telemetry, from issue (``__init__``) to the end
+    of its wait (``close``): counters, the recorder's entry and exit,
+    and outside a step the ledger's ``exposed_collective``."""
+
+    __slots__ = ("op", "seq", "t0", "exposed")
+
+    def __init__(self, op, x, nbytes=None, logical_nbytes=None,
+                 hash_shape=True):
+        nbytes = _nbytes(x) if nbytes is None else nbytes
+        _tele.record_collective(op, nbytes, logical_nbytes=logical_nbytes)
+        self.op = op
+        self.seq = _flightrec.collective_enter(op, x, nbytes=nbytes,
+                                               hash_shape=hash_shape)
+        self.exposed = _step_depth == 0
+        self.t0 = time.perf_counter() if self.exposed else 0.0
+
+    def close(self, ok=True):
+        if self.exposed:
+            _ledger.get_ledger().charge("exposed_collective",
+                                        time.perf_counter() - self.t0)
+        _flightrec.collective_exit(self.op, self.seq, ok=ok)
+
+
+@contextlib.contextmanager
+def _recorded(op, x, **kwargs):
+    rec = _Record(op, x, **kwargs)
+    ok = False
+    try:
+        yield
+        ok = True
+    finally:
+        rec.close(ok)
 
 
 def _in_mesh_order(m, axes):
@@ -79,12 +161,14 @@ def _inverse(lin):
     return [lin.index(i) for i in range(len(lin))]
 
 
-def allreduce_(x, op=Average, axes=None):
+def allreduce_(x, op=Average, axes=None, logical_nbytes=None):
     """Reduce ``x`` in place across the ranks of ``axes``; every rank
     gets the result. ``op=Adasum`` runs ``ops/adasum.py``'s
     ``adasum_allreduce`` over ``axes`` (None: every axis of the mesh):
     its XOR tree over one axis (a power of 2 of ranks, else
-    ``ValueError``), its two-level composite over several."""
+    ``ValueError``), its two-level composite over several.
+    ``logical_nbytes`` is the uncompressed width behind a payload a
+    caller narrowed (telemetry's logical bytes; default: ``x``'s)."""
     if op == Adasum:
         from horovod_tpu_torch.ops import adasum
         axes = mesh_lib.get_mesh().axis_names if axes is None else axes
@@ -94,7 +178,8 @@ def allreduce_(x, op=Average, axes=None):
     if op == Average and not x.is_floating_point():
         raise TypeError(f"Average needs a floating tensor, got {x.dtype}")
     group, ranks, _ = _group(axes)
-    dist.all_reduce(x, op=_OPS[op], group=group)
+    with _recorded("allreduce", x, logical_nbytes=logical_nbytes):
+        dist.all_reduce(x, op=_OPS[op], group=group)
     if op == Average and len(ranks) > 1:
         x.div_(len(ranks))
     return x
@@ -119,7 +204,8 @@ def allreduce(x, op=Average, compression=None, axes=None):
     wire, ctx = compression.compress(x)
     if wire is x:
         wire = x.clone()
-    return compression.decompress(allreduce_(wire, op=op, axes=axes), ctx)
+    return compression.decompress(
+        allreduce_(wire, op=op, axes=axes, logical_nbytes=_nbytes(x)), ctx)
 
 
 def mesh_size(axes=None):
@@ -147,14 +233,22 @@ class Pending:
     kept past ``shutdown()`` does not keep the process group alive into
     interpreter exit, where destroying it can abort the process."""
 
-    def __init__(self, works, finish, keep=()):
+    def __init__(self, works, finish, keep=(), record=None):
         self._works, self._finish, self._keep = works, finish, keep
+        self._record = record  # the collective's telemetry (_Record)
         self._out = None
 
     def wait(self):
         if self._finish is not None:
-            for work in self._works:
-                work.wait()
+            rec, self._record = self._record, None
+            ok = False
+            try:
+                for work in self._works:
+                    work.wait()
+                ok = True
+            finally:
+                if rec is not None:
+                    rec.close(ok)
             self._out = self._finish()
             self._works, self._finish, self._keep = (), None, ()
         return self._out
@@ -169,12 +263,15 @@ def _wire_view(x):
     return x.view(torch.uint8) if x.dtype in _AS_BYTES else x
 
 
-def _allgather(x, axes, async_op=False):
+def _allgather(x, axes, async_op=False, logical_nbytes=None):
     group, ranks, _ = _group(axes)
     lin = _linear(axes)
     x = x.contiguous()
     out = torch.empty((len(ranks) * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
+    # the shape stays out of the digest, as the JAX eager allgather's
+    rec = _Record("allgather", x, logical_nbytes=logical_nbytes,
+                  hash_shape=False)
     work = dist.all_gather_into_tensor(_wire_view(out), _wire_view(x),
                                        group=group, async_op=True)
 
@@ -183,31 +280,32 @@ def _allgather(x, axes, async_op=False):
             return out
         return torch.cat(_permute(out.chunk(len(ranks)), _inverse(lin)))
 
-    pending = Pending((work,), finish, (x,))
+    pending = Pending((work,), finish, (x,), record=rec)
     return pending if async_op else pending.wait()
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes):
+    def forward(ctx, x, axes, logical_nbytes):
         ctx.axes = axes
-        return _allgather(x, axes)
+        return _allgather(x, axes, logical_nbytes=logical_nbytes)
 
     @staticmethod
     def backward(ctx, g):
-        return _reducescatter(g, Sum, ctx.axes), None
+        return _reducescatter(g, Sum, ctx.axes), None, None
 
 
-def allgather(x, async_op=False, axes=None):
+def allgather(x, async_op=False, axes=None, logical_nbytes=None):
     """Concatenate ``x`` from the ranks of ``axes`` along dim 0 (equal
     shapes). With ``async_op`` returns a ``Pending``; without, the call
-    is differentiable."""
+    is differentiable. ``logical_nbytes``: as in ``allreduce_``."""
     if async_op:
-        return _allgather(x, axes, async_op=True)
-    return _AllGather.apply(x, axes)
+        return _allgather(x, axes, async_op=True,
+                          logical_nbytes=logical_nbytes)
+    return _AllGather.apply(x, axes, logical_nbytes)
 
 
-def _reducescatter(x, op, axes, async_op=False):
+def _reducescatter(x, op, axes, async_op=False, logical_nbytes=None):
     group, ranks, _ = _group(axes)
     n = len(ranks)
     if x.shape[0] % n:
@@ -219,27 +317,32 @@ def _reducescatter(x, op, axes, async_op=False):
     x = x.contiguous()
     out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
+    rec = _Record("reducescatter", x, logical_nbytes=logical_nbytes)
     work = dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
                                       group=group, async_op=True)
 
     def finish():
         return out.div_(n) if op == Average and n > 1 else out
 
-    pending = Pending((work,), finish, (x,))
+    pending = Pending((work,), finish, (x,), record=rec)
     return pending if async_op else pending.wait()
 
 
-def reducescatter(x, op=Sum, async_op=False, axes=None):
+def reducescatter(x, op=Sum, async_op=False, axes=None,
+                  logical_nbytes=None):
     """Reduce ``x`` across the ranks of ``axes`` and scatter the result
     along dim 0: the rank whose ``mesh_rank(axes)`` is ``i`` receives
     reduced chunk ``i`` (dim 0 must divide by their number). Sum or
-    Average only. With ``async_op`` returns a ``Pending``."""
+    Average only. With ``async_op`` returns a ``Pending``.
+    ``logical_nbytes``: as in ``allreduce_``."""
     if op not in (Sum, Average):
         raise ValueError("reducescatter supports Sum or Average")
-    return _reducescatter(x, op, axes, async_op=async_op)
+    return _reducescatter(x, op, axes, async_op=async_op,
+                          logical_nbytes=logical_nbytes)
 
 
-def _alltoall(x, axes, split_dim=0, concat_dim=0, async_op=False):
+def _alltoall(x, axes, split_dim=0, concat_dim=0, async_op=False,
+              logical_nbytes=None):
     group, ranks, _ = _group(axes)
     n = len(ranks)
     if x.shape[split_dim] % n:
@@ -253,6 +356,8 @@ def _alltoall(x, axes, split_dim=0, concat_dim=0, async_op=False):
         send = torch.stack(parts if lin is None else _permute(parts, lin))
         send = send.contiguous()
     out = torch.empty_like(send)
+    rec = _Record("alltoall", x, nbytes=_nbytes(send),
+                  logical_nbytes=logical_nbytes)
     work = dist.all_to_all_single(_wire_view(out), _wire_view(send),
                                   group=group, async_op=True)
 
@@ -264,7 +369,7 @@ def _alltoall(x, axes, split_dim=0, concat_dim=0, async_op=False):
             parts = _permute(parts, _inverse(lin))
         return torch.cat(parts, dim=concat_dim)
 
-    pending = Pending((work,), finish, (send,))
+    pending = Pending((work,), finish, (send,), record=rec)
     return pending if async_op else pending.wait()
 
 
@@ -279,18 +384,21 @@ class _AllToAll(torch.autograd.Function):
         return _alltoall(g, *ctx.args), None, None, None
 
 
-def alltoall(x, async_op=False, axes=None, split_dim=0, concat_dim=0):
+def alltoall(x, async_op=False, axes=None, split_dim=0, concat_dim=0,
+             logical_nbytes=None):
     """Split ``split_dim`` of ``x`` into one chunk per rank of ``axes``,
     send chunk ``i`` to the rank whose ``mesh_rank(axes)`` is ``i``, and
     concatenate what arrives along ``concat_dim`` in rank order (the JAX
     package's ``lax.all_to_all(x, axes, split_dim, concat_dim,
     tiled=True)``). With ``async_op`` (dims 0 and 0 only) returns a
-    ``Pending``; without, the call is differentiable."""
+    ``Pending``; without, the call is differentiable.
+    ``logical_nbytes``: as in ``allreduce_``."""
     if async_op:
         if split_dim or concat_dim:
             raise ValueError("alltoall(async_op=True) splits and "
                              "concatenates dim 0")
-        return _alltoall(x, axes, async_op=True)
+        return _alltoall(x, axes, async_op=True,
+                         logical_nbytes=logical_nbytes)
     return _AllToAll.apply(x, axes, split_dim, concat_dim)
 
 
@@ -314,8 +422,9 @@ def _ppermute(x, axis, perm):
     ops += [dist.P2POp(dist.irecv, out, m.peer(axis, s), group)
             for s in recv_from]
     if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        with _recorded("ppermute", x):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
     return out
 
 
@@ -346,7 +455,8 @@ def broadcast_(x, root_rank=0, axes=None):
     group, ranks, _ = _group(axes)
     lin = _linear(axes)
     root = root_rank if lin is None else lin.index(root_rank)
-    dist.broadcast(x, src=ranks[root], group=group)
+    with _recorded("broadcast", x):
+        dist.broadcast(x, src=ranks[root], group=group)
     return x
 
 

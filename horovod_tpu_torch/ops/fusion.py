@@ -26,18 +26,29 @@ carries its own: the scatter order, walked axis by axis, which
 ``hierarchical=True`` makes ICI-first (``("data", "dcn")`` on a
 ``(dcn, data)`` mesh) so the cross-host stage moves 1/ici_size of the
 bytes; chunk ownership is then row-major over that order.
+
+Telemetry (JAX ``ops/fusion.py:155-200``, ``:229-378``): each bucket of
+the reduce-scatter pipeline records its fill, wire and logical bytes and
+the host seconds to pack and issue it (``record_bucket``, kinds ``rs``
+and ``ag``), a ``bucket`` event in the flight recorder, and a
+``BUCKET_RS``/``BUCKET_AG`` marker on the host timeline, linked to the
+step's dispatch flow. The JAX package records them once, when the step
+is traced; the port records every bucket of every step.
 """
 
 import dataclasses
+import time
 import warnings
 
 import torch
 
 from horovod_tpu_torch import basics
+from horovod_tpu_torch.diag import recorder as _flightrec
 from horovod_tpu_torch.ops import collective
 from horovod_tpu_torch.ops import compression as compression_lib
 from horovod_tpu_torch.parallel import hierarchical as hier_lib
 from horovod_tpu_torch.parallel import mesh as mesh_lib
+from horovod_tpu_torch.telemetry import instruments as _tele
 
 
 @dataclasses.dataclass(frozen=True)
@@ -326,7 +337,32 @@ def pack_padded(schedule, idx, leaves):
         bucket.sizes))
 
 
-def _reduce_scatter(flat, op, axes, async_op=False):
+def _timeline_mark(kind, idx, nbytes):
+    """The bucket's recorder event and its ``BUCKET_RS``/``BUCKET_AG``
+    timeline marker, joined to the step's dispatch flow when one is open
+    (``training.py`` keeps its id on the timeline)."""
+    _flightrec.record_event("bucket", kind=kind, idx=idx, nbytes=nbytes)
+    tl = getattr(basics._state, "timeline", None)
+    if tl is not None:
+        tl.bucket_marker(kind, idx, nbytes,
+                         flow_id=getattr(tl, "_step_flow_id", None))
+
+
+def _bucket_fill(schedule, idx):
+    used = sum(schedule.buckets[idx].sizes)
+    padded = schedule.padded_sizes[idx]
+    return used / padded if padded else 1.0
+
+
+def _record_bucket(kind, schedule, idx, nbytes, t0, dtype,
+                   logical_nbytes=None):
+    _tele.record_bucket(kind, _bucket_fill(schedule, idx), nbytes,
+                        dispatch_s=time.perf_counter() - t0,
+                        logical_nbytes=logical_nbytes,
+                        dtype=_flightrec.dtype_name(dtype))
+
+
+def _reduce_scatter(flat, op, axes, async_op=False, logical_nbytes=None):
     """Reduce-scatter ``flat`` over ``axes``: one collective over one axis
     or the whole mesh (None), else the two-level stages of
     ``parallel/hierarchical.py`` in the order of ``axes``."""
@@ -334,14 +370,16 @@ def _reduce_scatter(flat, op, axes, async_op=False):
         raise ValueError("reducescatter supports Sum or Average")
     if axes is None or len(axes) == 1:
         return collective.reducescatter(flat, op=op, async_op=async_op,
-                                        axes=axes)
+                                        axes=axes,
+                                        logical_nbytes=logical_nbytes)
     return hier_lib.staged_reducescatter(flat, axes, op, async_op=async_op)
 
 
-def _all_gather(shard, axes):
+def _all_gather(shard, axes, logical_nbytes=None):
     """Inverse of ``_reduce_scatter``."""
     if axes is None or len(axes) == 1:
-        return collective.allgather(shard, axes=axes)
+        return collective.allgather(shard, axes=axes,
+                                    logical_nbytes=logical_nbytes)
     return hier_lib.staged_allgather(shard, axes)
 
 
@@ -351,22 +389,31 @@ def reduce_scatter_bucket(schedule, idx, leaves, op=collective.Average,
     over the schedule's axes (``axes`` overrides them): returns this
     rank's reduced shard (``shard_sizes[idx]`` elements), or with
     ``async_op`` a ``collective.Pending`` whose ``wait()`` does."""
-    return _reduce_scatter(pack_padded(schedule, idx, leaves), op,
-                           schedule.axes if axes is None else axes,
-                           async_op=async_op)
+    t0 = time.perf_counter()
+    flat = pack_padded(schedule, idx, leaves)
+    nbytes = collective._nbytes(flat)
+    _timeline_mark("RS", idx, nbytes)
+    out = _reduce_scatter(flat, op, schedule.axes if axes is None else axes,
+                          async_op=async_op)
+    _record_bucket("rs", schedule, idx, nbytes, t0, flat.dtype)
+    return out
 
 
 def all_gather_bucket(schedule, idx, shard, axes=None):
     """Inverse of ``reduce_scatter_bucket``: gather every rank's shard of
     bucket ``idx`` into the full padded flat bucket, chunk ``r`` from the
     rank whose ``mesh_rank(schedule.axes)`` is ``r``. It takes the
-    schedule and the index, as the JAX package's does (there they also
-    label the bucket's telemetry record, which is not ported), and holds
-    the shard to the schedule."""
+    schedule and the index, as the JAX package's does (they label the
+    bucket's telemetry record), and holds the shard to the schedule."""
     if shard.numel() != schedule.shard_sizes[idx]:
         raise ValueError(f"bucket {idx}: shard of {shard.numel()} elements, "
                          f"scheduled {schedule.shard_sizes[idx]}")
-    return _all_gather(shard, schedule.axes if axes is None else axes)
+    t0 = time.perf_counter()
+    nbytes = collective._nbytes(shard) * schedule.world
+    _timeline_mark("AG", idx, nbytes)
+    out = _all_gather(shard, schedule.axes if axes is None else axes)
+    _record_bucket("ag", schedule, idx, nbytes, t0, shard.dtype)
+    return out
 
 
 def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
@@ -394,7 +441,9 @@ def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
     if not schedule.buckets[idx].dtype.is_floating_point:
         return reduce_scatter_bucket(schedule, idx, leaves, op=op,
                                      async_op=async_op, axes=axes), residual
+    t0 = time.perf_counter()
     flat = pack_padded(schedule, idx, leaves)
+    logical_nbytes = collective._nbytes(flat)
     grad_dtype = flat.dtype
     world, shard = schedule.world, schedule.shard_sizes[idx]
     if residual is not None:
@@ -410,10 +459,17 @@ def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
         else:
             wire_rows, scales = q.compress_flat(rows)
             new_residual = None
-        # row r of what arrives is rank r's contribution to this shard
+        # per row: each of the world rows pads to whole chunks and
+        # carries its own scales
+        nbytes = q.wire_bytes(shard, grad_dtype) * world
+        _timeline_mark("RS", idx, nbytes)
+        # row r of what arrives is rank r's contribution to this shard;
+        # the scales are pure wire overhead (logical 0)
         recv_rows = collective.alltoall(wire_rows, async_op=True,
-                                        axes=axes)
-        recv_scales = collective.alltoall(scales, async_op=True, axes=axes)
+                                        axes=axes,
+                                        logical_nbytes=logical_nbytes)
+        recv_scales = collective.alltoall(scales, async_op=True, axes=axes,
+                                          logical_nbytes=0)
 
         def finish():
             vals = q.decompress_flat(recv_rows.wait(), recv_scales.wait(),
@@ -431,9 +487,14 @@ def reduce_scatter_bucket_compressed(schedule, idx, leaves, wire,
         else:
             wire_flat, _ = wire.compress_flat(flat)
             new_residual = None
-        reduced = _reduce_scatter(wire_flat, op, axes, async_op=True)
+        nbytes = wire.wire_bytes(flat.shape[0], grad_dtype)
+        _timeline_mark("RS", idx, nbytes)
+        reduced = _reduce_scatter(wire_flat, op, axes, async_op=True,
+                                  logical_nbytes=logical_nbytes)
         pending = collective.Pending(
             (), lambda: reduced.wait().to(grad_dtype))
+    _record_bucket("rs", schedule, idx, nbytes, t0, grad_dtype,
+                   logical_nbytes=logical_nbytes)
     return (pending if async_op else pending.wait()), new_residual
 
 
@@ -458,6 +519,8 @@ def all_gather_bucket_compressed(schedule, idx, shard_vals, wire,
     if shard_vals.numel() != shard:
         raise ValueError(f"bucket {idx}: shard of {shard_vals.numel()} "
                          f"elements, scheduled {shard}")
+    t0 = time.perf_counter()
+    logical_nbytes = shard * world * shard_vals.element_size()
     out_dtype = shard_vals.dtype
     x = shard_vals
     if residual is not None:
@@ -470,8 +533,12 @@ def all_gather_bucket_compressed(schedule, idx, shard_vals, wire,
         else:
             wire_shard, scales = q.compress_flat(x)
             new_residual = None
-        gathered = collective.allgather(wire_shard, axes=axes)
-        g_scales = collective.allgather(scales, axes=axes)
+        nbytes = q.wire_bytes(shard, out_dtype) * world
+        _timeline_mark("AG", idx, nbytes)
+        gathered = collective.allgather(
+            wire_shard, axes=axes,
+            logical_nbytes=shard * shard_vals.element_size())
+        g_scales = collective.allgather(scales, axes=axes, logical_nbytes=0)
         flat = q.decompress_flat(
             gathered.reshape(world, -1), g_scales.reshape(world, -1),
             out_dtype, n=shard).reshape(world * shard)
@@ -482,7 +549,13 @@ def all_gather_bucket_compressed(schedule, idx, shard_vals, wire,
         else:
             wire_shard, _ = wire.compress_flat(x)
             new_residual = None
-        flat = _all_gather(wire_shard, axes).to(out_dtype)
+        nbytes = wire.wire_bytes(shard, out_dtype) * world
+        _timeline_mark("AG", idx, nbytes)
+        flat = _all_gather(
+            wire_shard, axes,
+            logical_nbytes=shard * shard_vals.element_size()).to(out_dtype)
+    _record_bucket("ag", schedule, idx, nbytes, t0, out_dtype,
+                   logical_nbytes=logical_nbytes)
     return flat, new_residual
 
 

@@ -59,6 +59,7 @@ one. A hierarchical schedule's ICI-first order keeps its two stages.
 
 import dataclasses
 import re
+import time
 
 import numpy as np
 import torch
@@ -522,7 +523,8 @@ def reduce_spmd(grads, params, plan, threshold_bytes=None):
             params[i].grad = g.to(params[i].dtype)
 
 
-def apply_shards_spmd(zstate, grads, plan, wire=None, ag_residuals=None):
+def apply_shards_spmd(zstate, grads, plan, wire=None, ag_residuals=None,
+                      on_reduced=None):
     """ZeRO-1 under the GSPMD path (JAX ``gspmd.py:184``): the explicit
     path's ``[world, shard]`` rows and inner-optimizer arithmetic
     (``zero.step_rows``), and no collective call of its own:
@@ -544,8 +546,10 @@ def apply_shards_spmd(zstate, grads, plan, wire=None, ag_residuals=None):
     is carried into the next step's delta. The reduce-scatter half stays
     stateless (a residual would have to be added before the reduction).
     A chunked wire (fp8, int8) raises: per-chunk scales have no
-    placement; the train step runs that exchange as an island. Returns
-    the new residuals (None without ``ag_residuals``)."""
+    placement; the train step runs that exchange as an island.
+    ``on_reduced(shards)`` sees this rank's reduced shards before the
+    inner optimizer steps them. Returns the new residuals (None without
+    ``ag_residuals``)."""
     from torch.distributed.tensor import DTensor, Partial, Shard
     from horovod_tpu_torch.ops import fusion
     from horovod_tpu_torch.parallel import zero
@@ -580,6 +584,8 @@ def apply_shards_spmd(zstate, grads, plan, wire=None, ag_residuals=None):
                                       run_check=False)
             shards.append(constrain(rows, plan, row_spec).to_local()
                           .reshape(-1).to(grad_dtype))
+        if on_reduced is not None:
+            on_reduced(shards)
         new_residuals = (list(ag_residuals) if ag_residuals is not None
                          else None)
         for i, delta in enumerate(zero.step_rows(zstate, shards)):
@@ -662,8 +668,11 @@ def collective_kind(name):
     if name.startswith("nccl"):
         head = name.split("_", 1)
         if len(head) == 2 and head[0] in ("ncclDevKernel", "ncclKernel"):
+            # the kernel's name, without the argument list a trace adds
+            # (ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>))
+            tail = head[1].split("(", 1)[0]
             for key, k in _NCCL_KINDS.items():
-                if head[1] == key or head[1].startswith(key + "_"):
+                if tail == key or tail.startswith(key + "_"):
                     return k, None
         return None, None
     parts = name.split(".")
@@ -781,9 +790,13 @@ class CompiledProgramCache:
     compiled here: the placement program runs op by op. The first call
     of each signature runs under :func:`record_collectives` and its
     collectives are kept; later calls of it run bare. ``last_collectives``
-    and ``last_axis_collectives`` are the latest call's signature's. The
-    telemetry plane's counters (JAX ``record_compiled_collectives``) are
-    not ported yet."""
+    and ``last_axis_collectives`` are the latest call's signature's.
+
+    The first call of a signature is the port's counterpart of the JAX
+    step's compile: its seconds go to the goodput ledger's ``compile``
+    phase and ``hvd_compile_seconds_total`` (``record_compile``), and its
+    collectives into ``hvd_collective_*`` under ``spmd_<kind>`` labels,
+    once a signature (JAX ``record_compiled_collectives``)."""
 
     def __init__(self, mesh=None):
         self.mesh = mesh
@@ -799,8 +812,14 @@ class CompiledProgramCache:
         key = self.signature(args)
         entry = self._seen.get(key)
         if entry is None:
+            from horovod_tpu_torch.telemetry import instruments as _tele
+            t0 = time.perf_counter()
             out, by_op, by_axes = record_collectives(fn, *args,
                                                      mesh=self.mesh)
+            _tele.record_compile(time.perf_counter() - t0)
+            for op, tot in by_op.items():
+                _tele.record_compiled_collective(
+                    f"spmd_{op}", calls=tot["calls"], nbytes=tot["bytes"])
             self._seen[key] = entry = (by_op, by_axes)
         else:
             out = fn(*args)

@@ -13,6 +13,17 @@ the port has not yet are refused with exit code 2 and the ``ROADMAP.md``
 item that brings them (``REFUSED``). Tuning flags set the same
 ``HOROVOD_*`` env as the JAX package's; of each the port's ``init()``
 does not read, hvdrun says so on stderr.
+
+The diagnosis flags are the JAX launcher's (``run/run.py:181-205``,
+``:447-480``): ``--doctor LOGDIR`` (the hang report,
+``diag/doctor.py``), ``--goodput-report LOGDIR`` (``telemetry/report.py``)
+and ``--merge-timeline OUT traces...`` (``telemetry/merge.py``) run their
+tool and exit. A launch gives its ranks a flight-recorder directory
+(``--output-dir``, an exported ``HOROVOD_FLIGHTREC_DIR``, else a
+temporary one removed after a clean run), and after a failed job runs
+the doctor over it (``--no-doctor`` suppresses it). ``--metrics-port``
+is a base port: rank r binds base + its local rank, each probed here
+first.
 """
 
 import argparse
@@ -37,9 +48,6 @@ REFUSED = (
     ("host_discovery_script", "--host-discovery-script",
      "elastic training", 6),
     ("chaos", "--chaos", "the fault injector", 6),
-    ("doctor", "--doctor", "the diagnosis plane", 5),
-    ("goodput_report", "--goodput-report", "the telemetry plane", 5),
-    ("merge_timeline", "--merge-timeline", "the telemetry plane", 5),
 )
 
 
@@ -180,13 +188,21 @@ def build_parser():
     p.add_argument("--chaos", metavar="SPEC", default=None,
                    help="refused: ROADMAP.md Queue 1 item 6")
     p.add_argument("--doctor", metavar="LOGDIR", default=None,
-                   help="refused: ROADMAP.md Queue 1 item 5")
+                   help="aggregate the flight-recorder dumps "
+                        "(flightrec.rank*.json) under LOGDIR into one "
+                        "hang/crash report, then exit (python -m "
+                        "horovod_tpu_torch.diag.doctor)")
     p.add_argument("--no-doctor", action="store_true",
-                   help="accepted; the port runs no doctor yet")
+                   help="do not run the doctor when a job exits non-zero "
+                        "with flight-recorder dumps present")
     p.add_argument("--goodput-report", metavar="LOGDIR", default=None,
-                   help="refused: ROADMAP.md Queue 1 item 5")
+                   help="aggregate the goodput-ledger dumps "
+                        "(goodput.rank*.json) under LOGDIR into the "
+                        "end-of-run time-attribution report, then exit")
     p.add_argument("--merge-timeline", metavar="OUT", default=None,
-                   help="refused: ROADMAP.md Queue 1 item 5")
+                   help="merge per-rank Chrome trace files (the command "
+                        "arguments) into one trace with aligned clocks, "
+                        "then exit")
     p.add_argument("command", nargs=argparse.REMAINDER,
                    help="training command, e.g. python train.py")
     return p
@@ -227,9 +243,95 @@ def parse_args(argv=None):
     elif args.spmd_local_devices is not None:
         parser.error("--spmd-local-devices requires --spmd-procs")
     # after the config overlay: the YAML may supply num-proc
-    if not args.check_build and args.num_proc is None:
+    if (not args.check_build and args.merge_timeline is None
+            and args.doctor is None and args.goodput_report is None
+            and args.num_proc is None):
         parser.error("-np/--num-proc is required")
     return args
+
+
+def _check_metrics_ports(args, slots):
+    """Per-rank metrics ports (base + local_rank), each probed with a
+    bind where the slot is local (a remote host fails loudly when its
+    rank binds). Prints the scrape targets. Returns the ``(host, port)``
+    list."""
+    if args.metrics_port is None:
+        return []
+    targets = [(s.hostname, args.metrics_port + s.local_rank)
+               for s in slots]
+    if args.metrics_port > 0:
+        for host, port in targets:
+            if host not in launcher.LOCAL_HOSTS:
+                continue
+            probe = socket.socket()
+            try:
+                probe.bind((args.metrics_addr or "127.0.0.1", port))
+            except OSError as e:
+                raise RuntimeError(
+                    f"hvdrun: metrics port {port} (base "
+                    f"{args.metrics_port} + local_rank) is not bindable "
+                    f"on {host}: {e}; pick another --metrics-port")
+            finally:
+                probe.close()
+        print("hvdrun: metrics scrape targets: "
+              + ", ".join(f"{h}:{p}" for h, p in targets),
+              file=sys.stderr)
+    else:
+        print("hvdrun: metrics on ephemeral ports (base 0); check each "
+              "rank's log for its bound port", file=sys.stderr)
+    return targets
+
+
+def _flightrec_dir(args, extra_env):
+    """Where this run's flight-recorder dumps land: ``--output-dir``
+    (beside the rank logs), an exported ``HOROVOD_FLIGHTREC_DIR``, else
+    a temporary directory, so the doctor after a failure has a place to
+    look. Returns ``(dir, the temporary directory or None)``."""
+    import tempfile
+    if args.output_dir:
+        extra_env.setdefault("HOROVOD_FLIGHTREC_DIR", args.output_dir)
+        return args.output_dir, None
+    explicit = os.environ.get("HOROVOD_FLIGHTREC_DIR")
+    if explicit:
+        return explicit, None
+    d = tempfile.mkdtemp(prefix="hvdrun_flightrec_")
+    extra_env["HOROVOD_FLIGHTREC_DIR"] = d
+    return d, d
+
+
+def _maybe_doctor(args, dump_dir, multi_host=False):
+    """Run the doctor over this run's dumps after a failed job (unless
+    ``--no-doctor``): the report naming the dead rank and the collective
+    the survivors are parked in. A job across hosts sees only this
+    host's dumps, so the report says that ranks elsewhere may read as
+    dead."""
+    if getattr(args, "no_doctor", False) or not dump_dir:
+        return
+    try:
+        from horovod_tpu_torch.diag import doctor as doctor_mod
+        if not doctor_mod.find_dumps(dump_dir):
+            return
+        print(f"hvdrun: flight-recorder dumps found in {dump_dir}; "
+              "doctor report (suppress with --no-doctor):",
+              file=sys.stderr)
+        if multi_host:
+            print("hvdrun: MULTI-HOST job — only this host's dumps are "
+                  "visible below; ranks on other hosts may be wrongly "
+                  "listed as DEAD. Collect each host's dump dir into one "
+                  "place and rerun `hvdrun --doctor <dir>` for the real "
+                  "verdict.", file=sys.stderr)
+        doctor_mod.run(dump_dir, expected_size=args.num_proc,
+                       stream=sys.stderr)
+    except Exception as e:  # the report must never mask the real failure
+        print(f"hvdrun: doctor failed: {e}", file=sys.stderr)
+
+
+def _cleanup_tmp_flightrec(tmp_dir):
+    """A clean run's temporary dump directory holds clean-exit dumps
+    only: remove it. A failed run keeps its (the doctor names it)."""
+    if tmp_dir:
+        import shutil
+        shutil.rmtree(tmp_dir, ignore_errors=True)
 
 
 def _discover_interfaces(hosts, auth_key, kv_port, args, extra_env):
@@ -370,6 +472,8 @@ def _run(args):
         extra_env = _base_worker_env(args, auth_key, all_local, hosts,
                                      rendezvous_port)
         extra_env.update(spmd_env(args, controller_addr, rendezvous_port))
+        _check_metrics_ports(args, slots)
+        dump_dir, tmp_dump_dir = _flightrec_dir(args, extra_env)
         if args.verbose:
             print(f"hvdrun: launching {args.num_proc} processes: "
                   f"{[(s.rank, s.hostname, s.local_rank) for s in slots]}",
@@ -378,7 +482,12 @@ def _run(args):
                               rendezvous_port=rendezvous_port,
                               extra_env=extra_env, ssh_port=args.ssh_port,
                               output_dir=args.output_dir)
-        job.wait()
+        try:
+            job.wait()
+        except RuntimeError:
+            _maybe_doctor(args, dump_dir, multi_host=not all_local)
+            raise
+        _cleanup_tmp_flightrec(tmp_dump_dir)
     finally:
         kv.stop()
 
@@ -388,6 +497,23 @@ def main(argv=None):
     if args.check_build:
         check_build()
         return 0
+    if args.doctor is not None:
+        from horovod_tpu_torch.diag import doctor as doctor_mod
+        argv_d = [args.doctor]
+        if args.num_proc:
+            argv_d += ["--expected-size", str(args.num_proc)]
+        return doctor_mod.main(argv_d)
+    if args.goodput_report is not None:
+        from horovod_tpu_torch.telemetry import report as report_mod
+        return report_mod.main([args.goodput_report])
+    if args.merge_timeline is not None:
+        from horovod_tpu_torch.telemetry import merge as merge_mod
+        traces = [c for c in args.command if c != "--"]
+        if not traces:
+            print("hvdrun: --merge-timeline needs the per-rank trace "
+                  "files as the command arguments", file=sys.stderr)
+            return 1
+        return merge_mod.main(["-o", args.merge_timeline] + traces)
     try:
         _run(args)
     except (RuntimeError, TimeoutError) as e:

@@ -10,22 +10,44 @@ the batch and updates the model's parameters, its BatchNorm statistics
 and the optimizer's state in place, and counts its calls in a
 ``StepState``, the counterpart of ``TrainState.step`` that a checkpoint
 saves with them (``convert.train_state_to_flat``).
+
+Telemetry and diagnosis (JAX ``training.py:555-640``, ``:1156-1262``,
+``:1385-1420``, ``:1640-1650``): every step runs in a frame
+(``_step_frame``) that marks its begin and end in the flight recorder,
+brackets its collectives as the step's own (``collective.in_step``:
+they book as compute, not exposed collective time), settles the goodput
+ledger at its end (a GSPMD step also notes the compiled path), and
+opens or closes a ``/profile`` capture window (``telemetry/xprof.py``).
+With ``telemetry`` on (default: ``telemetry.enabled()``, a metrics
+endpoint or ``HOROVOD_TELEMETRY=1``), ``make_train_step`` and
+``make_lm_train_step`` also record ``hvd_step_*``, examples, the loss
+and the gradient norm (deferred: kept as tensors and read only by a
+scrape, so the step neither syncs nor changes a bit of its outputs), and
+mark the step's dispatch and its buckets on the host timeline. Every
+step carries ``step.xray(*args, k=3)``, which captures K steps with
+``torch.profiler`` and attributes their device time.
 """
 
+import contextlib
 import dataclasses
 import hashlib
 import inspect
+import time
 import warnings
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from horovod_tpu_torch import data, hvd_torch
+from horovod_tpu_torch import basics, data, hvd_torch
+from horovod_tpu_torch import telemetry as telemetry_lib
+from horovod_tpu_torch.diag import recorder as _flightrec
 from horovod_tpu_torch.ops import collective, fusion
 from horovod_tpu_torch.ops.reduction import Average, Sum
 from horovod_tpu_torch.parallel import mesh as mesh_lib
 from horovod_tpu_torch.parallel import zero
+from horovod_tpu_torch.telemetry import ledger as _ledger_lib
+from horovod_tpu_torch.telemetry import xprof
 
 
 @dataclasses.dataclass
@@ -62,6 +84,108 @@ def _dropout_generator(device, *ints):
     return gen
 
 
+@contextlib.contextmanager
+def _step_frame(n, compiled_path=False):
+    """One step's frame: the ``/profile`` window's open, the recorder's
+    step begin, the step's collectives bracketed as its own, then (on
+    success) the recorder's step end and the ledger's settle (the
+    residual of the interval is compute), and (always) the window's
+    close once its time has passed. A step run inside another (a GSPMD
+    step's island) is the outer step's."""
+    if collective._step_depth:
+        yield
+        return
+    xprof.window_step_begin()
+    try:
+        _flightrec.step_begin(n)
+        with collective.in_step():
+            yield
+        _flightrec.step_end(n)
+        ledger = _ledger_lib.get_ledger()
+        if compiled_path:
+            ledger.note_compiled_path()
+        ledger.settle_step()
+    finally:
+        xprof.window_step_end()
+
+
+def _tele_on(telemetry):
+    return telemetry_lib.enabled() if telemetry is None else bool(telemetry)
+
+
+class _StepRecorder:
+    """A step's telemetry (``telemetry=True``): ``StepInstruments``, and
+    on the host timeline an enclosing ``step_dispatch`` slice with a flow
+    that the bucket markers of ``ops/fusion.py`` join."""
+
+    def __init__(self, accum_steps=1):
+        self.instruments = telemetry_lib.StepInstruments(
+            accum_steps=accum_steps)
+
+    @contextlib.contextmanager
+    def dispatch(self):
+        tl = basics._state.timeline
+        flow = None
+        if tl is not None:
+            tl.start_activity("marker", "step_dispatch")
+            flow = tl.flow_start("step_dispatch")
+            tl._step_flow_id = flow
+        try:
+            yield
+        finally:
+            if flow is not None:
+                tl._step_flow_id = None
+                tl.flow_end("step_dispatch", flow)
+                tl.end_activity("marker")
+
+    def record(self, batch, t0, loss, grad_norm):
+        self.instruments.record_step(
+            batch=int(batch), dispatch_s=time.perf_counter() - t0,
+            loss=loss, grad_norm=grad_norm,
+            timeline=basics._state.timeline,
+            step_no=self.instruments.steps.value)
+
+
+def _grad_norm(grads):
+    """L2 norm of ``grads`` (fp32, one foreach pass; no sync)."""
+    grads = [g for g in grads if g is not None]
+    if not grads:
+        return None
+    norms = torch._foreach_norm(grads)
+    return torch.linalg.vector_norm(torch.stack([n.float() for n in norms]))
+
+
+def _shards_norm(shards, axes):
+    """The exact norm of an averaged gradient partitioned into this
+    rank's ``shards``: the sum over ranks of their squares (the pads are
+    zero), one scalar all-reduce."""
+    local_sq = sum(s.float().square().sum() for s in shards)
+    return collective.allreduce_(local_sq, op=Sum, axes=axes).sqrt()
+
+
+def _local_norm(grads, axes):
+    """The JAX definition where only local gradients exist: the
+    root-mean over ranks of each rank's squared local norm, one scalar
+    all-reduce."""
+    local = _grad_norm(grads)
+    if local is None:
+        return None
+    return collective.allreduce_(local.square(), op=Average,
+                                 axes=axes).sqrt()
+
+
+def _attach_xray(step, collectives=None):
+    def xray(*args, k=3, profile_dir=None):
+        """Capture K steps of ``step(*args)`` with ``torch.profiler``
+        (after one warm step outside the capture) and attribute their
+        device time (``telemetry/xprof.xray_run``). Returns ``(last
+        loss, summary)``; the summary lands in ``profile_dir`` as
+        ``xray.rank<r>.json``."""
+        return xprof.xray_run(step, args, k=k, profile_dir=profile_dir,
+                              compiled_collectives=collectives)
+    step.xray = xray
+
+
 def _batch_stats(model):
     """The floating running-statistics buffers of the model's BatchNorm
     layers, in module order (integer counters such as
@@ -74,7 +198,8 @@ def _batch_stats(model):
 
 def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                     dropout_seed=0, accum_steps=1, overlap_grads=False,
-                    error_feedback=True, loader=None, spmd=False):
+                    error_feedback=True, loader=None, spmd=False,
+                    telemetry=None):
     """Build a classification train step over the data axis.
     ``step(inputs, labels)`` takes this rank's shard of the batch, puts
     the model in training mode, runs forward, backward and the optimizer
@@ -141,12 +266,25 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
     loss is the global-batch mean, BatchNorm normalizes with global-batch
     statistics and dropout draws one stream a step. It refuses
     ``accum_steps`` and ``overlap_grads``, the explicit pipeline's
-    knobs."""
+    knobs.
+
+    ``telemetry`` (None: ``telemetry.enabled()``) records the step's
+    instruments (module docstring). Its gradient norm (``hvd_grad_norm``)
+    is the norm of the averaged gradient wherever the step holds one:
+    the overlapped pipeline's reduced shards (one scalar all-reduce, the
+    JAX overlapped definition) and the gradients an allreduce left in
+    ``.grad``; where only local gradients exist (ZeRO-1 without overlap,
+    ``backward_passes_per_step > 1``, a plain torch optimizer) it is the
+    JAX non-overlapped definition, the root-mean of the ranks' local
+    norms. The GSPMD step's is the exact norm of the global-mean
+    gradient, as the JAX GSPMD step's. Losses and parameters are bit for
+    bit those of ``telemetry=False``."""
     if spmd:
         return _make_spmd_train_step(
             model, optimizer, loss_fn=loss_fn, dropout_seed=dropout_seed,
             accum_steps=accum_steps, overlap_grads=overlap_grads,
-            error_feedback=error_feedback, loader=loader)
+            error_feedback=error_feedback, loader=loader,
+            telemetry=telemetry)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     pipelined = overlap_grads or accum_steps > 1
@@ -279,6 +417,7 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         optimizer.update_preaveraged()
 
     def run(inputs, labels, res):
+        """One step's work; returns ``(loss, grad norm or None)``."""
         model.train()
         inputs, labels = inputs.to(mesh.device), labels.to(mesh.device)
         if inputs.shape[0] % accum_steps:
@@ -298,9 +437,12 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                 if pending is not None:
                     shards = _add_waited(shards, pending)
                 pending = issued
+        gnorm = None
         with torch.no_grad():
             if overlap_grads:
                 shards = [s * inv_k for s in _add_waited(shards, pending)]
+                if recorder is not None:
+                    gnorm = _shards_norm(shards, schedule.axes)
                 if sharded:
                     new_ag = zero.apply_shards(
                         optimizer.zero_state, shards, wire=wire,
@@ -314,11 +456,27 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                     for p in params:
                         if p.grad is not None:
                             p.grad.mul_(inv_k)
+                if recorder is not None:
+                    grads = [p.grad for g in optimizer.param_groups
+                             for p in g["params"]]
+                    if not averaged_in_place:
+                        gnorm = _local_norm(grads, norm_axes)
                 optimizer.step()
+                if recorder is not None and averaged_in_place:
+                    gnorm = _grad_norm(grads)
             stats = _batch_stats(model)
             if stats:
                 fusion.fused_allreduce_(stats, op=Average)
-            return collective.allreduce_(loss_sum * inv_k, op=Average)
+            return (collective.allreduce_(loss_sum * inv_k, op=Average),
+                    gnorm)
+
+    # telemetry: the gradient norm reads the averaged gradients where
+    # an allreduce leaves them in .grad (after optimizer.step()), else
+    # the local ones (before it), as in the JAX non-overlapped step
+    recorder = _StepRecorder(accum_steps) if _tele_on(telemetry) else None
+    averaged_in_place = (is_hvd and not sharded
+                         and optimizer.backward_passes_per_step == 1)
+    norm_axes = optimizer.axes if is_hvd else None
 
     if loader is not None:
         loader.attach_placement(data.device_placement(mesh.device),
@@ -347,14 +505,20 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         check_wire_drift()
         if use_ef and residuals is None:
             residuals = new_residuals()
+        t0 = time.perf_counter()
+        dispatch = (recorder.dispatch() if recorder is not None
+                    else contextlib.nullcontext())
         try:
-            loss = run(inputs, labels, residuals)
+            with _step_frame(state.step), dispatch:
+                loss, gnorm = run(inputs, labels, residuals)
         except BaseException:
             # a failed step may have consumed some residuals and not
             # others: restart the compensation from zeros
             residuals = None
             raise
         state.step += 1
+        if recorder is not None:
+            recorder.record(inputs.shape[0], t0, loss, gnorm)
         return loss
 
     def reset_error_feedback():
@@ -367,6 +531,9 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
     step.wire = wire
     step.reset_error_feedback = reset_error_feedback
     step.residuals = lambda: residuals
+    if recorder is not None:
+        step.instruments = recorder.instruments
+    _attach_xray(step)
     return step
 
 
@@ -378,7 +545,7 @@ def _add_waited(acc, pending):
 
 
 def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
-                       seq_axis=None, spmd=False):
+                       seq_axis=None, spmd=False, telemetry=None):
     """Build a language-model train step (next-token loss).
     ``optimizer`` is a ``DistributedOptimizer`` (any exchange: fused
     allreduce, ZeRO-1, ``backward_passes_per_step``) whose axes are the
@@ -411,7 +578,17 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
     ``step(tokens)`` takes the GLOBAL ``[B, S]`` batch and the
     placements own the exchange. It refuses ``seq_axis``: a sharded
     sequence needs the ring's collectives, which the explicit step
-    runs."""
+    runs.
+
+    ``telemetry`` (None: ``telemetry.enabled()``) records the step's
+    instruments, as ``make_train_step``'s (the JAX LM step only settles
+    the ledger and marks the recorder; the port's records as its
+    classification step does): the examples are this rank's sequences,
+    and the gradient norm that of the averaged gradient, read from
+    ``.grad`` after the allreduce (one foreach pass), or under ZeRO-1 or
+    ``backward_passes_per_step > 1`` the root-mean of the ranks' local
+    norms; the GSPMD step's is the exact norm of the global-mean
+    gradient."""
     if spmd:
         if seq_axis is not None:
             raise ValueError(
@@ -419,7 +596,8 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
                 "sequence axis is the explicit step's (spmd=False), whose "
                 "ring attention moves the K/V blocks")
         return _make_spmd_lm_train_step(model, optimizer, mesh=mesh,
-                                        batch_axis=batch_axis)
+                                        batch_axis=batch_axis,
+                                        telemetry=telemetry)
     if not isinstance(optimizer, hvd_torch.DistributedOptimizer):
         raise TypeError("make_lm_train_step needs a DistributedOptimizer")
     installed = mesh_lib.get_mesh()
@@ -469,17 +647,41 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
         local_mean = softmax_cross_entropy(model(tokens)[:, :-1], targets)
         return local_mean * local_count * n_shards / global_count
 
-    def step(tokens):
-        tokens = tokens.to(mesh.device)
+    recorder = _StepRecorder() if _tele_on(telemetry) else None
+    averaged_in_place = (not optimizer.sharded_update
+                         and optimizer.backward_passes_per_step == 1)
+
+    def run(tokens):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(tokens)
         loss.backward()
+        gnorm = None
+        if recorder is not None:
+            grads = [p.grad for p in optimizer.params]
+            if not averaged_in_place:
+                gnorm = _local_norm(grads, grad_axes)
         optimizer.step()  # reduces the gradients first
-        state.step += 1
+        if recorder is not None and averaged_in_place:
+            gnorm = _grad_norm(grads)
         return collective.allreduce_(loss.detach(), op=Average,
-                                     axes=grad_axes)
+                                     axes=grad_axes), gnorm
+
+    def step(tokens):
+        tokens = tokens.to(mesh.device)
+        t0 = time.perf_counter()
+        dispatch = (recorder.dispatch() if recorder is not None
+                    else contextlib.nullcontext())
+        with _step_frame(state.step), dispatch:
+            loss, gnorm = run(tokens)
+        state.step += 1
+        if recorder is not None:
+            recorder.record(tokens.shape[0], t0, loss, gnorm)
+        return loss
 
     step.state = state
+    if recorder is not None:
+        step.instruments = recorder.instruments
+    _attach_xray(step)
     return step
 
 
@@ -636,18 +838,35 @@ def _spmd_wire_drift_checker(optimizer, wire):
     return check
 
 
-def _spmd_step_common(step, prog, plan, state):
+def _spmd_step_common(step, prog, plan, state, recorder):
     step.state = state
     step.plan = plan
     step.spmd = True
     step.compiled_collectives = None  # set at the first call
     step.compiled_axis_collectives = None
     step.program = prog
+    if recorder is not None:
+        step.instruments = recorder.instruments
+    _attach_xray(step, collectives=lambda: step.compiled_collectives)
+
+
+def _spmd_norm(norm, optimizer):
+    """The GSPMD step's gradient norm, outside its recorded call: the
+    exact norm of the global-mean gradient, as the JAX GSPMD step's.
+    ``norm`` is that of what ``update_spmd`` reduced (its ``on_reduced``):
+    plain data parallelism's whole gradients, or this rank's ZeRO-1
+    shards, whose squares one scalar all-reduce sums over the ranks (the
+    pads are zero)."""
+    if norm is None or not optimizer.sharded_update:
+        return norm
+    return collective.allreduce_(
+        norm.square(), op=Sum,
+        axes=optimizer.zero_state.plan.schedule.axes).sqrt()
 
 
 def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                           dropout_seed=0, accum_steps=1, overlap_grads=False,
-                          error_feedback=True, loader=None):
+                          error_feedback=True, loader=None, telemetry=None):
     """The GSPMD step behind ``make_train_step(spmd=True)`` (JAX
     ``training.py:804``). ``step(inputs, labels)`` takes the global batch,
     the same on every rank (or DTensors already placed); each rank keeps
@@ -681,6 +900,13 @@ def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
       rows are cast before both redistributions (delta error feedback on
       the all-gather half); plain data parallelism reduces its gradient
       buckets at the wire dtype (stateless).
+
+    Telemetry as the explicit step's, with the JAX GSPMD step's frame:
+    the ledger notes the compiled path (its collectives live inside the
+    step), and the first call of a batch signature books as compile
+    (``gspmd.CompiledProgramCache``). The gradient norm is the exact
+    norm of the global-mean gradient (``_spmd_norm``), as the JAX GSPMD
+    step's; a chunked wire's island records none.
     """
     from horovod_tpu_torch.parallel import gspmd
     from torch.distributed.tensor.experimental import implicit_replication
@@ -707,12 +933,19 @@ def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         model.forward).parameters
     residuals = None  # the cast + ZeRO-1 path's all-gather carry
 
+    recorder = _StepRecorder() if _tele_on(telemetry) else None
+    gnorm_box = [None]
+
+    def on_reduced(reduced):
+        if recorder is not None:
+            gnorm_box[0] = _grad_norm(reduced)
     if chunked:
         # the explicit overlapped step, whole, as the island
         inner = make_train_step(model, optimizer, loss_fn=loss_fn,
                                 dropout_seed=dropout_seed,
                                 overlap_grads=True,
-                                error_feedback=error_feedback)
+                                error_feedback=error_feedback,
+                                telemetry=False)
         state = inner.state
         spec = plan.batch_spec
         global_step = gspmd.shard_map_island(
@@ -743,11 +976,13 @@ def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                 if wire is not None and sharded:
                     new_ag = optimizer.update_spmd(
                         grads, plan, wire=wire,
-                        ag_residuals=residuals if use_ef else None)
+                        ag_residuals=residuals if use_ef else None,
+                        on_reduced=on_reduced)
                     if use_ef:
                         residuals[:] = new_ag
                 else:
-                    optimizer.update_spmd(grads, plan)
+                    optimizer.update_spmd(grads, plan,
+                                          on_reduced=on_reduced)
             return gspmd.full_value(loss, plan)
 
     if loader is not None:
@@ -782,16 +1017,25 @@ def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                 n if b.dtype.is_floating_point else 0, dtype=torch.float32,
                 device=mesh.device)
                 for b, n in zip(schedule.buckets, schedule.shard_sizes)]
+        t0 = time.perf_counter()
+        dispatch = (recorder.dispatch() if recorder is not None
+                    else contextlib.nullcontext())
+        n = state.step
         try:
-            loss = prog.run(global_step, *placed)
+            with _step_frame(n, compiled_path=True), dispatch:
+                loss = prog.run(global_step, *placed)
+                gnorm = _spmd_norm(gnorm_box[0], optimizer)
         except BaseException:
             residuals = None
             raise
         step.compiled_collectives = prog.compiled_collectives
         step.compiled_axis_collectives = prog.compiled_axis_collectives
         if chunked:
-            return loss.to_local()
-        state.step += 1
+            loss = loss.to_local()
+        else:
+            state.step += 1
+        if recorder is not None:
+            recorder.record(placed[0].shape[0], t0, loss, gnorm)
         return loss
 
     def reset_error_feedback():
@@ -801,14 +1045,15 @@ def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         if chunked:
             inner.reset_error_feedback()
 
-    _spmd_step_common(step, prog, plan, state)
+    _spmd_step_common(step, prog, plan, state, recorder)
     step.wire = wire
     step.reset_error_feedback = reset_error_feedback
     step.residuals = (inner.residuals if chunked else lambda: residuals)
     return step
 
 
-def _make_spmd_lm_train_step(model, optimizer, mesh=None, batch_axis=None):
+def _make_spmd_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
+                             telemetry=None):
     """The GSPMD LM step behind ``make_lm_train_step(spmd=True)`` (JAX
     ``training.py:1248``): ``step(tokens)`` takes the global ``[B, S]``
     batch (the same on every rank, or a DTensor already placed), runs the
@@ -823,7 +1068,7 @@ def _make_spmd_lm_train_step(model, optimizer, mesh=None, batch_axis=None):
     feedback, as the explicit LM step's ``optimizer.step()``): a chunked
     wire runs the explicit LM step whole as an island; a cast wire
     narrows ZeRO-1's placement exchange, or the plain path's gradient
-    buckets."""
+    buckets. Telemetry as ``_make_spmd_train_step``'s."""
     from horovod_tpu_torch.parallel import gspmd
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -851,8 +1096,15 @@ def _make_spmd_lm_train_step(model, optimizer, mesh=None, batch_axis=None):
     prog = _SpmdProgram(plan, model, optimizer)
     check_wire_drift = _spmd_wire_drift_checker(optimizer, wire)
 
+    recorder = _StepRecorder() if _tele_on(telemetry) else None
+    gnorm_box = [None]
+
+    def on_reduced(reduced):
+        if recorder is not None:
+            gnorm_box[0] = _grad_norm(reduced)
     if chunked:
-        inner = make_lm_train_step(model, optimizer, batch_axis=batch_axis)
+        inner = make_lm_train_step(model, optimizer, batch_axis=batch_axis,
+                                   telemetry=False)
         state = inner.state
         global_step = gspmd.shard_map_island(
             inner, plan, in_specs=(plan.batch_spec,), out_specs=())
@@ -872,22 +1124,32 @@ def _make_spmd_lm_train_step(model, optimizer, mesh=None, batch_axis=None):
                     grads = [None if g is None else
                              gspmd.narrow(g, wire.wire_dtype) for g in grads]
                 if wire is not None and sharded:
-                    optimizer.update_spmd(grads, plan, wire=wire)
+                    optimizer.update_spmd(grads, plan, wire=wire,
+                                          on_reduced=on_reduced)
                 else:
-                    optimizer.update_spmd(grads, plan)
+                    optimizer.update_spmd(grads, plan,
+                                          on_reduced=on_reduced)
             return gspmd.full_value(loss, plan)
 
     def step(tokens):
         check_wire_drift()
         placed = prog.place(tokens)
-        loss = prog.run(global_step, placed)
+        t0 = time.perf_counter()
+        dispatch = (recorder.dispatch() if recorder is not None
+                    else contextlib.nullcontext())
+        with _step_frame(state.step, compiled_path=True), dispatch:
+            loss = prog.run(global_step, placed)
+            gnorm = _spmd_norm(gnorm_box[0], optimizer)
         step.compiled_collectives = prog.compiled_collectives
         step.compiled_axis_collectives = prog.compiled_axis_collectives
         if chunked:
-            return loss.to_local()
-        state.step += 1
+            loss = loss.to_local()
+        else:
+            state.step += 1
+        if recorder is not None:
+            recorder.record(placed.shape[0], t0, loss, gnorm)
         return loss
 
-    _spmd_step_common(step, prog, plan, state)
+    _spmd_step_common(step, prog, plan, state, recorder)
     step.wire = wire
     return step

@@ -57,7 +57,7 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
                   op="average", hierarchical=None, model_axis=None,
                   expert_axis=None, moe_every=0, num_experts=8, moe_top_k=1,
                   moe_capacity_factor=2.0, moe_num_groups=1, spmd=False,
-                  compression=None):
+                  compression=None, telemetry=None):
     """The LM benchmark: the transformer LM at the given widths, AdamW
     through ``DistributedOptimizer`` (its buckets packed in the flax leaf
     order; ZeRO-1 with ``sharded_update``; ``op`` and ``hierarchical``
@@ -84,7 +84,8 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
     ``spmd`` builds the GSPMD step (``make_lm_train_step(spmd=True)``),
     whose ``tokens`` are the global batch: every rank's batch of the
     data-parallel form, in rank order, so each rank's rows are the ones
-    it trains on there. ``compression`` is ``DistributedOptimizer``'s."""
+    it trains on there. ``compression`` is ``DistributedOptimizer``'s,
+    ``telemetry`` ``make_lm_train_step``'s."""
     from horovod_tpu_torch import basics, convert, hvd_torch, training
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
@@ -146,7 +147,8 @@ def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,
         tokens = global_batch()
     step = training.make_lm_train_step(model, opt, mesh=mesh,
                                        batch_axis=batch_axes,
-                                       seq_axis=seq_axis, spmd=spmd)
+                                       seq_axis=seq_axis, spmd=spmd,
+                                       telemetry=telemetry)
     return step, model, opt, tokens
 
 

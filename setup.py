@@ -44,9 +44,11 @@ setup(
               # first use (horovod_tpu_torch/_build.py)
               "horovod_tpu_torch", "horovod_tpu_torch.ckpt",
               "horovod_tpu_torch.cluster",
-              "horovod_tpu_torch.data", "horovod_tpu_torch.examples",
+              "horovod_tpu_torch.data", "horovod_tpu_torch.diag",
+              "horovod_tpu_torch.examples",
               "horovod_tpu_torch.models", "horovod_tpu_torch.ops",
               "horovod_tpu_torch.parallel", "horovod_tpu_torch.run",
+              "horovod_tpu_torch.runtime", "horovod_tpu_torch.telemetry",
               "horovod_tpu_torch.utils"],
     package_data={"horovod_tpu": ["lib/libhvdcore.so"],
                   "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},

@@ -92,3 +92,31 @@ def test_phase_15_rehearsed(rehearsal, monkeypatch):
     losses_6a = [float(step(tokens)) for _ in range(cs.STEPS)]
     hvd_t.shutdown()
     cs.phase_spmd(hvd_t, fa, torch, bench, losses, tok_s, losses_6a, 1)
+
+
+def test_phase_16_rehearsed(rehearsal, monkeypatch):
+    """16a-16c (the telemetry and diagnosis planes on phase 5's and 6b's
+    steps: losses bit for bit, the scrape's counters, the ledger, the
+    x-rays against this script's own union, ``/profile`` while steps
+    run, the doctor over the dumps): every hold passes. The kernels'
+    build is stood in for by a booked compile, the device work of a CPU
+    capture is its operators."""
+    from horovod_tpu_torch import _build, training
+    from horovod_tpu_torch.telemetry import instruments
+    monkeypatch.setattr(cs, "profile_step",
+                        lambda *a, **k: {"matmuls": 0.0})
+    monkeypatch.setattr(_build, "load",
+                        lambda: instruments.record_compile(0.001))
+    monkeypatch.setattr(cs, "DEVICE_WORK", ("cpu_op",))
+    losses, _, tok_s = cs.phase_full(hvd_t, fa, torch, bench)
+    hvd_t.init()
+    seq = cs.LM["seq_len"]
+    _, model, opt, tokens = cs._lm_bench(bench, torch, seq_len=seq + 1,
+                                         sharded_update=True)
+    step = training.make_train_step(model, opt, accum_steps=2,
+                                    overlap_grads=True)
+    losses_6b = [float(step(tokens[:, :seq], tokens[:, 1:seq + 1]))
+                 for _ in range(cs.STEPS)]
+    hvd_t.shutdown()
+    cs.phase_telemetry(hvd_t, fa, torch, bench, losses, losses_6b, tok_s,
+                       "card")

@@ -161,10 +161,19 @@ def test_file_source_matches_jax(tmp_path):
 
 
 def test_loader_telemetry_is_not_ported():
+    """The loader's telemetry was refused before the telemetry plane was
+    ported; now ``telemetry=`` takes a ``DataInstruments`` of another
+    registry, which counts the batches and staged bytes delivered."""
+    from horovod_tpu_torch import telemetry as ttele
     x, y = _arrays()
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        tdata.PrefetchLoader(tdata.ArraySource((x, y)), 2, rank=0, world=1,
-                             telemetry=object())
+    reg = ttele.MetricsRegistry()
+    inst = ttele.data_instruments(reg)
+    with tdata.PrefetchLoader(tdata.ArraySource((x, y)), 2, rank=0, world=1,
+                              epochs=1, telemetry=inst) as loader:
+        n = sum(1 for _ in loader)
+    assert n > 0 and inst.batches.value == n
+    assert inst.bytes_staged.value == n * 2 * (x[0].nbytes + y[0].nbytes)
+    assert inst.wait_seconds.count == n
 
 
 @pytest.fixture()

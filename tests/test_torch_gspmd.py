@@ -14,11 +14,14 @@ reduce-scatter and one all-gather a ZeRO-1 bucket, one all-reduce a
 plain bucket, and the loss's one scalar all-reduce; their bytes from the
 shapes; their axes); checkpoints crossing between the two paths; the
 global BatchNorm of a ResNet against the explicit step's synchronized
-BatchNorm; dropout masks that do not depend on the world. The rest runs
-in this process at world 1.
+BatchNorm; dropout masks that do not depend on the world; the gradient
+norm that ``telemetry=True`` reports (``hvd_grad_norm``) on every path
+of both step builders, against plain autograd and JAX's steps. The rest
+runs in this process at world 1.
 """
 
 import ast
+import copy
 import json
 import os
 import pathlib
@@ -43,6 +46,8 @@ from horovod_tpu.models.simple import MLP as JMLP
 from horovod_tpu.models.transformer import Transformer as JTransformer
 from horovod_tpu.models.transformer import TransformerConfig as JConfig
 from horovod_tpu.parallel import gspmd as jgspmd
+from horovod_tpu.telemetry import instruments as jinst
+from horovod_tpu.telemetry import registry as jreg
 from horovod_tpu_torch import basics, convert, training
 from horovod_tpu_torch.models import resnet
 from horovod_tpu_torch.models.simple import MLP, MNISTConvNet
@@ -55,6 +60,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX package's bars (__graft_entry__.py)
 GSPMD_STEPS, GSPMD_EPSILON = 8, 1e-4
 WIRE_STEPS, WIRE_EPSILON, WIRE_EPSILON_FLOOR = 8, 0.05, 1e-3
+# hvd_grad_norm: fp32 sums in another order than the references'
+NORM_STEPS, NORM_RTOL = 2, 1e-5
 LM_WIDTHS = dict(vocab_size=32, num_layers=1, num_heads=2, d_model=16,
                  d_ff=32)
 
@@ -662,6 +669,108 @@ def dropout_losses():
     return [float(step(x, y)) for _ in range(2)]
 
 
+def _norm_batch(world):
+    """Two rows a rank, every row its own: on the tiled batches above
+    the ranks' gradients agree, and the root-mean of their norms would
+    be the exact norm."""
+    rng = np.random.default_rng(17)
+    return (rng.standard_normal((2 * world, 10)).astype(np.float32),
+            rng.integers(0, 3, size=(2 * world,)).astype(np.int32))
+
+
+def _norm_refs(model, rank_loss, world):
+    """Plain autograd on a copy of ``model``: each rank's gradient of
+    its local loss ``rank_loss(model, r)``, then ``(the norm of their
+    mean, the root-mean of their norms)``, in fp64."""
+    grads = []
+    for r in range(world):
+        m = copy.deepcopy(model)
+        for p in m.parameters():
+            p.grad = None
+        rank_loss(m, r).backward()
+        grads.append(torch.cat([p.grad.reshape(-1).double()
+                                for p in m.parameters()]))
+    mean = sum(grads) / world
+    return (float(mean.norm()),
+            float(torch.stack([g.norm() ** 2 for g in grads]).mean()
+                  .sqrt()))
+
+
+def _norm_run(model, step, batch, spmd, rank_loss):
+    got, refs = [], []
+    for _ in range(NORM_STEPS):
+        refs.append(_norm_refs(model, rank_loss, hvd_t.size()))
+        step(*batch) if spmd else step(*(_rows(b) for b in batch))
+        got.append(step.instruments.grad_norm.value)
+    return {"got": got, "refs": refs}
+
+
+# path: (step builder's kwargs, DistributedOptimizer's kwargs)
+NORM_PATHS = {
+    "spmd": (dict(spmd=True), {}),
+    "spmd_zero": (dict(spmd=True), dict(sharded_update=True)),
+    "plain": ({}, {}),
+    "overlap": (dict(overlap_grads=True), {}),
+    "overlap_zero": (dict(overlap_grads=True), dict(sharded_update=True)),
+    "zero": ({}, dict(sharded_update=True)),
+    "bpps2": ({}, dict(backward_passes_per_step=2)),
+    "lm": ({}, {}),
+    "lm_spmd": (dict(spmd=True), {}),
+    "lm_zero": ({}, dict(sharded_update=True)),
+}
+# where the norm is the root-mean of the ranks' local norms (the JAX
+# definition where the step holds only local gradients), not the exact
+# norm of their mean
+NORM_ROOT_MEAN = ("zero", "bpps2", "lm_zero")
+
+
+def grad_norms(mlp0, lm0):
+    """``hvd_grad_norm`` after each of 2 steps on every path, from the
+    JAX initial parameters (the MLP (16, 3) under SGD(0.1, momentum
+    0.9), the LM under Adam 1e-2), beside the references of the same
+    step (``_norm_refs``)."""
+    world = hvd_t.size()
+    x, y = (_torch_global(a) for a in _norm_batch(world))
+    y = y.long()
+    tokens = _torch_global(_lm_tokens(world)).long()
+
+    def mlp_loss(m, r):
+        return training.softmax_cross_entropy(m(x[2 * r:2 * r + 2]),
+                                              y[2 * r:2 * r + 2])
+
+    def lm_loss(m, r):
+        t = tokens[2 * r:2 * r + 2]
+        return training.softmax_cross_entropy(m(t)[:, :-1], t[:, 1:])
+
+    out = {}
+    for name, (step_kw, opt_kw) in NORM_PATHS.items():
+        if name.startswith("lm"):
+            cfg = TransformerConfig(**LM_WIDTHS, dtype=torch.float32,
+                                    flash_attention=True)
+            model = Transformer(cfg)
+            model.load_state_dict(convert.params_from_flax(lm0, cfg))
+            inner = torch.optim.Adam(model.parameters(), lr=1e-2)
+        else:
+            model = MLP(10, (16, 3))
+            model.load_state_dict(convert.params_from_flax(mlp0, model))
+            inner = torch.optim.SGD(model.parameters(), lr=0.1,
+                                    momentum=0.9)
+        opt = hvd_t.DistributedOptimizer(
+            inner, named_parameters=convert.flax_named_parameters(model),
+            **opt_kw)
+        if name.startswith("lm"):
+            step = training.make_lm_train_step(model, opt, telemetry=True,
+                                               **step_kw)
+            out[name] = _norm_run(model, step, (tokens,),
+                                  step_kw.get("spmd"), lm_loss)
+        else:
+            step = training.make_train_step(model, opt, telemetry=True,
+                                            **step_kw)
+            out[name] = _norm_run(model, step, (x, y), step_kw.get("spmd"),
+                                  mlp_loss)
+    return out
+
+
 def _jsonable(d):
     return json.loads(json.dumps(d, default=lambda o: o.tolist()
                                  if hasattr(o, "tolist") else str(o)))
@@ -712,6 +821,7 @@ def rank_checks(out_dir, start_path):
             start={k: v.numpy() for k, v in start_sd.items()
                    if v.is_floating_point()})
     res["dropout"] = dropout_losses()
+    res["norms"] = grad_norms(start["norm"].item(), start["lm"].item())
     with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
         json.dump(_jsonable(res), f)
     hvd_t.shutdown()
@@ -798,6 +908,34 @@ def _jax_lm(world):
         hvd_j.shutdown()
 
 
+def _jax_norms(world):
+    """JAX's ``hvd_grad_norm`` after each of 2 steps of the MLP (16, 3)
+    under SGD(0.1, momentum 0.9) on ``world`` devices, on the GSPMD plain
+    DP step and the explicit overlapped step: the initial parameters and
+    ``{path: norms}``."""
+    hvd_j.shutdown()
+    hvd_j.init(devices=jax.devices()[:world])
+    try:
+        x, y = (jnp.asarray(a) for a in _norm_batch(world))
+        model = JMLP(features=(16, 3))
+        tx = hvd_j.DistributedOptimizer(optax.sgd(0.1, momentum=0.9))
+        state0 = jtraining.create_train_state(model, tx,
+                                              jax.random.PRNGKey(4), x[:1])
+        norms = {}
+        for name, kw in (("spmd", dict(spmd=True)),
+                         ("overlap", dict(overlap_grads=True))):
+            step = jtraining.make_train_step(model, tx, donate=False,
+                                             telemetry=True, **kw)
+            state, norms[name] = state0, []
+            for _ in range(NORM_STEPS):
+                state, _ = step(state, x, y)
+                norms[name].append(
+                    jreg.get_registry().get(jinst.GRAD_NORM).value)
+        return jax.tree_util.tree_map(np.asarray, state0.params), norms
+    finally:
+        hvd_j.shutdown()
+
+
 def _assert_tree(got, want, **tol):
     """A flax tree from JSON (nested dicts of lists) against the JAX one."""
     if isinstance(want, dict):
@@ -833,12 +971,20 @@ def test_two_gloo_ranks(tmp_path):
     * the GSPMD step's global BatchNorm against the explicit step's
       ``bn_cross_replica_axes=("data",)`` (losses rtol 1e-5, every leaf
       within 1e-6 + 5e-2 max|x - x0|);
-    * the dropout masks at world 2 those at world 1."""
+    * the dropout masks at world 2 those at world 1;
+    * ``hvd_grad_norm`` on every path of ``NORM_PATHS``, on rows that
+      differ from rank to rank, within ``NORM_RTOL`` of plain autograd:
+      the exact norm of the ranks' mean gradient, or on the paths of
+      ``NORM_ROOT_MEAN`` the root-mean of the ranks' local norms; and on
+      the GSPMD and overlapped paths within ``NORM_RTOL`` of JAX's
+      ``hvd_grad_norm`` on the same inputs."""
     p_params0, p_losses, p_params = _jax_plain(2)
     l_params0, l_losses = _jax_lm(2)
+    n_params0, j_norms = _jax_norms(2)
     start = tmp_path / "start.npz"
     np.savez(start, plain=np.array(p_params0, dtype=object),
-             lm=np.array(l_params0, dtype=object))
+             lm=np.array(l_params0, dtype=object),
+             norm=np.array(n_params0, dtype=object))
     _run_two_ranks(_WORKER.format(tests=os.path.join(REPO, "tests"),
                                   out=str(tmp_path), start=str(start)),
                    timeout=240)
@@ -900,6 +1046,17 @@ def test_two_gloo_ranks(tmp_path):
         np.testing.assert_allclose(res["dropout"], world1_dropout,
                                    rtol=1e-6)
         assert res["dropout"][0] != res["dropout"][1]
+        assert set(res["norms"]) == set(NORM_PATHS)
+        for name, run in res["norms"].items():
+            which = 1 if name in NORM_ROOT_MEAN else 0
+            for got, refs in zip(run["got"], run["refs"]):
+                # the rows tell the two definitions apart
+                assert refs[1] > refs[0] * (1 + 100 * NORM_RTOL), refs
+                np.testing.assert_allclose(got, refs[which],
+                                           rtol=NORM_RTOL, err_msg=name)
+        for name, want in j_norms.items():
+            np.testing.assert_allclose(res["norms"][name]["got"], want,
+                                       rtol=NORM_RTOL, err_msg=name)
     # both ranks hold the same trajectories
     assert ranks[0]["1b4"]["spmd"] == ranks[1]["1b4"]["spmd"]
     assert ranks[0]["lm"] == ranks[1]["lm"]
