@@ -156,7 +156,9 @@ runs these phases; any failure raises:
 * 15b: the same with ZeRO-1 (rows ``Shard(0)``) against 6a's losses, and
   the peak memory of both;
 * 15c: the int8 chunked island against 15a and the bf16 cast wire with
-  ZeRO-1 against 15b, within ``WIRE_EPSILON`` at every step;
+  ZeRO-1 against 15b, within ``WIRE_EPSILON`` at every step; the
+  island's ``hvd_grad_norm`` against an fp64 norm of the reduced
+  gradient, rtol 1e-5;
 * 15d: 15b's state saved (``convert``, ``ckpt.AsyncCheckpointer``) and
   restored into the explicit ZeRO-1 step, and an explicit ZeRO-1 state
   into the GSPMD step: each next loss bit for bit the step taken from
@@ -178,7 +180,27 @@ runs these phases; any failure raises:
   and ``matmul_conv`` beside ``profile_step``'s matmuls; then
   ``/profile?seconds=1&wait=1`` while steps run must return a summary;
 * 16c: ``/flightrec?dump=1``, and the doctor over the dump after
-  ``shutdown()``'s final one: healthy, naming the last step.
+  ``shutdown()``'s final one: healthy, naming the last step;
+* 17a: elastic training: an ``ElasticDriver`` in this process over
+  ``FixedHosts`` hostA and hostB (``min_np = max_np = 1``,
+  ``Blacklist(threshold=2, base_delay=0)``, the port's
+  ``KVStoreServer``) runs one ``examples/elastic_train.py`` worker on
+  the card an epoch: phase 5's LM, weights and batch through
+  ``make_lm_train_step`` under ``elastic_train_loop``, a
+  ``TorchState`` committing every step to disk. hostA's worker SIGKILLs
+  itself after 2 steps (their commit durable) in epochs 1 and 2; epoch 3
+  restores on hostB and finishes the 5 steps. 3 epochs, hostA
+  blacklisted, each step computed once with phase 5's loss bit for bit,
+  K1-K3 once a layer and step of each worker; each recovery's seconds
+  from the death to the next first loss (the rendezvous, spawn, imports,
+  ``init()`` on NCCL, kernel library load, build, restore, sync, first
+  step), the commits' blocking ms and the restores' ms;
+* 17b: graceful eviction: the same worker under a seeded ``ChaosMonkey``
+  (``kinds=sigterm,count=1``) armed at its first committed step: the
+  SIGTERM's eviction force-commits inside its grace, announces hostA and
+  exits ``EXIT_RENDEZVOUS``; the driver drains hostA without blame and
+  epoch 2 resumes on hostB: no blame, every logged loss phase 5's bit for
+  bit; the force-commit's ms against the grace, the recovery's seconds.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
@@ -187,13 +209,14 @@ Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b, 11b, 12b, 12c, 14a-14c and 15
 each
 count the kernels' launches from 0 on the card and must launch each
 kernel once per layer, shard, microbatch and step (13a and 13b as their
-schedules say); 9a's worker counts its own. The last line of output is
+schedules say); 9a's and 17's workers count their own. The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it a JSON object with each kernel's launches on the
 main paths (phase 5, 11b's two runs, 12b, 12c, phase 13's seven
-runs, 14a, phase 15's and phase 16's runs, each counted from 0),
+runs, 14a, phase 15's and phase 16's runs, each counted from 0, and
+phase 17's workers, each counting its own from its first step),
 error
 against its plain version, time, plain time, bound and library time. After the timed steps of phases 5, 6b and 15a one
 more step runs under ``torch.profiler`` for the device's busy share and
@@ -3283,7 +3306,8 @@ def phase_spmd(hvd, fa, torch, bench, phase5_losses, phase5_tok_s,
     del model, opt, step, into
 
     for label, kw, want in (
-            ("15c int8 island", dict(compression="int8"), losses_a),
+            ("15c int8 island", dict(compression="int8", telemetry=True),
+             losses_a),
             ("15c bf16 cast, ZeRO-1", dict(compression="bf16",
                                            sharded_update=True), losses_b)):
         step, model, opt, tokens = build(spmd=True, **kw)
@@ -3293,6 +3317,10 @@ def phase_spmd(hvd, fa, torch, bench, phase5_losses, phase5_tok_s,
         count(launches)
         _rel_gap(f"{label} against {'15a' if want is losses_a else '15b'}",
                  got, want, WIRE_EPSILON, floor=WIRE_EPSILON_FLOOR)
+        if kw.get("telemetry"):
+            # the chunked island's hvd_grad_norm (at world 1 the wire
+            # has no exchange, and .grad holds the reduced gradient)
+            _grad_norm_check(label, torch, step, opt)
         del step, model, opt, tokens
     _free(torch)
     hvd.shutdown()
@@ -3587,6 +3615,300 @@ def phase_telemetry(hvd, fa, torch, bench, phase5_losses, losses_6b,
     return total
 
 
+# phase 17: the steps a hostA worker takes before it dies (17a), the
+# seconds from 17b's first committed step to its SIGTERM, the eviction's
+# grace, and each run's deadline (its workers are killed past it)
+ELASTIC_DEVICE = "cuda"
+ELASTIC_STEP_SLEEP = 0.0  # a step's added seconds (none on the card)
+ELASTIC_DIE_AFTER = 2
+EVICT_AFTER_S = 1.0
+GRACE_S = 30.0
+ELASTIC_DEADLINE_S = 300.0
+
+
+def _elastic_run(label, driver, launch, root, max_epochs):
+    """``driver.run_job(launch)`` under ``ELASTIC_DEADLINE_S``; returns
+    ``(epochs, {epoch: launch wall time})``. On any failure the workers'
+    logs are printed and the run fails."""
+    launched, jobs, expired = {}, [], threading.Event()
+
+    def tracked(slots, epoch, env):
+        job = launch(slots, epoch, env)
+        launched[epoch] = job.launched_at
+        jobs.append(job)
+        return job
+
+    def expire():
+        expired.set()
+        for job in jobs:
+            job.kill_all(9)
+
+    timer = threading.Timer(ELASTIC_DEADLINE_S, expire)
+    timer.start()
+    try:
+        epochs = driver.run_job(tracked, max_epochs=max_epochs)
+        if expired.is_set():
+            raise AssertionError(f"{label}: past {ELASTIC_DEADLINE_S} s")
+    except BaseException:
+        for f in sorted(Path(root).glob("epoch-*.log")):
+            print(f"  {label} {f.name}:\n" + "\n".join(
+                f.read_text(errors="replace").splitlines()[-40:]))
+        raise
+    finally:
+        timer.cancel()
+    return epochs, launched
+
+
+def _elastic_records(log):
+    return [json.loads(x) for x in Path(log).read_text().splitlines()]
+
+
+def _elastic_losses(label, records, phase5_losses, once):
+    """Each logged loss bit for bit phase 5's at its step; with ``once``
+    the steps 1..STEPS each logged once, in order, else each at least
+    once; each worker's K1-K3 launches once a layer and logged step.
+    Returns the launches summed over the workers."""
+    losses = [r for r in records if "loss" in r]
+    steps = [r["step"] for r in losses]
+    if once and steps != list(range(1, STEPS + 1)):
+        raise AssertionError(f"{label}: steps {steps}, each once wanted")
+    if set(steps) != set(range(1, STEPS + 1)):
+        raise AssertionError(f"{label}: steps {steps}")
+    for r in losses:
+        if r["loss"] != phase5_losses[r["step"] - 1]:
+            raise AssertionError(
+                f"{label}: step {r['step']} loss {r['loss']!r} (epoch "
+                f"{r['epoch']}) against phase 5's "
+                f"{phase5_losses[r['step'] - 1]!r}")
+    total = {"fwd": 0, "dq": 0, "dkv": 0}
+    for epoch in sorted({r["epoch"] for r in losses}):
+        mine = [r for r in losses if r["epoch"] == epoch]
+        got = mine[-1]["launches"]
+        _worker_launches(f"{label} epoch {epoch}", got,
+                         LM["layers"] * len(mine))
+        for k in total:
+            total[k] += got[k]
+    print(f"  {label} losses {[r['loss'] for r in losses]} (epochs "
+          f"{[r['epoch'] for r in losses]}): bit for bit phase 5's; "
+          f"launches {total}, once a layer and step of each worker")
+    return total
+
+
+def _worker_launches(label, got, want):
+    """A worker's count of each kernel's launches is ``want``."""
+    if got != {"fwd": want, "dq": want, "dkv": want}:
+        raise AssertionError(f"{label}: launches {got}, want {want} each")
+
+
+def _recovery(label, t_death, launched_at, records, epoch):
+    """Seconds from a death to the next epoch's first loss, split: the
+    driver's blame and rendezvous, the spawn, the imports, ``init()`` on
+    NCCL, the first allocation, the kernel library's load, the model's
+    build, the restore, the sync and the first step."""
+    resume = [r for r in records if r.get("event") == "resume"
+              and r["epoch"] == epoch][0]
+    first = [r for r in records if "loss" in r and r["epoch"] == epoch][0]
+    parts = {
+        "rendezvous": launched_at - t_death,
+        "spawn": resume["t_start"] - launched_at,
+        "imports": resume["import_s"],
+        "init (NCCL)": resume["init_s"],
+        "first allocation": resume["context_s"],
+        "kernel load": resume["kernel_load_s"],
+        "model build": resume["build_s"],
+        "restore": resume["restore_s"],
+        "sync": resume["time"] - resume["t_built"] - resume["restore_s"],
+        "first step": first["time"] - resume["time"],
+    }
+    total = first["time"] - t_death
+    print(f"  {label} recovery {total:.3f} s to epoch {epoch}'s first loss "
+          f"(resumed from step {resume['resumed_from']}): " + ", ".join(
+              f"{k} {v:.3f}" if v is not None else f"{k} none"
+              for k, v in parts.items()))
+    return total, parts
+
+
+def _blocking_ms(records):
+    """Every commit's blocking ms but each worker's first (a fresh
+    start's commit, or None after a restore)."""
+    out = []
+    for r in records:
+        if "commit_blocking_s" in r:
+            out += [1e3 * x for x in r["commit_blocking_s"][1:]
+                    if x is not None]
+    return out
+
+
+def phase_elastic(hvd, torch, phase5_losses):
+    """17a, 17b: phase 5's LM, weights and batch in
+    ``examples/elastic_train.py`` workers on this card, one an epoch,
+    under an ``ElasticDriver`` of this process over ``FixedHosts``
+    hostA and hostB (``min_np = max_np = 1``, ``Blacklist(threshold=2,
+    base_delay=0)``, the port's ``KVStoreServer``), each worker through
+    ``make_lm_train_step`` under ``elastic_train_loop`` with a
+    ``TorchState`` committing every step to disk. 17a: hostA's worker
+    SIGKILLs itself after 2 steps (their commit durable) in epochs 1 and
+    2; epoch 3 restores on hostB and finishes. 17b: a seeded
+    ``ChaosMonkey`` SIGTERMs epoch 1's worker after its first step; the
+    eviction force-commits within its grace, announces hostA and exits
+    ``EXIT_RENDEZVOUS``; the driver drains hostA without blame and epoch
+    2 resumes on hostB. Returns the kernels' launches of both."""
+    import tempfile
+
+    from horovod_tpu_torch.chaos import ChaosMonkey, parse_spec
+    from horovod_tpu_torch.elastic import (Blacklist, ElasticDriver,
+                                           FixedHosts)
+    from horovod_tpu_torch.examples.elastic_train import local_launch
+    from horovod_tpu_torch.run.rendezvous import KVStoreServer
+
+    # the workers need the card's memory this process's allocator holds
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    print("== phase 17: elastic training on the card (worker death, "
+          "graceful eviction)")
+    widths = ["--device", ELASTIC_DEVICE, "--batch", LM["batch"],
+              "--seq-len", LM["seq_len"],
+              "--layers", LM["layers"], "--d-model", LM["d_model"],
+              "--heads", LM["heads"], "--vocab", LM["vocab"], "--steps",
+              STEPS, "--step-sleep", ELASTIC_STEP_SLEEP]
+    total = {"fwd": 0, "dq": 0, "dkv": 0}
+
+    def driver_of(kv):
+        return ElasticDriver(FixedHosts({"hostA": 1, "hostB": 1}),
+                             min_np=1, max_np=1, kv=kv, poll_interval=0.2,
+                             blacklist=Blacklist(threshold=2,
+                                                 base_delay=0.0))
+
+    # -- 17a: death -> blame -> blacklist -> re-rendezvous -> resume
+    with tempfile.TemporaryDirectory() as root:
+        log = Path(root) / "losses.jsonl"
+        kv = KVStoreServer()
+        port = kv.start()
+        t0 = time.perf_counter()
+        try:
+            driver = driver_of(kv)
+            launch = local_launch(port, widths + [
+                "--ckpt-dir", Path(root) / "ckpt", "--log", log, "--die",
+                "kill", "--die-host", "hostA", "--die-until-epoch", 3,
+                "--die-after", ELASTIC_DIE_AFTER], log_dir=root)
+            epochs, launched = _elastic_run("17a", driver, launch, root,
+                                            max_epochs=5)
+        finally:
+            kv.stop()
+        wall_a = time.perf_counter() - t0
+        records = _elastic_records(log)
+        bl = driver.blacklist
+        print(f"  17a {epochs} epochs in {wall_a:.1f} s; hostA failures "
+              f"{bl.count('hostA')} (blacklisted {bl.blacklisted('hostA')}"
+              f"), hostB failures {bl.count('hostB')}; epochs by host "
+              f"{[(r['epoch'], r['host']) for r in records if 'loss' in r]}")
+        if epochs != 3 or not bl.blacklisted("hostA") or \
+                bl.count("hostB") or bl.drains("hostA"):
+            raise AssertionError("17a: want 3 epochs and hostA blacklisted, "
+                                 "hostB unblamed")
+        got = _elastic_losses("17a", records, phase5_losses, once=True)
+        for k in total:
+            total[k] += got[k]
+        deaths = [r for r in records if r.get("event") == "death"]
+        recov_a = [_recovery("17a", d["time"], launched[d["epoch"] + 1],
+                             records, d["epoch"] + 1) for d in deaths]
+        blocking = _blocking_ms(records)
+        restores = [1e3 * r["restore_s"] for r in records
+                    if r.get("event") == "resume" and r["restore_s"]]
+        print(f"  17a commit blocking ms (host copy and save()): "
+              f"{[round(x, 2) for x in blocking]}, median "
+              f"{float(np.median(blocking)):.2f}; restore ms "
+              f"{[round(x, 2) for x in restores]}")
+        if len(deaths) != 2 or len(restores) != 2:
+            raise AssertionError(f"17a: {len(deaths)} deaths, "
+                                 f"{len(restores)} restores")
+
+    # -- 17b: a seeded SIGTERM, the bounded force-commit, the drain
+    with tempfile.TemporaryDirectory() as root:
+        log = Path(root) / "losses.jsonl"
+        dumps = Path(root) / "flightrec"
+        kv = KVStoreServer()
+        port = kv.start()
+        monkey = ChaosMonkey(parse_spec(
+            f"seed=0,kinds=sigterm,count=1,interval={EVICT_AFTER_S},"
+            "jitter=0"))
+        evicted = {}
+        t0 = time.perf_counter()
+        try:
+            driver = driver_of(kv)
+            inner = local_launch(port, widths + [
+                "--ckpt-dir", Path(root) / "ckpt", "--log", log],
+                {"HOROVOD_FLIGHTREC": "1",
+                 "HOROVOD_FLIGHTREC_DIR": str(dumps),
+                 "HOROVOD_GRACE_SECONDS": str(GRACE_S)}, log_dir=root)
+
+            def arm(job):
+                # the monkey's clock starts at the worker's first
+                # committed step (its heartbeat), so the SIGTERM lands
+                # mid-run whatever the start-up took
+                deadline = time.time() + ELASTIC_DEADLINE_S
+                while time.time() < deadline and \
+                        job.procs[0].poll() is None:
+                    raw = kv.get("elastic/heartbeat/1/0")
+                    if raw and (json.loads(raw).get("step") or 0) >= 1:
+                        evicted["armed"] = time.time()
+                        monkey.attach(job)
+                        return
+                    time.sleep(0.02)
+
+            def launch(slots, epoch, env):
+                if epoch == 2:  # the evicted worker's last dump
+                    evicted["dump"] = json.loads(
+                        (dumps / "flightrec.rank0.json").read_text())
+                job = inner(slots, epoch, env)
+                if epoch == 1:
+                    threading.Thread(target=arm, args=(job,),
+                                     daemon=True).start()
+                return job
+
+            epochs, launched = _elastic_run("17b", driver, launch, root,
+                                            max_epochs=4)
+        finally:
+            monkey.stop()
+            kv.stop()
+        wall_b = time.perf_counter() - t0
+        records = _elastic_records(log)
+        bl = driver.blacklist
+        applied = [(inj.kind, rank) for inj, rank, _ in
+                   monkey.injections_done]
+        preempt = [e for e in evicted.get("dump", {}).get("events", [])
+                   if e.get("k") == "preempt" and "outcome" in e]
+        print(f"  17b {epochs} epochs in {wall_b:.1f} s; injected "
+              f"{applied} {EVICT_AFTER_S} s after the first committed "
+              f"step; drains hostA {bl.drains('hostA')}, failures "
+              f"{bl.count('hostA')}/{bl.count('hostB')}; eviction "
+              f"{preempt[-1] if preempt else None}")
+        if applied != [("sigterm", 0)] or epochs != 2 or \
+                bl.count("hostA") or bl.count("hostB") or \
+                bl.drains("hostA") != 1:
+            raise AssertionError("17b: want one SIGTERM, 2 epochs, hostA "
+                                 "drained without blame")
+        if not preempt or preempt[-1]["outcome"] != "committed" or \
+                not preempt[-1]["announced"] or \
+                preempt[-1]["commit_seconds"] >= GRACE_S:
+            raise AssertionError(f"17b: the force-commit {preempt} did not "
+                                 f"finish inside the {GRACE_S} s grace")
+        got = _elastic_losses("17b", records, phase5_losses, once=False)
+        for k in total:
+            total[k] += got[k]
+        commit_ms = 1e3 * preempt[-1]["commit_seconds"]
+        resumed = [r for r in records if r.get("event") == "resume"
+                   and r["epoch"] == 2][0]["resumed_from"]
+        print(f"  17b force-commit {commit_ms:.2f} ms against the "
+              f"{GRACE_S:.0f} s grace; epoch 2 resumed from step "
+              f"{resumed}")
+        recov_b = _recovery("17b", evicted["armed"] + EVICT_AFTER_S,
+                            launched[2], records, 2)
+    print(f"  17 recovery s: 17a {[round(r[0], 3) for r in recov_a]}, "
+          f"17b {recov_b[0]:.3f}")
+    return total
+
+
 def _grad_norm_check(name, torch, step, opt):
     """The step's last ``hvd_grad_norm`` against an fp64 norm of the
     gradients it left in ``.grad``: with plain data parallelism those
@@ -3813,12 +4135,15 @@ def main(argv=None):
     launches_16 = phase_telemetry(hvd, fa, torch, bench, losses, losses_6b,
                                   phase5_tok_s, card)
     print(f"== phase 16 took {time.perf_counter() - t16:.1f} s")
+    t17 = time.perf_counter()
+    launches_17 = phase_elastic(hvd, torch, losses)
+    print(f"== phase 17 took {time.perf_counter() - t17:.1f} s")
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):
         wrapper, replaces, source, design = KERNELS[kind_]
         main = [launches, launches_11b] + launches_12 + launches_13 + \
-            launches_14 + [launches_15, launches_16]
+            launches_14 + [launches_15, launches_16, launches_17]
         kernels.append(dict(name=wrapper, route="cuda", source=source,
                             replaces=replaces, design=design,
                             launches=sum(n[kind_] for n in main),

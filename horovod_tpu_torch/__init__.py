@@ -16,15 +16,15 @@ JAX.
 
 The names below, and the subpackages ``checkpoint``, ``ckpt``, ``data``,
 ``telemetry`` (the metrics registry and endpoint, the goodput ledger,
-the step X-ray) and ``diag`` (the flight recorder and the doctor), are
+the step X-ray), ``diag`` (the flight recorder and the doctor) and
+``elastic`` (fault-tolerant, membership-elastic training), are
 imported at first use, so that the launcher and its
 middleman, which run ``python -m horovod_tpu_torch.run...`` and need no
 torch, start without importing it. Of the JAX package's top-level names
 the port leaves out ``distributed_grad``, ``DistributedGradientTransform``,
 ``HorovodOptimizer`` and ``compat`` (optax's and JAX's forms, which
 ``DistributedOptimizer`` and ``distributed_value_and_grad`` stand for
-here), and the planes not yet ported: ``elastic`` and
-``autotune_fusion_threshold``.
+here), and the plane not yet ported: ``autotune_fusion_threshold``.
 """
 
 import importlib
@@ -56,7 +56,8 @@ _EXPORTS = {
                     "ops.reduction"),
 }
 
-_SUBPACKAGES = ("checkpoint", "ckpt", "data", "telemetry", "diag")
+_SUBPACKAGES = ("checkpoint", "ckpt", "data", "telemetry", "diag",
+                "elastic")
 
 __all__ = list(_EXPORTS) + list(_SUBPACKAGES)
 

@@ -40,12 +40,16 @@ class _State:
         self.initialized = False
         self.config = None
         self.mesh = None
+        self.init_mesh = None  # the mesh init() installed
         self.kv_inits = 0  # inits through the launcher's KV store
         # the run's telemetry and diagnosis services (runtime/services.py)
         self.ledger = None
         self.flight_recorder = None
         self.timeline = None
         self.metrics_server = None
+        # the elastic worker's stall inspector and eviction handler
+        self.stall_inspector = None
+        self.preempt_handler = None
 
 
 _state = _State()
@@ -188,6 +192,20 @@ def _join(cfg, dev):
             cfg.spmd_local_devices))
     elif _hosts_tile_world(cfg, dev):
         mesh_lib.build_mesh(num_slices=cfg.cross_size)
+    _state.init_mesh = mesh_lib.get_mesh()
+
+
+def invalidate_meshes():
+    """Drop the meshes built over the world after ``init()``
+    (``parallel.mesh.build_mesh``) and install ``init()``'s again: the
+    elastic reset's counterpart of the JAX package's
+    ``collective.invalidate_proc_mesh()``. A re-rendezvous may change
+    the world, and a mesh (with its process groups) built over the old
+    one must not carry the next collective; the reset callbacks rebuild
+    the steps over the installed mesh. A no-op before ``init()``."""
+    with _lock:
+        if _state.initialized and _state.init_mesh is not None:
+            mesh_lib.set_mesh(_state.init_mesh)
 
 
 def shutdown():
@@ -206,6 +224,7 @@ def shutdown():
         mesh_lib.set_mesh(None)
         _state.initialized = False
         _state.mesh = None
+        _state.init_mesh = None
         _state.config = None
 
 

@@ -3,19 +3,23 @@ fusion threshold, the wire format, the two-level reduction and the
 process mesh across hosts (``HOROVOD_SPMD_*``) and the observability
 planes (timeline, metrics endpoint, profile directory, flight recorder),
 under the same ``HOROVOD_*`` names as the JAX package
-(``horovod_tpu/config.py``)."""
+(``horovod_tpu/config.py``), and the stall inspector's thresholds."""
 
 import dataclasses
 import os
 
 # Default tensor-fusion buffer size: 64 MB, Horovod's default.
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
+# Stall-warning threshold in seconds (Horovod's 60 s, stall_inspector.h).
+DEFAULT_STALL_WARNING_TIME = 60.0
 # The tuning variables that the port acts on; hvdrun says of every other
 # one it sets that the port does not act on it.
 ACTED_ON = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_WIRE_DTYPE",
             "HOROVOD_HIERARCHICAL_ALLREDUCE", "HOROVOD_TIMELINE",
             "HOROVOD_TIMELINE_MARK_CYCLES", "HOROVOD_METRICS_PORT",
-            "HOROVOD_METRICS_ADDR")
+            "HOROVOD_METRICS_ADDR", "HOROVOD_STALL_CHECK_DISABLE",
+            "HOROVOD_STALL_CHECK_TIME_SECONDS",
+            "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS")
 
 
 def _env_int(name, default):
@@ -28,6 +32,11 @@ def _env_bool(name, default=False):
     if v in (None, ""):
         return default
     return v.lower() not in ("0", "false", "no", "off")
+
+
+def _env_float(name, default):
+    v = os.environ.get(name)
+    return default if v in (None, "") else float(v)
 
 
 def _env_str(name, default=None):
@@ -85,6 +94,11 @@ class Config:
     flightrec: bool = None
     flightrec_capacity: int = 4096
     flightrec_dir: str = None
+    # --- stall inspector (runtime/stall.py; JAX config.py:129-132):
+    # started for an elastic worker (HOROVOD_ELASTIC=1) unless disabled
+    stall_check_disable: bool = False
+    stall_warning_time: float = DEFAULT_STALL_WARNING_TIME
+    stall_shutdown_time: float = 0.0
 
     @property
     def flightrec_enabled(self):
@@ -123,4 +137,10 @@ class Config:
                        else _env_bool("HOROVOD_FLIGHTREC")),
             flightrec_capacity=_env_int("HOROVOD_FLIGHTREC_CAPACITY", 4096),
             flightrec_dir=_env_str("HOROVOD_FLIGHTREC_DIR"),
+            stall_check_disable=_env_bool("HOROVOD_STALL_CHECK_DISABLE"),
+            stall_warning_time=_env_float(
+                "HOROVOD_STALL_CHECK_TIME_SECONDS",
+                DEFAULT_STALL_WARNING_TIME),
+            stall_shutdown_time=_env_float(
+                "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0.0),
         )

@@ -818,15 +818,18 @@ class _ZeroSlots:
             for key, b, slot in self.entries])
 
     def load(self, leaf):
-        """Write a restored ``ckpt.ZeroLeaf`` (each bucket leaf the whole
-        ``[world, shard]`` array of this world) into the rows."""
+        """Write a restored ``ckpt.ZeroLeaf`` into the rows: each bucket
+        leaf the whole ``[world, shard]`` array of this world, or
+        ``{row: array}`` holding this rank's row (an elastic state's
+        in-memory commit)."""
         got = {key: value for key, _, value in leaf.entries}
         for key, bucket, slot in self.entries:
             if key not in got:
                 raise ValueError(f"the ZeRO-1 state has no leaf {key!r}")
             value = got[key]
             if bucket is not None:
-                value = np.asarray(value)[self.rank]
+                value = (value[self.rank] if isinstance(value, dict)
+                         else np.asarray(value)[self.rank])
             slot.set(value)
 
     def state_tree(self):

@@ -119,6 +119,10 @@ class DistributedOptimizer(torch.optim.Optimizer):
         self.threshold_bytes = threshold_bytes
         self.backward_passes_per_step = backward_passes_per_step
         self.sharded_update = sharded_update
+        # called with this rank's reduce-scattered shard of each bucket a
+        # chunked wire (or ZeRO-1) sends, when set (the GSPMD LM step's
+        # island reads the gradient norm from them)
+        self.shard_sink = None
         # None defers to HOROVOD_WIRE_DTYPE at use; an explicit "none"
         # pins the exchange uncompressed
         wire = compression_lib.resolve(compression)
@@ -242,6 +246,13 @@ class DistributedOptimizer(torch.optim.Optimizer):
             return None
         return wire
 
+    def reduce_axes(self):
+        """The axes the gradients are reduced over: ZeRO-1's schedule's,
+        else ``axes`` resolved on the installed mesh."""
+        if self.zero_state is not None:
+            return self.zero_state.plan.schedule.axes
+        return mesh_lib.get_mesh().resolve(self.axes)
+
     def hierarchical_resolved(self):
         """``hierarchical``, or with None ``HOROVOD_HIERARCHICAL_ALLREDUCE``
         read now (False before ``init()``)."""
@@ -264,7 +275,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
             [p.grad for p in self.params], op=self.op,
             threshold_bytes=self.threshold_bytes,
             compression=self.compression, perms=self.perms,
-            axes=self.axes, hierarchical=self.hierarchical_resolved()))
+            axes=self.axes, hierarchical=self.hierarchical_resolved(),
+            on_shard=self.shard_sink))
 
     @torch.no_grad()
     def _accumulate(self):
@@ -293,7 +305,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
             return None
         if self.zero_state is not None:
             zero.sharded_update(self.zero_state, self._grads(),
-                                wire=self.compression)
+                                wire=self.compression,
+                                on_shard=self.shard_sink)
             return None
         self.synchronize()
         return self.optimizer.step()

@@ -196,7 +196,7 @@ def _unpack(bucket, flat):
 
 def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
                      compression=None, perms=None, axes=None,
-                     hierarchical=None):
+                     hierarchical=None, on_shard=None):
     """Allreduce every tensor of the list in place through fused flat
     buckets: pack, one collective per bucket, unpack. Returns the
     buckets, so a caller can account what went over the wire.
@@ -218,7 +218,9 @@ def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
     quantizer, whose chunks they decide; an exact or cast reduction is
     elementwise, so it packs each tensor as it lies. A chunked wire is
     single-level: it ignores ``hierarchical``, with a warning where the
-    two-level path would have run."""
+    two-level path would have run. ``on_shard``, when given, is called
+    with this rank's reduced shard of each bucket the chunked wire sends
+    (the shards of the ranks partition the reduced buckets)."""
     hierarchical = hierarchical_default(hierarchical)
     axes = mesh_lib.get_mesh().resolve(axes)
     compression = compression_lib.resolve(compression)
@@ -252,6 +254,8 @@ def fused_allreduce_(tensors, op=collective.Average, threshold_bytes=None,
                                     world=world, axes=axes)
             shard, _ = reduce_scatter_bucket_compressed(
                 sched1, 0, tensors, compression, op=op)
+            if on_shard is not None:
+                on_shard(shard)
             flat, _ = all_gather_bucket_compressed(sched1, 0, shard,
                                                    compression)
         else:

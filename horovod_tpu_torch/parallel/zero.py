@@ -179,12 +179,13 @@ def add_bucket(zstate, idx, flat):
 
 
 @torch.no_grad()
-def sharded_update(zstate, grads, wire=None):
+def sharded_update(zstate, grads, wire=None, on_shard=None):
     """The full ZeRO-1 exchange for one accumulated gradient list (in the
     order of ``zstate.params``): per-bucket reduce-scatter, then
     ``apply_shards``. ``wire`` compresses both halves statelessly: this
     entry point has no step-to-step carry, so no error feedback
-    (``training.make_train_step``'s pipeline threads the residuals)."""
+    (``training.make_train_step``'s pipeline threads the residuals).
+    ``on_shard``, when given, is called with each reduced shard."""
     schedule = zstate.plan.schedule
     shards = []
     for i in range(len(schedule.buckets)):
@@ -195,6 +196,8 @@ def sharded_update(zstate, grads, wire=None):
             shard, _ = fusion.reduce_scatter_bucket_compressed(
                 schedule, i, grads, wire, op=zstate.plan.op)
         shards.append(shard)
+        if on_shard is not None:
+            on_shard(shard)
     apply_shards(zstate, shards, wire=wire)
 
 

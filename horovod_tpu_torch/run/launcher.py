@@ -151,6 +151,7 @@ class Job:
         self.slots = []  # the Slot of each process, in the same order
         self._failed = threading.Event()
         self.first_failure = None
+        self.failed_at = None  # wall time the first failure was seen
         self.exit_codes = {}
         self._lock = threading.Lock()
 
@@ -204,6 +205,7 @@ class Job:
             with self._lock:
                 if self.first_failure is None:
                     self.first_failure = (rank, rc)
+                    self.failed_at = time.time()
             self._failed.set()
             self.kill_all()
 

@@ -5,14 +5,22 @@
     hvdrun-torch -np 4 --config-file cfg.yaml python train.py
 
 The parser is the JAX package's, so one argv parses to the same
-namespace in both. The launch is the fixed-size one. ``--spmd-procs N
+namespace in both. The launch is the fixed-size one, or with
+``--min-np``, ``--max-np`` or ``--host-discovery-script`` the elastic
+one (JAX ``run.py:252-290``, ``:571-630``): an ``elastic.ElasticDriver``
+owns discovery, blame and a rendezvous an epoch, and each epoch launches
+the command through the launcher with the elastic env
+(``HOROVOD_ELASTIC``, ``_EPOCH``, ``_MIN_NP``, ``_MAX_NP``):
+
+    hvdrun-torch --min-np 1 --max-np 2 -H localhost:2 python train.py
+
+``--chaos SPEC`` arms a seeded fault injector (``chaos/``) against the
+job's workers, retargeted at each epoch's. ``--spmd-procs N
 --spmd-local-devices K`` launches N x K ranks as one ``(dcn N, data K)``
 process mesh (``cluster/procmesh.py``): the JAX package's N processes of
-K devices, one rank to a device. Flags whose plane
-the port has not yet are refused with exit code 2 and the ``ROADMAP.md``
-item that brings them (``REFUSED``). Tuning flags set the same
-``HOROVOD_*`` env as the JAX package's; of each the port's ``init()``
-does not read, hvdrun says so on stderr.
+K devices, one rank to a device; it is fixed-size. Tuning flags set the
+same ``HOROVOD_*`` env as the JAX package's; of each the port's
+``init()`` does not read, hvdrun says so on stderr.
 
 The diagnosis flags are the JAX launcher's (``run/run.py:181-205``,
 ``:447-480``): ``--doctor LOGDIR`` (the hang report,
@@ -39,16 +47,6 @@ from horovod_tpu_torch.run.discovery import DriverService
 from horovod_tpu_torch.run.rendezvous import KVStoreServer
 
 TASK_FN = "horovod_tpu_torch.run.task_fn"
-
-# (dest, flag, what the flag needs, the ROADMAP.md Queue 1 item that
-# brings it)
-REFUSED = (
-    ("min_np", "--min-np", "elastic training", 6),
-    ("max_np", "--max-np", "elastic training", 6),
-    ("host_discovery_script", "--host-discovery-script",
-     "elastic training", 6),
-    ("chaos", "--chaos", "the fault injector", 6),
-)
 
 
 def _version():
@@ -146,12 +144,22 @@ def build_parser():
     p.add_argument("--no-interface-discovery", action="store_true",
                    help="skip the multi-host NIC discovery pre-flight")
 
-    el = p.add_argument_group("elastic (refused: ROADMAP.md Queue 1 "
-                              "item 6)")
-    el.add_argument("--min-np", type=int, default=None)
-    el.add_argument("--max-np", type=int, default=None)
-    el.add_argument("--host-discovery-script", default=None)
-    el.add_argument("--elastic-poll-interval", type=float, default=2.0)
+    el = p.add_argument_group(
+        "elastic (Horovod's horovodrun --min-np/--max-np/"
+        "--host-discovery-script)")
+    el.add_argument("--min-np", type=int, default=None,
+                    help="minimum worker count: the job keeps running as "
+                         "long as this many slots remain after failures/"
+                         "blacklisting (enables elastic mode)")
+    el.add_argument("--max-np", type=int, default=None,
+                    help="maximum worker count when discovery reports "
+                         "more slots than needed")
+    el.add_argument("--host-discovery-script", default=None,
+                    help="executable printing the current 'host:slots' "
+                         "set, one per line; polled for membership "
+                         "changes (enables elastic mode)")
+    el.add_argument("--elastic-poll-interval", type=float, default=2.0,
+                    help="seconds between host-discovery polls")
 
     tune = p.add_argument_group("tuning (sets HOROVOD_* env)")
     tune.add_argument("--fusion-threshold-mb", type=int, default=None)
@@ -186,7 +194,13 @@ def build_parser():
                                "error", "fatal"])
 
     p.add_argument("--chaos", metavar="SPEC", default=None,
-                   help="refused: ROADMAP.md Queue 1 item 6")
+                   help="arm a seeded fault injector against this job's "
+                        "worker processes (chaos soak): SPEC is a JSON "
+                        "plan file or an inline "
+                        "'seed=7,interval=2.5,kinds=sigterm+sigkill,"
+                        "count=6' knob list; kinds are sigterm/sigkill/"
+                        "stall/slow_disk. In elastic mode the remaining "
+                        "injections retarget each new epoch's workers")
     p.add_argument("--doctor", metavar="LOGDIR", default=None,
                    help="aggregate the flight-recorder dumps "
                         "(flightrec.rank*.json) under LOGDIR into one "
@@ -216,18 +230,16 @@ def parse_args(argv=None):
     if args.config_file:
         defaults = {a.dest: a.default for a in parser._actions}
         config_parser.load_config_file(args.config_file, args, defaults)
-    for dest, flag, plane, item in REFUSED:
-        if getattr(args, dest) not in (None, False):
-            parser.error(f"{flag} needs {plane}, which horovod_tpu_torch "
-                         f"does not have yet (ROADMAP.md Queue 1 item "
-                         f"{item})")
-    args.elastic = False
+    args.elastic = _validate_elastic_args(parser, args)
     if args.spmd_procs is not None:
         # the JAX launcher's N processes of K devices are N x K ranks
         # here, a rank to a device (run/run.py:220-236 of the JAX package)
         if args.spmd_procs < 1:
             parser.error(f"--spmd-procs must be >= 1 "
                          f"(got {args.spmd_procs})")
+        if args.elastic:
+            parser.error("--spmd-procs is fixed-size: one process mesh "
+                         "cannot resize mid-job; drop the elastic flags")
         local = args.spmd_local_devices or 1
         if local < 1:
             parser.error(f"--spmd-local-devices must be >= 1 (got {local})")
@@ -242,12 +254,60 @@ def parse_args(argv=None):
         args.jax_coordinator = True
     elif args.spmd_local_devices is not None:
         parser.error("--spmd-local-devices requires --spmd-procs")
+    if args.chaos is not None:
+        from horovod_tpu_torch.chaos import parse_spec
+        try:
+            parse_spec(args.chaos)  # reject a malformed spec pre-launch
+        except ValueError as e:
+            parser.error(str(e))
     # after the config overlay: the YAML may supply num-proc
-    if (not args.check_build and args.merge_timeline is None
-            and args.doctor is None and args.goodput_report is None
-            and args.num_proc is None):
+    if (not args.check_build and not args.elastic
+            and args.merge_timeline is None and args.doctor is None
+            and args.goodput_report is None and args.num_proc is None):
         parser.error("-np/--num-proc is required")
     return args
+
+
+def _validate_elastic_args(parser, args):
+    """Reject invalid elastic flag combinations with the JAX launcher's
+    messages; returns True when the job is elastic (any elastic flag
+    present), with the min/max/np defaults filled in."""
+    elastic = (args.min_np is not None or args.max_np is not None
+               or args.host_discovery_script is not None)
+    if not elastic:
+        return False
+    if args.host_discovery_script is not None:
+        if args.hosts or args.hostfile:
+            parser.error("--host-discovery-script replaces -H/--hostfile: "
+                         "the script is the source of truth for the host "
+                         "set; pass one or the other")
+        script = args.host_discovery_script
+        if not os.path.isfile(script):
+            parser.error(f"--host-discovery-script {script!r} does not "
+                         "exist")
+        if not os.access(script, os.X_OK):
+            parser.error(f"--host-discovery-script {script!r} is not "
+                         "executable (chmod +x it)")
+    if args.min_np is None:
+        if args.num_proc is None:
+            parser.error("elastic mode requires --min-np (or -np, which "
+                         "defaults --min-np)")
+        args.min_np = args.num_proc
+    if args.min_np < 1:
+        parser.error(f"--min-np must be >= 1 (got {args.min_np})")
+    if args.max_np is not None and args.max_np < args.min_np:
+        parser.error(f"--max-np ({args.max_np}) must be >= --min-np "
+                     f"({args.min_np})")
+    if args.num_proc is not None:
+        if args.num_proc < args.min_np:
+            parser.error(f"-np ({args.num_proc}) must be >= --min-np "
+                         f"({args.min_np})")
+        if args.max_np is not None and args.num_proc > args.max_np:
+            parser.error(f"-np ({args.num_proc}) must be <= --max-np "
+                         f"({args.max_np})")
+    else:
+        args.num_proc = args.min_np
+    return True
 
 
 def _check_metrics_ports(args, slots):
@@ -456,9 +516,20 @@ def spmd_env(args, controller_addr, rendezvous_port):
     return env
 
 
+def _start_chaos(args):
+    """The fault injector of ``--chaos``, built and not armed: its clock
+    starts at the first ``attach()``, once workers exist."""
+    if args.chaos is None:
+        return None
+    from horovod_tpu_torch.chaos import ChaosMonkey, parse_spec
+    return ChaosMonkey(parse_spec(args.chaos))
+
+
 def _run(args):
     if not args.command:
         raise SystemExit("hvdrun: no training command given")
+    if args.elastic:
+        return _run_elastic(args)
     hosts = _host_list_from_args(args)
     slots = allocation.allocate(hosts, args.num_proc)
     # rank 0's host; port 0: a JAX worker's native core binds there and
@@ -482,13 +553,92 @@ def _run(args):
                               rendezvous_port=rendezvous_port,
                               extra_env=extra_env, ssh_port=args.ssh_port,
                               output_dir=args.output_dir)
+        monkey = _start_chaos(args)
+        if monkey is not None:
+            monkey.attach(job)
         try:
             job.wait()
         except RuntimeError:
             _maybe_doctor(args, dump_dir, multi_host=not all_local)
             raise
+        finally:
+            if monkey is not None:
+                monkey.stop()
         _cleanup_tmp_flightrec(tmp_dump_dir)
     finally:
+        kv.stop()
+
+
+def _run_elastic(args):
+    """The elastic launch path: an ``ElasticDriver`` owns discovery,
+    blacklisting and a rendezvous an epoch; each epoch launches
+    ``args.command`` through the launcher with the elastic env on top
+    (``HOROVOD_ELASTIC``, ``_EPOCH``, ``_MIN_NP``, ``_MAX_NP``)."""
+    from horovod_tpu_torch.elastic.discovery import (FixedHosts,
+                                                     ScriptDiscovery)
+    from horovod_tpu_torch.elastic.driver import (ElasticDriver,
+                                                  default_launch_fn)
+
+    if args.host_discovery_script:
+        discovery = ScriptDiscovery(args.host_discovery_script)
+    else:
+        discovery = FixedHosts(_host_list_from_args(args))
+    initial_hosts = discovery.find_available_hosts_and_slots()
+    # membership may add remote hosts later: only a fixed set on this
+    # host gets the loopback-bound, unauthenticated store
+    all_local = (not args.host_discovery_script and
+                 all(h in launcher.LOCAL_HOSTS for h in initial_hosts))
+    kv, auth_key, rendezvous_port = _start_kv(all_local)
+    monkey = driver = None
+    try:
+        # the NIC pre-flight runs against the INITIAL host set; hosts that
+        # join later are taken to share the elected interface names
+        initial_host_list = [allocation.HostSlots(h, n)
+                             for h, n in sorted(initial_hosts.items())]
+        extra_env = _base_worker_env(args, auth_key, all_local,
+                                     initial_host_list, rendezvous_port)
+        if args.metrics_port is not None and args.metrics_port > 0:
+            print(f"hvdrun: elastic metrics base port {args.metrics_port}"
+                  ": each epoch's scrape targets are host:(base + "
+                  "local_rank) over that epoch's slots", file=sys.stderr)
+        # without --max-np the job never grows beyond -np: the size asked
+        # for is the ceiling, elasticity only rides out losses
+        max_np = args.max_np if args.max_np is not None else args.num_proc
+        driver = ElasticDriver(
+            discovery, args.min_np, max_np=max_np, kv=kv,
+            auth_key=auth_key, poll_interval=args.elastic_poll_interval,
+            start_timeout=args.start_timeout)
+        launch = default_launch_fn(
+            args.command, controller_port=0,
+            rendezvous_addr=("127.0.0.1" if all_local
+                             else launcher.this_host_addr()),
+            rendezvous_port=rendezvous_port, extra_env=extra_env,
+            ssh_port=args.ssh_port, output_dir=args.output_dir,
+            jax_coordinator=args.jax_coordinator)
+        monkey = _start_chaos(args)
+        if monkey is not None:
+            inner_launch = launch
+
+            def launch(slots, epoch, env):
+                # the remaining injections target this epoch's workers
+                job = inner_launch(slots, epoch, env)
+                monkey.attach(job)
+                return job
+        dump_dir, tmp_dump_dir = _flightrec_dir(args, extra_env)
+        try:
+            epochs = driver.run_job(launch)
+        except (RuntimeError, TimeoutError):
+            _maybe_doctor(args, dump_dir, multi_host=not all_local)
+            raise
+        if args.verbose:
+            print(f"hvdrun: elastic job completed after {epochs} "
+                  "epoch(s)", file=sys.stderr)
+        _cleanup_tmp_flightrec(tmp_dump_dir)
+    finally:
+        if monkey is not None:
+            monkey.stop()
+        if driver is not None:
+            driver.stop()
         kv.stop()
 
 

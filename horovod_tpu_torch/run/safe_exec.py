@@ -29,6 +29,25 @@ import time
 GRACEFUL_TERMINATION_TIME_S = 5.0
 
 
+def term_grace(env=None):
+    """Seconds between the SIGTERM the middleman forwards and its SIGKILL:
+    ``GRACEFUL_TERMINATION_TIME_S``, or for an elastic worker
+    (``HOROVOD_ELASTIC=1``) or a run that set ``HOROVOD_GRACE_SECONDS``
+    that eviction budget (30 s by default) and a second more, so the
+    graceful-eviction handler's bounded force-commit
+    (``elastic/preempt.py``) is not cut short. (The JAX middleman kills
+    after 5 s whatever the budget.)"""
+    env = os.environ if env is None else env
+    raw = env.get("HOROVOD_GRACE_SECONDS")
+    if not raw and env.get("HOROVOD_ELASTIC") != "1":
+        return GRACEFUL_TERMINATION_TIME_S
+    try:
+        budget = max(0.0, float(raw)) if raw else 30.0
+    except ValueError:
+        budget = 30.0
+    return max(GRACEFUL_TERMINATION_TIME_S, budget + 1.0)
+
+
 def _children_of(pid_set):
     """Direct children of any pid in ``pid_set``, from ``/proc``."""
     kids = set()
@@ -130,7 +149,7 @@ def run_middleman(command, death_fd=None, watch_stdin=False, env=None):
             fired.set()
             with known_lock:
                 snapshot = set(known)
-            terminate_tree(proc, known=snapshot)
+            terminate_tree(proc, grace=term_grace(env), known=snapshot)
 
     def _on_signal(signum, frame):
         threading.Thread(target=_reap, daemon=True).start()

@@ -14,12 +14,23 @@ order:
   ``HOROVOD_TIMELINE``, one file a rank in a multi-process job);
 * the metrics server with its health function (``telemetry/server.py``;
   ``HOROVOD_METRICS_PORT``, bound to ``HOROVOD_METRICS_ADDR``): a taken
-  port is logged and the run goes on without a scrape plane.
+  port is logged and the run goes on without a scrape plane;
+* for an elastic worker (``HOROVOD_ELASTIC=1``) the stall inspector
+  (``runtime/stall.py``, unless ``HOROVOD_STALL_CHECK_DISABLE``), whose
+  progress hooks publish the heartbeats of the elastic driver's
+  liveness view (``elastic/worker.py``), as the JAX ``services.py:146-
+  166`` does; the JAX package's native controller, the inspector's other
+  host there, is not ported;
+* the graceful-eviction handler (``elastic/preempt.py``) for an elastic
+  worker or a run that set a grace budget or a notice source, after the
+  recorder, so that SIGTERM rides its signal watcher (JAX
+  ``services.py:167-178``).
 
 ``stop`` writes ``goodput.rank<r>.json`` beside the flight-recorder
-dumps, stops the server, closes the timeline and uninstalls the
-recorder with a final dump, which is how the doctor tells a clean exit
-from a hard kill.
+dumps, uninstalls the eviction handler, stops the server and the
+inspector, closes the elastic worker's endpoint and the timeline, and
+uninstalls the recorder with a final dump, which is how the doctor tells
+a clean exit from a hard kill.
 """
 
 import logging
@@ -86,6 +97,28 @@ def start(state):
                 "recording stays on, the scrape plane is off",
                 cfg.metrics_addr, cfg.metrics_port, e)
             state.metrics_server = None
+    elastic = os.environ.get("HOROVOD_ELASTIC") == "1"
+    if elastic and not cfg.stall_check_disable:
+        from horovod_tpu_torch.runtime.stall import StallInspector
+        state.stall_inspector = StallInspector(
+            warning_time=cfg.stall_warning_time,
+            shutdown_time=cfg.stall_shutdown_time)
+        try:
+            from horovod_tpu_torch.elastic import worker as elastic_worker
+            elastic_worker.attach_progress_reporter(state.stall_inspector)
+        except Exception:  # the inspector works alone
+            logger.warning("elastic worker context failed to attach",
+                           exc_info=True)
+        state.stall_inspector.start()
+    from horovod_tpu_torch.elastic import preempt as _preempt
+    if elastic or _preempt.configured():
+        try:
+            state.preempt_handler = _preempt.install()
+            logger.info("graceful-eviction handler armed (grace %.0fs)",
+                        _preempt.grace_seconds())
+        except Exception:  # eviction is armor, not a startup dependency
+            logger.warning("graceful-eviction handler failed to install",
+                           exc_info=True)
 
 
 def stop(state, reason="shutdown"):
@@ -103,9 +136,19 @@ def stop(state, reason="shutdown"):
         state.ledger = None
     except Exception:
         logger.warning("goodput ledger dump failed", exc_info=True)
+    if getattr(state, "preempt_handler", None) is not None:
+        from horovod_tpu_torch.elastic import preempt as _preempt
+        _preempt.uninstall()
+        state.preempt_handler = None
     if state.metrics_server is not None:
         state.metrics_server.stop()
         state.metrics_server = None
+    if getattr(state, "stall_inspector", None) is not None:
+        state.stall_inspector.stop()
+        state.stall_inspector = None
+    if os.environ.get("HOROVOD_ELASTIC") == "1":
+        from horovod_tpu_torch.elastic import worker as elastic_worker
+        elastic_worker.shutdown_worker_context()
     if state.timeline is not None:
         state.timeline.close()
         state.timeline = None

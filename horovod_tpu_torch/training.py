@@ -175,6 +175,10 @@ def _local_norm(grads, axes):
 
 
 def _attach_xray(step, collectives=None):
+    # every step built here runs in _step_frame, which settles the
+    # goodput ledger (elastic_train_loop settles only for other steps)
+    step._settles_ledger = True
+
     def xray(*args, k=3, profile_dir=None):
         """Capture K steps of ``step(*args)`` with ``torch.profiler``
         (after one warm step outside the capture) and attribute their
@@ -199,7 +203,7 @@ def _batch_stats(model):
 def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                     dropout_seed=0, accum_steps=1, overlap_grads=False,
                     error_feedback=True, loader=None, spmd=False,
-                    telemetry=None):
+                    telemetry=None, _norm_out=None):
     """Build a classification train step over the data axis.
     ``step(inputs, labels)`` takes this rank's shard of the batch, puts
     the model in training mode, runs forward, backward and the optimizer
@@ -278,7 +282,11 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
     JAX non-overlapped definition, the root-mean of the ranks' local
     norms. The GSPMD step's is the exact norm of the global-mean
     gradient, as the JAX GSPMD step's. Losses and parameters are bit for
-    bit those of ``telemetry=False``."""
+    bit those of ``telemetry=False``.
+
+    ``_norm_out`` (internal: the GSPMD step's chunked island) is a
+    one-item list each step writes that norm into, with or without
+    telemetry."""
     if spmd:
         return _make_spmd_train_step(
             model, optimizer, loss_fn=loss_fn, dropout_seed=dropout_seed,
@@ -441,7 +449,7 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         with torch.no_grad():
             if overlap_grads:
                 shards = [s * inv_k for s in _add_waited(shards, pending)]
-                if recorder is not None:
+                if want_norm:
                     gnorm = _shards_norm(shards, schedule.axes)
                 if sharded:
                     new_ag = zero.apply_shards(
@@ -456,13 +464,13 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                     for p in params:
                         if p.grad is not None:
                             p.grad.mul_(inv_k)
-                if recorder is not None:
+                if want_norm:
                     grads = [p.grad for g in optimizer.param_groups
                              for p in g["params"]]
                     if not averaged_in_place:
                         gnorm = _local_norm(grads, norm_axes)
                 optimizer.step()
-                if recorder is not None and averaged_in_place:
+                if want_norm and averaged_in_place:
                     gnorm = _grad_norm(grads)
             stats = _batch_stats(model)
             if stats:
@@ -474,6 +482,7 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
     # an allreduce leaves them in .grad (after optimizer.step()), else
     # the local ones (before it), as in the JAX non-overlapped step
     recorder = _StepRecorder(accum_steps) if _tele_on(telemetry) else None
+    want_norm = recorder is not None or _norm_out is not None
     averaged_in_place = (is_hvd and not sharded
                          and optimizer.backward_passes_per_step == 1)
     norm_axes = optimizer.axes if is_hvd else None
@@ -517,6 +526,8 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
             residuals = None
             raise
         state.step += 1
+        if _norm_out is not None:
+            _norm_out[0] = gnorm
         if recorder is not None:
             recorder.record(inputs.shape[0], t0, loss, gnorm)
         return loss
@@ -545,7 +556,8 @@ def _add_waited(acc, pending):
 
 
 def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
-                       seq_axis=None, spmd=False, telemetry=None):
+                       seq_axis=None, spmd=False, telemetry=None,
+                       _norm_out=None):
     """Build a language-model train step (next-token loss).
     ``optimizer`` is a ``DistributedOptimizer`` (any exchange: fused
     allreduce, ZeRO-1, ``backward_passes_per_step``) whose axes are the
@@ -588,7 +600,12 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
     ``.grad`` after the allreduce (one foreach pass), or under ZeRO-1 or
     ``backward_passes_per_step > 1`` the root-mean of the ranks' local
     norms; the GSPMD step's is the exact norm of the global-mean
-    gradient."""
+    gradient.
+
+    ``_norm_out`` (internal: the GSPMD step's chunked island) is a
+    one-item list each step writes a gradient norm into, with or without
+    telemetry: under a chunked wire the exact norm of the global-mean
+    gradient, from the shards its reduce-scatter leaves on each rank."""
     if spmd:
         if seq_axis is not None:
             raise ValueError(
@@ -648,6 +665,7 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
         return local_mean * local_count * n_shards / global_count
 
     recorder = _StepRecorder() if _tele_on(telemetry) else None
+    want_norm = recorder is not None or _norm_out is not None
     averaged_in_place = (not optimizer.sharded_update
                          and optimizer.backward_passes_per_step == 1)
 
@@ -656,12 +674,21 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
         loss = loss_fn(tokens)
         loss.backward()
         gnorm = None
-        if recorder is not None:
+        if want_norm:
             grads = [p.grad for p in optimizer.params]
             if not averaged_in_place:
                 gnorm = _local_norm(grads, grad_axes)
-        optimizer.step()  # reduces the gradients first
-        if recorder is not None and averaged_in_place:
+        shards = [] if _norm_out is not None else None
+        optimizer.shard_sink = None if shards is None else shards.append
+        try:
+            optimizer.step()  # reduces the gradients first
+        finally:
+            optimizer.shard_sink = None
+        if shards:
+            # a chunked wire's reduce-scatter: the shards partition the
+            # global-mean gradient (the JAX GSPMD island's definition)
+            gnorm = _shards_norm(shards, optimizer.reduce_axes())
+        elif want_norm and averaged_in_place:
             gnorm = _grad_norm(grads)
         return collective.allreduce_(loss.detach(), op=Average,
                                      axes=grad_axes), gnorm
@@ -674,6 +701,8 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
         with _step_frame(state.step), dispatch:
             loss, gnorm = run(tokens)
         state.step += 1
+        if _norm_out is not None:
+            _norm_out[0] = gnorm
         if recorder is not None:
             recorder.record(tokens.shape[0], t0, loss, gnorm)
         return loss
@@ -905,8 +934,10 @@ def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
     the ledger notes the compiled path (its collectives live inside the
     step), and the first call of a batch signature books as compile
     (``gspmd.CompiledProgramCache``). The gradient norm is the exact
-    norm of the global-mean gradient (``_spmd_norm``), as the JAX GSPMD
-    step's; a chunked wire's island records none.
+    norm of the global-mean gradient, as the JAX GSPMD step's: of what
+    ``update_spmd`` reduced (``_spmd_norm``), or in a chunked wire's
+    island of the reduce-scattered shards (their squares summed over the
+    ranks by one scalar all-reduce, JAX ``training.py:923-929``).
     """
     from horovod_tpu_torch.parallel import gspmd
     from torch.distributed.tensor.experimental import implicit_replication
@@ -945,7 +976,9 @@ def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                                 dropout_seed=dropout_seed,
                                 overlap_grads=True,
                                 error_feedback=error_feedback,
-                                telemetry=False)
+                                telemetry=False,
+                                _norm_out=(None if recorder is None
+                                           else gnorm_box))
         state = inner.state
         spec = plan.batch_spec
         global_step = gspmd.shard_map_island(
@@ -1024,7 +1057,8 @@ def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         try:
             with _step_frame(n, compiled_path=True), dispatch:
                 loss = prog.run(global_step, *placed)
-                gnorm = _spmd_norm(gnorm_box[0], optimizer)
+                gnorm = (gnorm_box[0] if chunked
+                         else _spmd_norm(gnorm_box[0], optimizer))
         except BaseException:
             residuals = None
             raise
@@ -1068,7 +1102,10 @@ def _make_spmd_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
     feedback, as the explicit LM step's ``optimizer.step()``): a chunked
     wire runs the explicit LM step whole as an island; a cast wire
     narrows ZeRO-1's placement exchange, or the plain path's gradient
-    buckets. Telemetry as ``_make_spmd_train_step``'s."""
+    buckets. Telemetry as ``_make_spmd_train_step``'s: a chunked wire's
+    island records the exact norm of the global-mean gradient from the
+    shards its reduce-scatters leave on each rank, as that step's
+    island does."""
     from horovod_tpu_torch.parallel import gspmd
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -1104,7 +1141,9 @@ def _make_spmd_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
             gnorm_box[0] = _grad_norm(reduced)
     if chunked:
         inner = make_lm_train_step(model, optimizer, batch_axis=batch_axis,
-                                   telemetry=False)
+                                   telemetry=False,
+                                   _norm_out=(None if recorder is None
+                                              else gnorm_box))
         state = inner.state
         global_step = gspmd.shard_map_island(
             inner, plan, in_specs=(plan.batch_spec,), out_specs=())
@@ -1139,7 +1178,8 @@ def _make_spmd_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
                     else contextlib.nullcontext())
         with _step_frame(state.step, compiled_path=True), dispatch:
             loss = prog.run(global_step, placed)
-            gnorm = _spmd_norm(gnorm_box[0], optimizer)
+            gnorm = (gnorm_box[0] if chunked
+                     else _spmd_norm(gnorm_box[0], optimizer))
         step.compiled_collectives = prog.compiled_collectives
         step.compiled_axis_collectives = prog.compiled_axis_collectives
         if chunked:
@@ -1153,3 +1193,109 @@ def _make_spmd_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
     _spmd_step_common(step, prog, plan, state, recorder)
     step.wire = wire
     return step
+
+
+def elastic_train_loop(elastic_state, train_step, batch_fn, num_steps,
+                       commit_every=1, checkpoint_every=None,
+                       on_step=None):
+    """Drive ``train_step`` under the elastic retry loop
+    (``hvd.elastic.run``): the JAX ``training.elastic_train_loop`` over
+    an ``elastic.TorchState`` that holds the step's model, optimizer and
+    ``StepState`` (``train_step.state``, adopted when the state was
+    built without one). Commit / restore / sync come from the state,
+    membership interrupts are taken at commit boundaries, and a worker
+    failure rolls back to the last commit before the retry.
+
+    ``batch_fn`` supplies the data: a callable ``batch_fn(step)``
+    (indexed by the step, so a restored worker reads the right batch),
+    returning the step's arguments (a tuple, or one tensor such as an
+    LM's tokens), or a ``data.PrefetchLoader``, whose cursor the loop
+    attaches to the state, so that it commits, restores and re-syncs
+    with the model and a rollback replays the rolled-back steps'
+    batches. ``on_step(step, loss)`` observes each step. Returns the
+    last loss.
+
+    ``checkpoint_every=K`` sets the disk cadence apart from the
+    in-memory ``commit_every``: every K-th commit is saved through
+    ``ckpt.AsyncCheckpointer`` (the state needs a ``directory``), and
+    the final commit always reaches disk. After a restore (a rollback
+    or a relaunch's disk restore) the step's error-feedback residuals
+    are dropped (``reset_error_feedback``), or the next step would carry
+    the error of a later step. A step not built by this module (which
+    settles the goodput ledger in its frame) has the ledger settled,
+    and with telemetry on its latency recorded, by the loop."""
+    from horovod_tpu_torch import elastic as _elastic
+
+    if checkpoint_every is not None:
+        if not getattr(elastic_state, "_directory", None):
+            raise ValueError(
+                "checkpoint_every needs an elastic state with a "
+                "checkpoint directory (TorchState(directory=...))")
+        elastic_state.checkpoint_every = max(1, int(checkpoint_every))
+    step_state = getattr(train_step, "state", None)
+    if getattr(elastic_state, "step_state", None) is None:
+        elastic_state.step_state = step_state
+    elif step_state is not None and elastic_state.step_state is not \
+            step_state:
+        raise ValueError("the elastic state's step_state must be the "
+                         "step's own (train_step.state)")
+    counter = elastic_state.step_state
+    if counter is None:
+        raise ValueError("elastic_train_loop needs the step's StepState: "
+                         "a step built here carries it as step.state, or "
+                         "give TorchState(step_state=...)")
+
+    loader = (batch_fn if hasattr(batch_fn, "cursor")
+              and hasattr(batch_fn, "__next__") else None)
+    if loader is not None and hasattr(elastic_state, "attach_loader"):
+        elastic_state.attach_loader(loader)
+
+    own = getattr(train_step, "_settles_ledger", False)
+    own_instruments = None
+    if not own and telemetry_lib.enabled():
+        own_instruments = telemetry_lib.StepInstruments()
+    reset_ef = getattr(train_step, "reset_error_feedback", None)
+    seen_restores = [getattr(elastic_state, "restores", 0)]
+
+    @_elastic.run
+    def _loop(state):
+        restores = getattr(state, "restores", 0)
+        if restores != seen_restores[0]:
+            seen_restores[0] = restores
+            if reset_ef is not None:
+                reset_ef()
+        loss = None
+        while counter.step < num_steps:
+            batch = (next(loader) if loader is not None
+                     else batch_fn(counter.step))
+            args = tuple(batch) if isinstance(batch, (tuple, list)) \
+                else (batch,)
+            t0 = time.perf_counter()
+            loss = train_step(*args)
+            if not own:
+                _ledger_lib.get_ledger().settle_step()
+            if own_instruments is not None:
+                first = args[0]
+                own_instruments.record_step(
+                    batch=int(first.shape[0]) if hasattr(first, "shape")
+                    else 0, dispatch_s=time.perf_counter() - t0,
+                    loss=loss, timeline=basics._state.timeline)
+            done = counter.step
+            if on_step is not None:
+                on_step(done, float(loss))
+            if done % commit_every == 0 or done >= num_steps:
+                if done >= num_steps and hasattr(state, "checkpoint_every"):
+                    # the final commit reaches disk whatever the cadence,
+                    # which survives for a retry of this same state
+                    cadence = state.checkpoint_every
+                    state.checkpoint_every = 1
+                    try:
+                        state.commit()
+                    finally:
+                        state.checkpoint_every = cadence
+                else:
+                    state.commit()
+        state.flush()  # drain the async saves before leaving the loop
+        return loss
+
+    return _loop(elastic_state)

@@ -42,9 +42,10 @@ setup(
               "horovod_tpu.utils",
               # the PyTorch/CUDA port; its kernels build from csrc/ at
               # first use (horovod_tpu_torch/_build.py)
-              "horovod_tpu_torch", "horovod_tpu_torch.ckpt",
-              "horovod_tpu_torch.cluster",
+              "horovod_tpu_torch", "horovod_tpu_torch.chaos",
+              "horovod_tpu_torch.ckpt", "horovod_tpu_torch.cluster",
               "horovod_tpu_torch.data", "horovod_tpu_torch.diag",
+              "horovod_tpu_torch.elastic",
               "horovod_tpu_torch.examples",
               "horovod_tpu_torch.models", "horovod_tpu_torch.ops",
               "horovod_tpu_torch.parallel", "horovod_tpu_torch.run",

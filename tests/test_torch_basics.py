@@ -308,11 +308,11 @@ def test_init_under_the_reference_kv_store(tmp_path):
 
 # Names of horovod_tpu's top level that the port leaves out: JAX's and
 # optax's forms (DistributedOptimizer and distributed_value_and_grad stand
-# for them), and the planes not yet ported (ROADMAP.md Queue 1: elastic,
-# item 6; the fusion autotuner, item 5's remainder).
+# for them), and the plane not yet ported (ROADMAP.md Queue 1: the fusion
+# autotuner, item 5's remainder).
 JAX_ONLY = {"distributed_grad", "DistributedGradientTransform",
             "HorovodOptimizer", "compat"}
-NOT_PORTED = {"elastic", "autotune_fusion_threshold"}
+NOT_PORTED = {"autotune_fusion_threshold"}
 
 
 def test_namespace_covers_the_jax_package():

@@ -120,3 +120,57 @@ def test_phase_16_rehearsed(rehearsal, monkeypatch):
     hvd_t.shutdown()
     cs.phase_telemetry(hvd_t, fa, torch, bench, losses, losses_6b, tok_s,
                        "card")
+
+
+def test_phase_17_runs_through_main_after_the_kernel_phases():
+    """Phase 17 is called by ``main()`` after the kernel phases and phase
+    16, its workers run ``examples/elastic_train.py`` on the card
+    (``--device cuda``), its launches join the kernels line, and the
+    last line stays the device JSON."""
+    import ast
+    src = open(cs.__file__).read()
+    tree = ast.parse(src)
+    main = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name == "main"][0]
+    calls = [n.func.id for n in ast.walk(main) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name)]
+    assert "phase_elastic" in calls
+    for earlier in ("phase_kernels", "phase_slice_shape", "phase_full",
+                    "phase_telemetry"):
+        assert calls.index(earlier) < calls.index("phase_elastic"), earlier
+    assert "launches_17" in ast.unparse(main).split("kernels = []")[1]
+    assert cs.ELASTIC_DEVICE == "cuda" and cs.ELASTIC_STEP_SLEEP == 0.0
+    fn = ast.unparse([n for n in tree.body if isinstance(n, ast.FunctionDef)
+                      and n.name == "phase_elastic"][0])
+    assert "local_launch" in fn and "'--device', ELASTIC_DEVICE" in fn
+    last = main.body[-2]  # print(json.dumps({"ok": True, ...})); return 0
+    assert '"ok": True' in ast.unparse(last).replace("'", '"')
+    assert '"platform": "gpu"' in ast.unparse(last).replace("'", '"')
+
+
+def test_phase_17_rehearsed(rehearsal, monkeypatch):
+    """17a and 17b on the CPU at the tiny size: the workers run
+    ``examples/elastic_train.py --device cpu`` (fp32, so the reference
+    losses are the same LM's unbroken fp32 run in this process); a step
+    sleeps 0.5 s so the SIGTERM lands mid-run; the plain kernels launch
+    nothing, so the launch counts are not held. Every other hold passes:
+    the epochs, the blame and the drain, the losses bit for bit, the
+    force-commit inside the grace."""
+    import numpy as np
+
+    monkeypatch.setattr(cs, "ELASTIC_DEVICE", "cpu")
+    monkeypatch.setattr(cs, "ELASTIC_STEP_SLEEP", 0.5)
+    monkeypatch.setattr(cs, "EVICT_AFTER_S", 0.3)
+    monkeypatch.setattr(cs, "_worker_launches", lambda *a: None)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    hvd_t.init()
+    lm = cs.LM
+    step, _, _, _ = bench.make_lm_bench(
+        batch=lm["batch"], seq_len=lm["seq_len"], layers=lm["layers"],
+        d_model=lm["d_model"], heads=lm["heads"], vocab=lm["vocab"],
+        flash=True, dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, lm["vocab"], size=(lm["batch"], lm["seq_len"])).astype(
+            np.int64))
+    losses = [float(step(tokens)) for _ in range(cs.STEPS)]
+    cs.phase_elastic(hvd_t, torch, losses)

@@ -678,28 +678,82 @@ def _norm_batch(world):
             rng.integers(0, 3, size=(2 * world,)).astype(np.int32))
 
 
-def _norm_refs(model, rank_loss, world):
+def _norm_refs(model, rank_loss, world, wire_mean=None):
     """Plain autograd on a copy of ``model``: each rank's gradient of
     its local loss ``rank_loss(model, r)``, then ``(the norm of their
-    mean, the root-mean of their norms)``, in fp64."""
-    grads = []
+    mean, the root-mean of their norms)``, in fp64. With ``wire_mean``
+    the first is the norm of the mean a chunked wire delivers
+    (``wire_mean`` of the copies)."""
+    grads, copies = [], []
     for r in range(world):
         m = copy.deepcopy(model)
         for p in m.parameters():
             p.grad = None
         rank_loss(m, r).backward()
+        copies.append(m)
         grads.append(torch.cat([p.grad.reshape(-1).double()
                                 for p in m.parameters()]))
     mean = sum(grads) / world
-    return (float(mean.norm()),
+    exact = float(mean.norm()) if wire_mean is None else wire_mean(copies)
+    return (exact,
             float(torch.stack([g.norm() ** 2 for g in grads]).mean()
                   .sqrt()))
 
 
-def _norm_run(model, step, batch, spmd, rank_loss):
+def _wire_mean_norm(model, opt, schedules):
+    """The norm, in fp64, of the mean that the chunked wire of ``opt``
+    delivers over ``schedules`` (``(schedule, bucket)`` pairs over the
+    optimizer's packing order): each rank's ``[world, shard]`` rows
+    quantized and decoded, then averaged over the ranks; row ``j`` is
+    rank ``j``'s reduced shard. Plain autograd supplies each rank's
+    gradients."""
+    wire = opt.compression
+    index = {id(p): i for i, p in enumerate(model.parameters())}
+
+    def norm(copies):
+        total = 0.0
+        for sched, i in schedules:
+            shard = sched.shard_sizes[i]
+            q = wire.for_length(shard)
+            rows = []
+            for m in copies:
+                params = list(m.parameters())
+                leaves = [params[index[id(p)]].grad for p in opt.params]
+                flat = fusion.pack_padded(sched, i, leaves).float()
+                packed, scales = q.compress_flat(
+                    flat.reshape(sched.world, shard))
+                rows.append(q.decompress_flat(packed, scales,
+                                              torch.float32,
+                                              n=shard).double())
+            total += float((sum(rows) / len(rows)).square().sum())
+        return total ** 0.5
+    return norm
+
+
+def _island_schedules(opt, world, lm):
+    """The ``(schedule, bucket)`` pairs a chunked island reduce-scatters:
+    the overlapped step's schedule, or for the LM step the forward
+    buckets of ``fused_allreduce_``, one schedule each."""
+    if not lm:
+        sched = fusion.bucket_schedule(
+            opt.params, world, threshold_bytes=opt.threshold_bytes,
+            perms=opt.perms, axes=opt.axes)
+        return [(sched, i) for i in range(len(sched.buckets))]
+    out = []
+    for b in fusion.plan_buckets(opt.params,
+                                 fusion._threshold(opt.threshold_bytes),
+                                 perms=opt.perms):
+        size = sum(b.sizes)
+        out.append((fusion.BucketSchedule(
+            buckets=(b,), padded_sizes=(size + (-size) % world,),
+            world=world, axes=opt.reduce_axes()), 0))
+    return out
+
+
+def _norm_run(model, step, batch, spmd, rank_loss, wire_mean=None):
     got, refs = [], []
     for _ in range(NORM_STEPS):
-        refs.append(_norm_refs(model, rank_loss, hvd_t.size()))
+        refs.append(_norm_refs(model, rank_loss, hvd_t.size(), wire_mean))
         step(*batch) if spmd else step(*(_rows(b) for b in batch))
         got.append(step.instruments.grad_norm.value)
     return {"got": got, "refs": refs}
@@ -717,7 +771,15 @@ NORM_PATHS = {
     "lm": ({}, {}),
     "lm_spmd": (dict(spmd=True), {}),
     "lm_zero": ({}, dict(sharded_update=True)),
+    # the chunked wires' GSPMD islands: the norm of the mean the wire
+    # delivers (the reduce-scattered shards)
+    "spmd_int8": (dict(spmd=True, error_feedback=False),
+                  dict(compression="int8")),
+    "spmd_fp8": (dict(spmd=True, error_feedback=False),
+                 dict(compression="fp8_e4m3")),
+    "lm_spmd_int8": (dict(spmd=True), dict(compression="int8")),
 }
+NORM_WIRES = ("spmd_int8", "spmd_fp8", "lm_spmd_int8")
 # where the norm is the root-mean of the ranks' local norms (the JAX
 # definition where the step holds only local gradients), not the exact
 # norm of their mean
@@ -758,16 +820,19 @@ def grad_norms(mlp0, lm0):
         opt = hvd_t.DistributedOptimizer(
             inner, named_parameters=convert.flax_named_parameters(model),
             **opt_kw)
+        wire_mean = (_wire_mean_norm(model, opt, _island_schedules(
+            opt, world, name.startswith("lm")))
+            if name in NORM_WIRES else None)
         if name.startswith("lm"):
             step = training.make_lm_train_step(model, opt, telemetry=True,
                                                **step_kw)
             out[name] = _norm_run(model, step, (tokens,),
-                                  step_kw.get("spmd"), lm_loss)
+                                  step_kw.get("spmd"), lm_loss, wire_mean)
         else:
             step = training.make_train_step(model, opt, telemetry=True,
                                             **step_kw)
             out[name] = _norm_run(model, step, (x, y), step_kw.get("spmd"),
-                                  mlp_loss)
+                                  mlp_loss, wire_mean)
     return out
 
 
@@ -911,8 +976,8 @@ def _jax_lm(world):
 def _jax_norms(world):
     """JAX's ``hvd_grad_norm`` after each of 2 steps of the MLP (16, 3)
     under SGD(0.1, momentum 0.9) on ``world`` devices, on the GSPMD plain
-    DP step and the explicit overlapped step: the initial parameters and
-    ``{path: norms}``."""
+    DP step, the explicit overlapped step and the GSPMD step's int8 and
+    fp8 islands: the initial parameters and ``{path: norms}``."""
     hvd_j.shutdown()
     hvd_j.init(devices=jax.devices()[:world])
     try:
@@ -922,8 +987,14 @@ def _jax_norms(world):
         state0 = jtraining.create_train_state(model, tx,
                                               jax.random.PRNGKey(4), x[:1])
         norms = {}
-        for name, kw in (("spmd", dict(spmd=True)),
-                         ("overlap", dict(overlap_grads=True))):
+        for name, kw, wire in (
+                ("spmd", dict(spmd=True), None),
+                ("overlap", dict(overlap_grads=True), None),
+                ("spmd_int8", dict(spmd=True, error_feedback=False), "int8"),
+                ("spmd_fp8", dict(spmd=True, error_feedback=False),
+                 "fp8_e4m3")):
+            tx = hvd_j.DistributedOptimizer(optax.sgd(0.1, momentum=0.9),
+                                            compression=wire)
             step = jtraining.make_train_step(model, tx, donate=False,
                                              telemetry=True, **kw)
             state, norms[name] = state0, []

@@ -541,20 +541,111 @@ def test_failed_job_prints_the_doctors_report(tmp_path):
     assert "probable cause:" in rv.stderr
 
 
-REFUSED = [
-    (["--min-np", "1"], "--min-np", 6), (["--max-np", "4"], "--max-np", 6),
-    (["--host-discovery-script", "d.sh"], "--host-discovery-script", 6),
-    (["--chaos", "seed=1"], "--chaos", 6),
+# the rejections of the JAX package's test_cli_elastic_flag_validation
+# (tests/test_elastic.py:349-390); {script} is an executable discovery
+# script, {plain} a file that is not executable
+ELASTIC_REJECTS = [
+    ["--min-np", "4", "--max-np", "2"],
+    ["--min-np", "0"],
+    ["--min-np", "2", "-np", "1"],
+    ["--min-np", "1", "--max-np", "2", "-np", "3"],
+    ["--max-np", "2"],
+    ["--host-discovery-script", "/nonexistent-script", "--min-np", "1"],
+    ["--host-discovery-script", "{script}", "-H", "h1:2", "--min-np", "1"],
+    ["--host-discovery-script", "{plain}", "--min-np", "1"],
+    ["--spmd-procs", "2", "--min-np", "1"],
 ]
 
 
-@pytest.mark.parametrize("flags,flag,item", REFUSED)
-def test_refused_flags_exit_2_naming_their_item(capsys, flags, flag, item):
+def _discovery_files(tmp_path):
+    script = tmp_path / "d.sh"
+    script.write_text("#!/bin/sh\necho localhost:2\n")
+    script.chmod(0o755)
+    plain = tmp_path / "plain.txt"
+    plain.write_text("not a script")
+    return {"script": str(script), "plain": str(plain)}
+
+
+def _parse_error(parse, argv, capsys):
     with pytest.raises(SystemExit) as ei:
-        main(["-np", "2", *flags, "python", "x.py"])
+        parse(argv)
     assert ei.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and f"ROADMAP.md Queue 1 item {item}" in err
+    return capsys.readouterr().err.strip().splitlines()[-1].split(
+        "error: ", 1)[1]
+
+
+@pytest.mark.parametrize("flags", ELASTIC_REJECTS,
+                         ids=lambda f: " ".join(f))
+def test_elastic_flag_rejections_carry_the_jax_messages(capsys, tmp_path,
+                                                        flags):
+    """``_validate_elastic_args``: each bad combination exits 2 with the
+    JAX launcher's message, word for word (``--spmd-procs`` with the
+    elastic flags is refused by both, each naming its own mesh)."""
+    files = _discovery_files(tmp_path)
+    argv = [f.format(**files) for f in flags] + ["python", "t.py"]
+    got = _parse_error(parse_args, argv, capsys)
+    want = _parse_error(jparse_args, argv, capsys)
+    if flags[0] == "--spmd-procs":
+        assert got.startswith("--spmd-procs is fixed-size") and \
+            want.startswith("--spmd-procs is fixed-size")
+        assert got.endswith("drop the elastic flags")
+    else:
+        assert got == want
+
+
+def test_elastic_flags_accepted_as_jax_does(tmp_path):
+    files = _discovery_files(tmp_path)
+    for argv in (["--min-np", "1", "--max-np", "4", "-np", "2"],
+                 ["--min-np", "3"],
+                 ["--host-discovery-script", files["script"], "--min-np",
+                  "2"],
+                 ["-np", "2"]):
+        got = parse_args(argv + ["python", "t.py"])
+        want = jparse_args(argv + ["python", "t.py"])
+        assert (got.elastic, got.min_np, got.max_np, got.num_proc) == \
+            (want.elastic, want.min_np, want.max_np, want.num_proc), argv
+    ok = parse_args(["--min-np", "1", "--max-np", "4", "-np", "2",
+                     "python", "t.py"])
+    assert ok.elastic and (ok.min_np, ok.max_np, ok.num_proc) == (1, 4, 2)
+
+
+@pytest.mark.parametrize("spec", ["volume=11", "kinds=meteor", "",
+                                  "interval=0"])
+def test_malformed_chaos_spec_is_rejected_before_launch(capsys, spec):
+    assert _parse_error(parse_args, ["-np", "2", "--chaos", spec, "python",
+                                     "t.py"], capsys) == \
+        _parse_error(jparse_args, ["-np", "2", "--chaos", spec, "python",
+                                   "t.py"], capsys)
+
+
+def test_cli_elastic_smoke_local():
+    """hvdrun-torch with the elastic flags: one local worker, one epoch,
+    a clean exit."""
+    assert main(["--min-np", "1", "-np", "1", "--", sys.executable, "-c",
+                 "print('elastic-ok')"]) == 0
+
+
+def test_hvdrun_elastic_two_gloo_ranks(tmp_path):
+    """``hvdrun-torch --min-np 1 --max-np 2 -H localhost:2`` runs
+    ``examples/elastic_train.py`` on 2 gloo ranks under the elastic
+    driver: one epoch, world 2, every step's loss the one-rank unbroken
+    run's, bit for bit."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_torch_chaos import WIDTHS, _unbroken_losses
+    log = tmp_path / "losses.jsonl"
+    rv = _hvdrun("horovod_tpu_torch", [
+        "--min-np", "1", "--max-np", "2", "-H", "localhost:2", "--",
+        sys.executable, "-m", "horovod_tpu_torch.examples.elastic_train",
+        "--device", "cpu", *WIDTHS, "--steps", "3", "--ckpt-dir",
+        str(tmp_path / "ckpt"), "--log", str(log)], timeout=180,
+        OMP_NUM_THREADS="1")
+    assert rv.returncode == 0, rv.stdout + rv.stderr
+    records = [json.loads(x) for x in log.read_text().splitlines()]
+    done = [r for r in records if "done" in r]
+    assert done == [dict(done[0], done=3, resumed_from=0, world=2,
+                         epoch=1)]
+    assert [r["loss"] for r in records if "loss" in r] == \
+        _unbroken_losses(3)
 
 
 # (flags, -np the launch takes, the workers' process-mesh env): the JAX
