@@ -200,7 +200,31 @@ runs these phases; any failure raises:
   SIGTERM's eviction force-commits inside its grace, announces hostA and
   exits ``EXIT_RENDEZVOUS``; the driver drains hostA without blame and
   epoch 2 resumes on hostB: no blame, every logged loss phase 5's bit for
-  bit; the force-commit's ms against the grace, the recovery's seconds.
+  bit; the force-commit's ms against the grace, the recovery's seconds;
+* 18a: serving (``horovod_tpu_torch/serve``): phase 5's LM trained its 5
+  steps, saved as a sharded ``TrainState`` and loaded params-only
+  through ``serve.loader.load_params`` (bit for bit the trained model),
+  served by a ``ServeEngine`` on the card (paged KV pool of 1025 blocks
+  of 16 tokens, 8 slots, 2048 tokens a sequence, prefill chunk 256):
+  16 seeded requests of 128-1536 prompt tokens and 64 new tokens, a
+  pair sharing a 512-token prefix (the first prefilled alone, then the
+  second: a prefix-cache hit, then an exact resubmission of the first:
+  a copy-on-write fork, then the other 14), 2 sampled at temperature
+  0.8, top-p 0.9; driven by ``step()``: TTFT and inter-token p50/p99, decode and
+  prefill tokens/s, the cached-prefill fraction, ``time_breakdown``
+  within 2 % of the wall, peak memory, no flash kernel launched (the
+  serving path attends densely); every greedy token the argmax of the
+  teacher-forced oracle (the ordinary forward over prompt + generated)
+  or within one bf16 step of its top logit; each seeded stream bit for
+  bit alone as in the batch; a decode step with every slot busy, timed
+  and profiled (device work, idle share);
+* 18b: the 16 requests through a ``FleetRouter`` over two engines on
+  the card, half the pool each; one replica evicted mid-stream: nothing
+  dropped, at least one re-dispatch, every stream equal to 18a's; the
+  seconds the cut streams lost;
+* 18c: request 4 through ``ServeServer``'s ``/generate`` on 18a's
+  engine: the streamed tokens the engine's; ``/metrics``' serve counts
+  equal to what was served.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
@@ -289,6 +313,21 @@ PIPE_RANKS = 2
 # in one process each hold the dense part and its activations)
 TP_CKPT_RANKS = 2
 EP_BATCH = 4
+# phase 18: the serving plane on phase 5's LM: the KV pool (block 16,
+# 2048 tokens a sequence = 128 blocks, 8 slots, 1025 blocks incl. the
+# null block), the prefill chunk, and 18a's requests: prompts of
+# prompt_lo..prompt_hi tokens, `new` tokens each, a pair sharing a
+# `prefix`-token prefix, `sampled` of them at temperature / top_p
+SERVE = dict(block=16, max_seq_len=2048, slots=8, blocks=1025, chunk=256,
+             requests=16, new=64, prompt_lo=128, prompt_hi=1536, prefix=512,
+             sampled=2, temperature=0.8, top_p=0.9)
+# the greedy tokens' bound against the teacher-forced oracle: the top
+# logit, or within one bf16 step of it (2^-7 of the row's largest
+# |logit|): the decode path's matmuls and softmax run over other shapes
+# than the full forward's, so bf16 rounding can part near-tied logits
+SERVE_TIE = 2.0 ** -7
+
+
 # the JAX package's compressed-vs-exact contract (__graft_entry__.py
 # WIRE_EPSILON, WIRE_EPSILON_FLOOR): every step's loss within 5 %
 WIRE_EPSILON, WIRE_EPSILON_FLOOR = 0.05, 1e-3
@@ -3909,6 +3948,349 @@ def phase_elastic(hvd, torch, phase5_losses):
     return total
 
 
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+def _serve_requests(rng, vocab):
+    """18a's prompts (``SERVE``): request 0 and 1 share their first
+    ``prefix`` tokens and part at the next one, request 0 is block-aligned
+    (its exact resubmission forks its last shared block); requests 2 and
+    3 sample. Returns ``[(prompt, sampling_kw)]``."""
+    s = SERVE
+    lengths = rng.integers(s["prompt_lo"], s["prompt_hi"] + 1,
+                           size=s["requests"])
+    prompts = [rng.integers(0, vocab, size=int(n)).tolist() for n in lengths]
+    shared = prompts[0][:s["prefix"]]
+    n0 = max(s["prefix"] + s["block"],
+             len(prompts[0]) // s["block"] * s["block"])
+    prompts[0] = shared + rng.integers(
+        0, vocab, size=n0 - s["prefix"]).tolist()
+    tail = rng.integers(0, vocab, size=max(
+        1, len(prompts[1]) - s["prefix"])).tolist()
+    tail[0] = (prompts[0][s["prefix"]] + 1) % vocab
+    prompts[1] = shared + tail
+    out = []
+    for i, p in enumerate(prompts):
+        kw = {}
+        if 2 <= i < 2 + s["sampled"]:
+            kw = dict(temperature=s["temperature"], top_p=s["top_p"],
+                      seed=1000 + i)
+        out.append((p, kw))
+    return out
+
+
+def _teacher_forced(torch, model, prompt, generated):
+    """The rank of each greedy token under the port's ordinary forward
+    over prompt + generated (no cache): ``(exact, tolerated, worst)``,
+    worst the largest (top - chosen) / max|logit|; raises past the
+    tie bound."""
+    dev = model.lm_head.weight.device
+    with torch.no_grad():
+        logits = model(torch.tensor([prompt + generated[:-1]], device=dev))
+    logits = logits[0, len(prompt) - 1:].float()
+    chosen = logits.gather(1, torch.tensor(generated, device=dev)[:, None])
+    chosen = chosen[:, 0]
+    top = logits.max(dim=1).values
+    scale = logits.abs().max(dim=1).values
+    gap = ((top - chosen) / scale).cpu().numpy()
+    exact = int((gap == 0).sum())
+    if (gap > SERVE_TIE).any():
+        i = int(np.argmax(gap))
+        raise AssertionError(
+            f"18a: greedy token {i} ({generated[i]}) is {gap[i]:.4g} of "
+            f"max|logit| below the oracle's top, past {SERVE_TIE}")
+    return exact, len(generated) - exact, float(gap.max())
+
+
+def _op_count(torch, run):
+    """The aten operations ``run()`` dispatches (after autograd)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        run()
+    return Count.n
+
+
+def _drive_engine(eng, reqs):
+    while not all(r.state in ("done", "failed") for r in reqs):
+        eng.step()
+    bad = [r.id for r in reqs if r.state != "done"]
+    if bad:
+        raise AssertionError(f"requests failed: {bad}")
+
+
+def phase_serve(hvd, fa, torch, bench, card):
+    """18a-18c (module docstring): the serving plane on phase 5's LM,
+    its weights loaded from a manifest."""
+    import tempfile
+    import urllib.request as urlreq
+    from horovod_tpu_torch import ckpt, convert
+    from horovod_tpu_torch.serve import engine as engine_lib
+    from horovod_tpu_torch.serve import kvcache, loader
+    from horovod_tpu_torch.serve.fleet import FleetRouter
+    from horovod_tpu_torch.serve.sampling import SamplingParams
+    from horovod_tpu_torch.serve.server import ServeServer
+    from horovod_tpu_torch.telemetry.registry import MetricsRegistry
+    s = SERVE
+    print("== phase 18: serving phase 5's LM (paged KV, continuous "
+          "batching, fleet, HTTP)")
+    print(f"  {card}")
+    hvd.init()
+    dev = hvd.device()
+    step, model, opt, tokens = _lm_bench(bench, torch,
+                                         seq_len=LM["seq_len"])
+    for _ in range(STEPS):
+        step(tokens)
+    bench.sync()
+    cfg = model.cfg
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ckpt.save_sharded(root, STEPS, convert.train_state_to_flat(
+            model, opt, step.state), meta={"model_config": {
+                "vocab_size": cfg.vocab_size, "num_layers": cfg.num_layers,
+                "num_heads": cfg.num_heads, "d_model": cfg.d_model,
+                "d_ff": cfg.d_ff}})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded, params, meta = loader.load_params(
+            root, loader.abstract_params(model))
+        t_load = time.perf_counter() - t0
+    del opt, step, tokens
+    model.zero_grad(set_to_none=True)
+    _free(torch)
+    want = model.state_dict()
+    got = convert.params_from_flax(params, model)
+    for name, t in want.items():
+        if not torch.equal(got[name], t.detach().cpu()):
+            raise AssertionError(f"18: loaded {name} differs from the "
+                                 "trained parameter")
+    print(f"  weights: step {loaded} saved in {t_save:.2f} s, params-only "
+          f"load in {t_load:.2f} s, bit for bit the trained model "
+          f"(meta {meta['model_config']})")
+    mbps = -(-s["max_seq_len"] // s["block"])
+    kv = kvcache.KVCacheConfig(
+        num_blocks=s["blocks"], block_size=s["block"],
+        num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+        head_dim=cfg.d_model // cfg.num_heads, max_blocks_per_seq=mbps,
+        dtype=cfg.dtype)
+    print(f"  KV pool: {s['blocks']} blocks x {s['block']} tokens, "
+          f"{mbps} blocks a sequence, {s['slots']} slots, chunk "
+          f"{s['chunk']}: pool_bytes {kv.pool_bytes():,}")
+    reg = MetricsRegistry()
+    eng = engine_lib.ServeEngine(model, params, kv, device=dev,
+                                 max_slots=s["slots"],
+                                 prefill_chunk=s["chunk"], registry=reg,
+                                 weights_version=loaded)
+    specs = _serve_requests(np.random.default_rng(18), cfg.vocab_size)
+
+    def request(i, **kw):
+        p, skw = specs[i]
+        return engine_lib.Request(
+            p, s["new"], request_id=i,
+            sampling=SamplingParams(**skw) if skw else None, **kw)
+
+    # -- 18a: 16 requests, the pair's second after the first's prefill ---
+    served = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    first = eng.submit(request(0))
+    t_start = first.arrival
+    while first.state not in ("decode", "done"):
+        eng.step()
+    # once the first's prompt blocks are cached (and held by it): the
+    # pair's second request, the exact resubmission of the first (its
+    # last prompt block is shared and about to be written, so admission
+    # forks it), then the rest
+    reqs = [first] + [eng.submit(request(1))]
+    fork = eng.submit(engine_lib.Request(specs[0][0], s["new"],
+                                         request_id="fork"))
+    reqs += [eng.submit(request(i)) for i in range(2, s["requests"])]
+    _drive_engine(eng, reqs + [fork])
+    wall = eng._clock() - t_start
+    peak = torch.cuda.max_memory_allocated()
+    served += reqs + [fork]
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"18a: serving launched flash kernels "
+                             f"{launches} (decode and prefill attend "
+                             "densely)")
+    parts = eng.time_breakdown
+    attributed = sum(parts.values())
+    ttft = [r.first_token_time - r.arrival for r in reqs]
+    itl = [b - a for r in reqs for a, b in zip(r.token_times,
+                                               r.token_times[1:])]
+    n_decode = sum(len(r.generated) - 1 for r in served)
+    n_prefill = eng.prompt_tokens - eng.cached_prefill_tokens
+    print(f"  18a {len(reqs)} requests (+1 fork) of {s['new']} tokens, "
+          f"prompts {min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)}: wall {wall:.3f} s, "
+          f"{eng.dispatches['prefill']} prefill chunks, "
+          f"{eng.dispatches['decode']} decode steps, "
+          f"{eng.dispatches['fork']} fork(s)")
+    print(f"  18a TTFT p50 {1e3 * _pct(ttft, 50):.1f} ms p99 "
+          f"{1e3 * _pct(ttft, 99):.1f} ms; inter-token p50 "
+          f"{1e3 * _pct(itl, 50):.2f} ms p99 {1e3 * _pct(itl, 99):.2f} ms")
+    print(f"  18a decode {n_decode / parts['decode']:.1f} tokens/s, "
+          f"prefill {n_prefill / parts['prefill']:.1f} tokens/s; "
+          f"cached-prefill fraction "
+          f"{eng.cached_prefill_tokens / eng.prompt_tokens:.4f} "
+          f"({eng.cached_prefill_tokens} of {eng.prompt_tokens})")
+    rounded = {k: round(v, 4) for k, v in parts.items()}
+    print(f"  18a time_breakdown {rounded}, sum {attributed:.4f} s against "
+          f"wall {wall:.4f} s; peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  {card}")
+    if abs(attributed - wall) > 0.02 * wall:
+        raise AssertionError(f"18a: time_breakdown sums {attributed} s of "
+                             f"a {wall} s wall")
+    if reqs[1].cached_prompt_tokens != s["prefix"] or \
+            eng.dispatches["fork"] < 1:
+        raise AssertionError(f"18a: the prefix pair cached "
+                             f"{reqs[1].cached_prompt_tokens} tokens, "
+                             f"{eng.dispatches['fork']} forks")
+    exact = tolerated = 0
+    worst = 0.0
+    for r in served:
+        if r.sampling.temperature > 0:
+            continue
+        e, t, w = _teacher_forced(torch, model, r.prompt, r.generated)
+        exact, tolerated, worst = exact + e, tolerated + t, max(worst, w)
+    print(f"  18a greedy tokens against the teacher-forced oracle: {exact} "
+          f"its argmax, {tolerated} within one bf16 step of its top "
+          f"(largest gap {worst:.3g} of max|logit|)")
+    eng.prefix_cache.clear()
+    for r in reqs:
+        if r.sampling.temperature > 0:
+            alone = eng.submit(request(r.id))
+            _drive_engine(eng, [alone])
+            served.append(alone)
+            eng.prefix_cache.clear()
+            if alone.generated != r.generated:
+                raise AssertionError(f"18a: seeded request {r.id} alone "
+                                     f"{alone.generated} in the batch "
+                                     f"{r.generated}")
+    seeded = [r.id for r in reqs if r.sampling.temperature > 0]
+    print(f"  18a seeded streams {seeded} bit for bit alone as in the "
+          "batch")
+    streams = {r.id: r.generated for r in reqs}
+    # where a decode step's time goes: all slots decoding, 3 steps timed,
+    # then one under the profiler
+    busy = [eng.submit(engine_lib.Request(
+        specs[i][0][:s["chunk"]], 16, request_id=f"busy{i}"))
+        for i in range(s["slots"])]
+    while not all(r.state == "decode" for r in busy):
+        eng.step()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.step()
+        times.append(time.perf_counter() - t0)
+    decode_ms = 1e3 * float(np.median(times))
+    print(f"  18a a decode step with {s['slots']} slots busy: "
+          f"{[round(1e3 * t, 2) for t in times]} ms")
+    profile_step(torch, eng.step, decode_ms)
+    ops = _op_count(torch, eng.step)
+    print(f"  18a {ops} aten operations a decode step: "
+          f"{1e3 * decode_ms / ops:.1f} us of the step each")
+    _drive_engine(eng, busy)
+    served += busy
+
+    # -- 18b: two replicas on the card, half the pool each; one evicted --
+    half = kvcache.KVCacheConfig(
+        num_blocks=(s["blocks"] - 1) // 2 + 1, block_size=s["block"],
+        num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+        head_dim=cfg.d_model // cfg.num_heads, max_blocks_per_seq=mbps,
+        dtype=cfg.dtype)
+    freg = MetricsRegistry()
+    router = FleetRouter(registry=freg, grace=5.0)
+    for i in range(2):
+        router.add_replica(f"r{i}", engine_lib.ServeEngine(
+            model, params, half, device=dev, max_slots=s["slots"],
+            prefill_chunk=s["chunk"], registry=freg, name=f"r{i}",
+            weights_version=loaded), env={})
+    router.start()
+    try:
+        freqs = [router.generate(specs[i][0], s["new"], sampling=(
+            SamplingParams(**specs[i][1]) if specs[i][1] else None))
+            for i in range(s["requests"])]
+        deadline = time.monotonic() + 120
+        while not any(r.replica == "r0" and 0 < len(r.generated) < s["new"]
+                      for r in freqs):
+            if time.monotonic() > deadline:
+                raise AssertionError("18b: no stream in flight on r0")
+            time.sleep(0.001)
+        t_evict = time.monotonic()
+        router.evict("r0")
+        outs = [r.result(timeout=300) for r in freqs]
+    finally:
+        router.stop()
+    hopped = [r for r in freqs if r.hops]
+    lost = []
+    for r in hopped:
+        after = [t for t in r.token_times if t > t_evict]
+        before = [t for t in r.token_times if t <= t_evict]
+        if after and before:
+            lost.append(after[0] - before[-1])
+    print(f"  18b 2 replicas x {half.num_blocks} blocks "
+          f"({half.pool_bytes():,} bytes each): {router.redispatched} "
+          f"re-dispatch(es), {router.dropped} dropped; the cut streams "
+          f"lost {[round(x, 4) for x in lost]} s between their tokens "
+          f"around the eviction")
+    if router.dropped or not router.redispatched:
+        raise AssertionError(f"18b: dropped {router.dropped}, re-dispatched "
+                             f"{router.redispatched}")
+    for i, out in enumerate(outs):
+        if out != streams[i]:
+            raise AssertionError(f"18b: request {i} ({freqs[i].hops} "
+                                 f"hops) {out} against 18a's {streams[i]}")
+    print(f"  18b every stream ({len(outs)}, {len(hopped)} hopped) equals "
+          "18a's")
+
+    # -- 18c: one request over HTTP; /metrics against what was served ----
+    server = ServeServer(eng, port=0)
+    port = server.start()
+    eng.start()
+    try:
+        body = json.dumps({"tokens": specs[4][0],
+                           "max_new_tokens": s["new"]}).encode()
+        with urlreq.urlopen(urlreq.Request(
+                f"http://127.0.0.1:{port}/generate", data=body,
+                headers={"Content-Type": "application/json"}),
+                timeout=120) as resp:
+            lines = [json.loads(ln) for ln in resp]
+        _, scrape = _scrape(port, "/metrics")
+    finally:
+        server.stop()
+        eng.stop()
+    toks = [ln["token"] for ln in lines if "token" in ln]
+    if toks != streams[4] or lines[-1].get("tokens") != streams[4]:
+        raise AssertionError(f"18c: /generate streamed {toks}, the engine "
+                             f"{streams[4]}")
+    n_req = len(served) + 1
+    n_tok = sum(len(r.generated) for r in served) + len(toks)
+    got = (_metric(scrape, "hvd_serve_tokens_total"),
+           _metric(scrape, "hvd_serve_requests_total",
+                   'event="completed"'),
+           _metric(scrape, "hvd_serve_ttft_seconds_count"))
+    if got != (n_tok, n_req, n_req):
+        raise AssertionError(f"18c: /metrics tokens, completed, TTFT count "
+                             f"{got}, served {(n_tok, n_req, n_req)}")
+    print(f"  18c /generate streamed request 4's {len(toks)} tokens as the "
+          f"engine did; /metrics counts {n_tok} tokens, {n_req} completed "
+          "requests, as served")
+    del eng, model, params
+    _free(torch)
+    hvd.shutdown()
+
+
 def _grad_norm_check(name, torch, step, opt):
     """The step's last ``hvd_grad_norm`` against an fp64 norm of the
     gradients it left in ``.grad``: with plain data parallelism those
@@ -4138,6 +4520,10 @@ def main(argv=None):
     t17 = time.perf_counter()
     launches_17 = phase_elastic(hvd, torch, losses)
     print(f"== phase 17 took {time.perf_counter() - t17:.1f} s")
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    phase_serve(hvd, fa, torch, bench, card)
+    print(f"== phase 18 took {time.perf_counter() - t18:.1f} s")
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):

@@ -141,6 +141,43 @@ def read_manifest(root, step):
         return json.load(f)
 
 
+def manifest_path(root, step):
+    return os.path.join(step_dir(root, step), MANIFEST_NAME)
+
+
+def manifest_mtime(root, step):
+    """mtime of a step's committed MANIFEST, or ``None`` when the step
+    dir is manifest-less (torn/in-flight — it never happened). A pure
+    ``stat``: cheap enough to poll."""
+    try:
+        return os.path.getmtime(manifest_path(root, step))
+    except OSError:
+        return None
+
+
+def complete_manifests(root):
+    """Stat-only probe: ``[(step, manifest_mtime), ...]`` for every
+    manifest-complete step under ``root``, ascending by step — no shard is
+    opened, so watchers can poll it often. Torn (manifest-less) dirs are
+    invisible, as for the loaders. The mtime tells a RE-commit of the same
+    step number (fallback-restore step numbering can run backwards) from
+    nothing new, and is the recency key a rolling-reload watcher ranks by
+    when the highest-numbered step is unloadable (``serve/loader.py``)."""
+    out = []
+    for s in _step_dirs(root):
+        mt = manifest_mtime(root, s)
+        if mt is not None:
+            out.append((s, mt))
+    return out
+
+
+def latest_manifest(root):
+    """Cheap newest-complete probe: ``(step, manifest_mtime)`` of the
+    newest (by step number) manifest-complete step, or ``None``."""
+    probes = complete_manifests(root)
+    return probes[-1] if probes else None
+
+
 # -- the commit -------------------------------------------------------------
 
 def write_ok(root, step, rank, world, crc32, nbytes):

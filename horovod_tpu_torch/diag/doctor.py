@@ -3,12 +3,11 @@ hang report.
 
     hvdrun --doctor <logdir>            (python -m horovod_tpu_torch.run)
     python -m horovod_tpu_torch.diag.doctor <logdir>
-    python -m horovod_tpu_torch.diag.doctor perf|xray <dir>
+    python -m horovod_tpu_torch.diag.doctor perf|serve|xray <dir>
 
 The port of ``horovod_tpu/diag/doctor.py``, the same code: it reads the
 dumps of either package (one schema), and its ``--json`` report is the
-JAX doctor's on the same dumps. Of its routes, ``serve`` waits for the
-serving plane (ROADMAP item 7) and raises ``NotImplementedError``.
+JAX doctor's on the same dumps.
 
 The doctor answers, from dumps alone (no live processes needed): which
 ranks never dumped (hard-killed — SIGKILL and OOM leave no black box),
@@ -425,11 +424,8 @@ def _perf_main(argv):
 
 
 def _serve_main(argv):
-    raise NotImplementedError(
-        "hvd-doctor serve reads the serving plane's request dumps, which "
-        "the port does not have yet (ROADMAP item 7: serve); run the JAX "
-        "package's doctor (horovod_tpu/diag/serve_doctor.py) on a JAX "
-        "server's dumps")
+    from horovod_tpu_torch.diag import serve_doctor
+    return serve_doctor.main(argv)
 
 
 def _xray_main(argv):

@@ -1,6 +1,7 @@
-"""Decoder-only Transformer: the port of ``horovod_tpu/models/transformer.py``
-(its non-cache branch), with its MoE blocks and the tensor- and
-expert-parallel layouts of ``horovod_tpu/parallel/tensor.py``.
+"""Decoder-only Transformer: the port of ``horovod_tpu/models/transformer.py``,
+with its MoE blocks, its incremental-decode branch (``kv_cache=``, the
+serving plane's) and the tensor- and expert-parallel layouts of
+``horovod_tpu/parallel/tensor.py``.
 
 Pre-RMSNorm blocks, rotary position embeddings, a tanh-GELU MLP (or, in
 every ``moe_every``-th block, 1-based, a top-k mixture of experts,
@@ -24,6 +25,15 @@ projection through ``copy_to`` and the row-parallel partial results leave
 through ``reduce_from``, so ``forward`` returns this shard's block of the
 vocabulary's logits. On axes of one rank every operator is the identity
 and the computation is the unsharded one.
+
+**Incremental decode** (``Transformer.forward(tokens, positions=,
+kv_cache=)``, ``horovod_tpu_torch/serve/``): the fed tokens at their
+absolute positions attend densely over the cached context ++ themselves,
+and their (post-rotary) K/V come back for the caller's paged pool. Pad
+context slots carry a position past every real one, so the
+absolute-position causal mask gives them scores of exactly -inf and
+probabilities of exactly 0. Training's ``forward(tokens)`` is untouched by
+the branch. One set of parameters serves both modes.
 
 Parameter layouts are PyTorch's (``nn.Linear`` weights are [out, in]; the
 MoE's expert weights keep flax's ``[E, d, f]``); ``convert.py`` maps them
@@ -179,7 +189,13 @@ class Attention(nn.Module):
         self.value = _lecun_linear(d, d, generator)
         self.out = _lecun_linear(d, d, generator)
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, cache=None):
+        """With ``cache=(ck, cv, ctx_positions)`` (the context's K/V,
+        ``[B, S_ctx, H, D]``, and its absolute positions ``[B, S_ctx]``)
+        the decode step: returns ``(out, (k, v))``, the fed tokens' K/V
+        after the rotary embedding. Always the dense path: a decode step
+        feeds one token or one prefill chunk (``fa.kernel_supported``
+        routes one query out of the kernels too)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h = self.query.weight.shape[0] // (cfg.d_model // cfg.num_heads)
@@ -191,6 +207,16 @@ class Attention(nn.Module):
         q = _rotary(proj(self.query), positions)
         k = _rotary(proj(self.key), positions)
         v = proj(self.value)
+        if cache is not None:
+            ck, cv, ctx_positions = cache
+            out = dense_attention(
+                q, torch.cat([ck.to(k.dtype), k], dim=1),
+                torch.cat([cv.to(v.dtype), v], dim=1), causal=cfg.causal,
+                q_positions=positions,
+                kv_positions=torch.cat(
+                    [ctx_positions.to(positions.dtype), positions], dim=1))
+            return F.linear(out.reshape(b, s, -1), self.out.weight.to(dt)), \
+                (k, v)
         if cfg.sequence_axis is not None and cfg.flash_attention:
             # the kernels per rotated K/V block, merged by lse; they mask
             # by the contiguous positions the ring computes
@@ -340,8 +366,63 @@ class Transformer(nn.Module):
         if device is not None:
             self.to(device)
 
-    def forward(self, tokens):
+    def forward(self, tokens, positions=None, kv_cache=None):
+        """Training's forward: ``tokens`` -> fp32 logits. With ``kv_cache``
+        the incremental decode step (``decode_forward``)."""
+        if kv_cache is not None:
+            return decode_forward(self, tokens, positions, kv_cache)
+        if positions is not None:
+            raise NotImplementedError(
+                "explicit positions are taken by the incremental decode "
+                "branch (kv_cache=); training's forward computes its own")
         return forward_shards([self], [tokens], _axes_of(self))[0]
+
+
+def decode_forward(model, tokens, positions, kv_cache):
+    """The incremental decode step of the JAX ``Transformer(...,
+    kv_cache=)``: ``tokens`` ``[B, S_q]`` at the absolute ``positions``
+    ``[B, S_q]``; ``kv_cache`` is ``(ctx_k, ctx_v, ctx_positions)``, where
+    ``ctx_k[i]``/``ctx_v[i]`` is layer ``i``'s context ``[B, S_ctx, H, D]``
+    (a stacked ``[L, B, S_ctx, H, D]`` tensor, or any object indexed by
+    layer: the engine gathers each layer from the paged pool as the loop
+    reaches it) and ``ctx_positions`` ``[B, S_ctx]`` their positions (pad
+    slots past every real one). Returns ``(fp32 logits [B, S_q, vocab],
+    (new_k, new_v))``, the fed tokens' K/V stacked ``[L, B, S_q, H, D]``
+    for the caller's cache writes."""
+    cfg = model.cfg
+    if cfg.sequence_axis is not None:
+        raise ValueError(
+            "incremental decode composes with a paged cache, not ring "
+            "attention — build the serving model with sequence_axis=None")
+    if not cfg.causal:
+        raise ValueError("incremental decode requires causal attention "
+                         "(cfg.causal=True)")
+    if positions is None:
+        raise ValueError("incremental decode needs explicit absolute "
+                         "positions for the fed tokens")
+    if model.shard is not None:
+        raise NotImplementedError("incremental decode runs the unsharded "
+                                  "model")
+    ctx_k, ctx_v, ctx_positions = kv_cache
+    axes = single_axes()
+    x = F.embedding(tokens, model.embed.weight).to(cfg.dtype)
+    new_ks, new_vs = [], []
+    for i, blk in enumerate(model.blocks):
+        attn, (k, v) = blk.attn(blk.norm1(x), positions,
+                                cache=(ctx_k[i], ctx_v[i], ctx_positions))
+        x = x + attn
+        y = blk.norm2(x)
+        if blk.use_moe:
+            from horovod_tpu_torch.models.moe import moe_shards
+            y = moe_shards([blk.moe], [y.reshape(-1, y.shape[-1])],
+                           axes.expert, axes.batch)[0].reshape(y.shape)
+        else:
+            y = blk.mlp(y)
+        x = x + y
+        new_ks.append(k)
+        new_vs.append(v)
+    logits = F.linear(model.norm(x), model.lm_head.weight.to(cfg.dtype))
+    return logits.float(), (torch.stack(new_ks), torch.stack(new_vs))
 
 
 def forward_shards(models, tokens, axes):

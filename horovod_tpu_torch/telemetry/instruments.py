@@ -2,9 +2,9 @@
 
 The port of ``horovod_tpu/telemetry/instruments.py``: the same metric
 names (``hvd_*``, with ``LEGACY_ALIASES``), help texts and label sets,
-so one dashboard reads both packages' ranks. Left out until ROADMAP
-item 7 ports the server: ``ServeInstruments`` and the ``hvd_serve_*``
-family. What differs, and why:
+so one dashboard reads both packages' ranks, the serving plane's
+``hvd_serve_*`` family (``ServeInstruments``) included. What differs,
+and why:
 
 * ``hvd_build_info`` labels a rank with torch's version, CUDA's and the
   device's name (``version``, ``torch``, ``cuda``, ``device``,
@@ -81,6 +81,18 @@ DATA_QUEUE_DEPTH = "hvd_data_queue_depth"
 DATA_BYTES_STAGED = "hvd_data_bytes_staged_total"
 DATA_BATCHES = "hvd_data_batches_total"
 DATA_LOAD_SECONDS = "hvd_data_load_seconds"
+# -- serving plane (horovod_tpu_torch/serve) --------------------------------
+SERVE_REQUESTS = "hvd_serve_requests_total"
+SERVE_TOKENS = "hvd_serve_tokens_total"
+SERVE_QUEUE_DEPTH = "hvd_serve_queue_depth"
+SERVE_KV_BLOCKS = "hvd_serve_kv_blocks_in_use"
+SERVE_TTFT_SECONDS = "hvd_serve_ttft_seconds"
+SERVE_TTFT_ADMISSION_SECONDS = "hvd_serve_ttft_admission_seconds"
+SERVE_INTER_TOKEN_SECONDS = "hvd_serve_inter_token_seconds"
+SERVE_CACHED_PREFILL_TOKENS = "hvd_serve_cached_prefill_tokens_total"
+SERVE_REPLICAS = "hvd_serve_replicas"
+SERVE_REDISPATCH_TOTAL = "hvd_serve_redispatch_total"
+SERVE_WEIGHT_SWAP_SECONDS = "hvd_serve_weight_swap_seconds"
 # -- goodput ledger (telemetry/ledger.py, docs/OBSERVABILITY.md) ------------
 TIME_SECONDS = "hvd_time_seconds_total"
 GOODPUT_RATIO = "hvd_goodput_ratio"
@@ -119,8 +131,7 @@ LEGACY_ALIASES = {
 }
 
 # every metric the port registers, in catalogue order: the JAX package's
-# catalogue less the serve family (tests/test_torch_telemetry.py holds
-# the two together)
+# catalogue (tests/test_torch_telemetry.py holds the two together)
 CATALOGUE = (
     STEP_TOTAL, STEP_SECONDS, STEP_DISPATCH_SECONDS, MICROBATCH_SECONDS,
     EXAMPLES_TOTAL, EXAMPLES_PER_SEC, LOSS, GRAD_NORM,
@@ -135,6 +146,11 @@ CATALOGUE = (
     CKPT_INFLIGHT,
     DATA_WAIT_SECONDS, DATA_LOAD_SECONDS, DATA_QUEUE_DEPTH,
     DATA_BYTES_STAGED, DATA_BATCHES,
+    SERVE_REQUESTS, SERVE_TOKENS, SERVE_QUEUE_DEPTH, SERVE_KV_BLOCKS,
+    SERVE_TTFT_SECONDS, SERVE_TTFT_ADMISSION_SECONDS,
+    SERVE_INTER_TOKEN_SECONDS,
+    SERVE_CACHED_PREFILL_TOKENS, SERVE_REPLICAS,
+    SERVE_REDISPATCH_TOTAL, SERVE_WEIGHT_SWAP_SECONDS,
     TIME_SECONDS, GOODPUT_RATIO,
     XRAY_DEVICE_SECONDS, XRAY_BUCKETED_FRACTION,
     XRAY_EXPOSED_SECONDS, XRAY_COLLECTIVE_GBPS,
@@ -499,6 +515,102 @@ class DataInstruments:
 
 def data_instruments(registry=None):
     return DataInstruments(registry)
+
+
+class ServeInstruments:
+    """The inference server's request-level instruments: request
+    lifecycle counts by event, generated-token throughput, scheduler
+    queue depth, paged-KV pool occupancy, prefix-cache hits, and the two
+    latencies a serving SLO is written against — time-to-first-token
+    (arrival -> first streamed token: queueing + prefill) and inter-token
+    latency (the steady-state decode cadence).
+
+    ``replica`` labels the per-engine GAUGES (queue depth, KV
+    occupancy): a fleet's replicas share one registry, and unlabeled
+    gauges would clobber each other on every scheduler tick. Counters
+    and histograms stay fleet-wide families."""
+
+    def __init__(self, registry=None, replica="default"):
+        r = registry if registry is not None else get_registry()
+        self.registry = r
+        self.replica = str(replica)
+        self._requests = r.counter(
+            SERVE_REQUESTS,
+            "Generate requests by lifecycle event (submitted / "
+            "completed / failed)", label_names=("event",))
+        self.submitted = self._requests.labels("submitted")
+        self.completed = self._requests.labels("completed")
+        self.failed = self._requests.labels("failed")
+        self.tokens = r.counter(
+            SERVE_TOKENS, "Tokens generated and streamed to clients")
+        self.cached_prefill_tokens = r.counter(
+            SERVE_CACHED_PREFILL_TOKENS,
+            "Prompt tokens whose prefill was skipped via prefix-cache "
+            "block reuse (kvcache.PrefixCache)")
+        self.queue_depth = r.gauge(
+            SERVE_QUEUE_DEPTH,
+            "Requests admitted-pending (queued behind KV blocks or "
+            "batch slots), per engine replica",
+            label_names=("replica",)).labels(self.replica)
+        self.kv_blocks = r.gauge(
+            SERVE_KV_BLOCKS, "Paged-KV pool blocks currently allocated "
+            "to live sequences, per engine replica",
+            label_names=("replica",)).labels(self.replica)
+        self.ttft_seconds = r.histogram(
+            SERVE_TTFT_SECONDS,
+            "Time to first token: request arrival -> first streamed "
+            "token (queueing + prefill)")
+        self.ttft_admission_seconds = r.histogram(
+            SERVE_TTFT_ADMISSION_SECONDS,
+            "Time to first token from KV admission -> first streamed "
+            "token (prefill only; the arrival-based histogram folds "
+            "queue wait in, this one separates it)")
+        self.inter_token_seconds = r.histogram(
+            SERVE_INTER_TOKEN_SECONDS,
+            "Gap between successive streamed tokens of one request "
+            "(steady-state decode cadence)",
+            buckets=(.001, .0025, .005, .01, .025, .05, .1, .25, .5,
+                     1.0, 2.5))
+        self.weight_swap_seconds = serve_weight_swap_histogram(r)
+
+
+def serve_instruments(registry=None, replica="default"):
+    return ServeInstruments(registry, replica=replica)
+
+
+def serve_replicas_gauge(registry=None):
+    """The one declaration of ``hvd_serve_replicas`` — fleet replica
+    counts by state (``ready`` / ``draining`` / ``dead``), recorded by
+    the fleet router (serve/fleet/router.py)."""
+    r = registry if registry is not None else get_registry()
+    return r.gauge(SERVE_REPLICAS,
+                   "Serve-fleet replicas by state (ready / draining / "
+                   "dead)", label_names=("state",))
+
+
+def serve_redispatch_counter(registry=None):
+    """The one declaration of ``hvd_serve_redispatch_total`` — streams
+    cut by a replica eviction and continued on a survivor
+    (serve/fleet/router.py zero-drop re-dispatch hops)."""
+    r = registry if registry is not None else get_registry()
+    return r.counter(
+        SERVE_REDISPATCH_TOTAL,
+        "Streams cut mid-generation and re-dispatched onto a surviving "
+        "replica (each count is one hop)")
+
+
+def serve_weight_swap_histogram(registry=None):
+    """The one declaration of ``hvd_serve_weight_swap_seconds``, shared
+    by the engine (in-step staged-swap application) and the router (the
+    per-replica drain -> stage -> swap -> ready rolling-reload window) so
+    both record into one family."""
+    r = registry if registry is not None else get_registry()
+    return r.histogram(
+        SERVE_WEIGHT_SWAP_SECONDS,
+        "Weight-swap stall windows: engine in-step staged-swap "
+        "application and router per-replica rolling-reload "
+        "(drain -> stage -> swap -> ready)",
+        buckets=(.001, .005, .01, .05, .1, .5, 1.0, 5.0, 15.0, 60.0))
 
 
 def build_info_labels(config=None):

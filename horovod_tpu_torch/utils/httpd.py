@@ -4,8 +4,8 @@
 In the JAX package two subsystems serve HTTP from a daemon
 ``ThreadingHTTPServer``: the per-rank telemetry plane
 (``telemetry/server.py`` — /metrics, /healthz, /flightrec, /profile) and
-the serving frontend (``serve/server.py`` — streaming /generate; not
-ported yet, ROADMAP item 7). Both need the same boilerplate — a quiet handler
+the serving frontends (``serve/server.py``, ``serve/fleet/frontend.py``
+— streaming /generate). Both need the same boilerplate — a quiet handler
 base with a content-length'd ``_respond``, an ephemeral-port-capable
 bind, a named daemon serve thread, and an idempotent stop that joins —
 and ``run/rendezvous.py`` already grew a third hand-rolled copy for the
@@ -16,7 +16,7 @@ two service planes build on.
 Port-collision policy stays with the caller: :meth:`HttpService.start`
 raises the bind ``OSError`` untouched — ``runtime/services.py`` logs and
 runs without a scrape plane, ``hvdrun`` pre-validates its
-``--metrics-port`` fan-out, and ``bin/hvd-serve`` treats a taken port as
+``--metrics-port`` fan-out, and ``hvd-serve-torch`` treats a taken port as
 fatal. One mechanism, three policies.
 """
 

@@ -49,7 +49,9 @@ setup(
               "horovod_tpu_torch.examples",
               "horovod_tpu_torch.models", "horovod_tpu_torch.ops",
               "horovod_tpu_torch.parallel", "horovod_tpu_torch.run",
-              "horovod_tpu_torch.runtime", "horovod_tpu_torch.telemetry",
+              "horovod_tpu_torch.runtime", "horovod_tpu_torch.serve",
+              "horovod_tpu_torch.serve.fleet",
+              "horovod_tpu_torch.telemetry",
               "horovod_tpu_torch.utils"],
     package_data={"horovod_tpu": ["lib/libhvdcore.so"],
                   "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
@@ -67,6 +69,7 @@ setup(
             "hvd-doctor = horovod_tpu.diag.doctor:doctor_cli",
             "hvd-lint = horovod_tpu.analysis.cli:main",
             "hvd-serve = horovod_tpu.serve.cli:main",
+            "hvd-serve-torch = horovod_tpu_torch.serve.cli:main",
         ],
     },
     cmdclass={"build_py": BuildWithNativeCore},

@@ -174,3 +174,40 @@ def test_phase_17_rehearsed(rehearsal, monkeypatch):
             np.int64))
     losses = [float(step(tokens)) for _ in range(cs.STEPS)]
     cs.phase_elastic(hvd_t, torch, losses)
+
+
+def test_phase_18_runs_through_main_after_phase_17():
+    """Phase 18 is called by ``main()`` after phase 17 (the kernels line
+    and the last line stay as they were)."""
+    import ast
+    tree = ast.parse(open(cs.__file__).read())
+    main = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name == "main"][0]
+    calls = [n.func.id for n in ast.walk(main) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name)]
+    assert calls.index("phase_elastic") < calls.index("phase_serve")
+    assert calls.index("phase_serve") < calls.index("print", calls.index(
+        "phase_serve"))
+    assert cs.SERVE["blocks"] == 1025 and cs.SERVE["chunk"] == 256
+    assert cs.SERVE["prefix"] % cs.SERVE["chunk"] == 0
+
+
+def test_phase_18_rehearsed(rehearsal, monkeypatch):
+    """18a-18c on the CPU at the tiny size (pool of 65 blocks of 4
+    tokens, 4 slots, chunk 8, prompts of 8-40 tokens, 8 new, a 16-token
+    shared prefix): every hold passes as on the card — the load bit for
+    bit, the prefix hit and the fork, the attribution within 2 % of the
+    wall, the greedy tokens against the teacher-forced oracle, the
+    seeded streams alone, the fleet's eviction with every stream 18a's,
+    ``/generate`` and ``/metrics``."""
+    for key, value in dict(block=4, max_seq_len=64, slots=4, blocks=65,
+                           chunk=8, new=8, prompt_lo=8, prompt_hi=40,
+                           prefix=16).items():
+        monkeypatch.setitem(cs.SERVE, key, value)
+    monkeypatch.setattr(cs, "profile_step", lambda *a, **k: {})
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cs.phase_serve(hvd_t, fa, torch, bench, "card")
+    finally:
+        torch.set_num_threads(n)

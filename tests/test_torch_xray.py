@@ -304,8 +304,20 @@ def test_doctor_xray_on_raw_capture_and_summaries(tmp_path, capsys):
     reread = json.loads(capsys.readouterr().out)
     assert reread["verdict"] == "compute-bound" and reread["rank"] == 3
     assert xray_doctor.main([str(tmp_path / "nothing")]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        doctor_cli(["serve", str(tmp_path)])
+    # the serve route reads the serving plane's request dumps
+    from horovod_tpu_torch.serve.tracing import RequestTrace, ServeTracer
+    tracer = ServeTracer(sample=1.0, out_dir=str(tmp_path / "serve"))
+    tr = RequestTrace("r-1", clock=lambda: 0.0)
+    tr.phase(0.0, "queued")
+    tr.span("prefill", 0.5, 1.0, actor="default")
+    tr.phase(1.0, "decoding")
+    tracer.finish(tr, end=2.0)
+    tracer.close()
+    capsys.readouterr()
+    assert doctor_cli(["serve", str(tmp_path / "serve"), "--json"]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["requests"] == 1 and report["verdict"] == "decode_batch_dilation"
+    assert doctor_cli(["serve", str(tmp_path / "nothing")]) == 2
 
 
 # -- a real CPU capture of the GSPMD LM step -----------------------------------
