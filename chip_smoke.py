@@ -224,13 +224,25 @@ runs these phases; any failure raises:
   seconds the cut streams lost;
 * 18c: request 4 through ``ServeServer``'s ``/generate`` on 18a's
   engine: the streamed tokens the engine's; ``/metrics``' serve counts
-  equal to what was served.
+  equal to what was served;
+* 19a: ``utils.benchmarks.slope_window`` (iters 4, 3 rounds) over phase
+  5's LM step: the slope's time a step beside phase 5's median from the
+  host clock (an upper bound fails), the launches once a layer and step;
+  K1 at the main shape through the slope window beside 3b's CUDA-event
+  time (reported);
+* 19b: ``autotune_fusion_threshold`` over the step's gradients with the
+  wires none, bf16 and int8 at world 1 on NCCL: ``(None, {})`` with the
+  JAX package's reason, word for word, and the config as it was;
+* 19c: in a subprocess, ``python -m horovod_tpu_torch.analysis.cli``
+  over the port's tree (exit 0) and ``python -m
+  horovod_tpu_torch.telemetry.trend`` over the repo's rounds (exit code
+  and rows printed), neither importing ``jax`` nor ``horovod_tpu``.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
 
-Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b, 11b, 12b, 12c, 14a-14c and 15
-each
+Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b, 11b, 12b, 12c, 14a-14c, 15 and
+19a each
 count the kernels' launches from 0 on the card and must launch each
 kernel once per layer, shard, microbatch and step (13a and 13b as their
 schedules say); 9a's and 17's workers count their own. The last line of output is
@@ -239,8 +251,9 @@ schedules say); 9a's and 17's workers count their own. The last line of output i
 
 and the line before it a JSON object with each kernel's launches on the
 main paths (phase 5, 11b's two runs, 12b, 12c, phase 13's seven
-runs, 14a, phase 15's and phase 16's runs, each counted from 0, and
-phase 17's workers, each counting its own from its first step),
+runs, 14a, phase 15's and phase 16's runs and 19a's windows, each
+counted from 0, and phase 17's workers, each counting its own from its
+first step),
 error
 against its plain version, time, plain time, bound and library time. After the timed steps of phases 5, 6b and 15a one
 more step runs under ``torch.profiler`` for the device's busy share and
@@ -326,6 +339,17 @@ SERVE = dict(block=16, max_seq_len=2048, slots=8, blocks=1025, chunk=256,
 # |logit|): the decode path's matmuls and softmax run over other shapes
 # than the full forward's, so bf16 rounding can part near-tied logits
 SERVE_TIE = 2.0 ** -7
+# phase 19: the slope window over phase 5's step (iters, rounds) and over
+# K1 at the main shape; 19b's wire grid; the JAX package's reason for a
+# world of 1 over the default axes, word for word (ops/fusion.py:639);
+# 19c's lint targets (None: the port's default surface)
+SLOPE = dict(iters=4, rounds=3)
+K1_SLOPE_ITERS = 64
+TUNE_WIRES = ["none", "bf16", "int8"]
+WORLD_ONE_REASON = ("world size 1 over axes ('data',): the fused "
+                    "collectives are local no-ops, so threshold timings "
+                    "carry no signal")
+LINT_TARGETS = None
 
 
 # the JAX package's compressed-vs-exact contract (__graft_entry__.py
@@ -369,12 +393,21 @@ TILE = slice(1024, 1088)
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def card_line():
+def _smi(fields):
+    """``nvidia-smi``'s reading of ``fields`` on the first card."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line():
+    return _smi("name,power.limit")
+
+
+def clocks_line():
+    """The card's SM clock, power draw and temperature now."""
+    return _smi("clocks.sm,power.draw,temperature.gpu")
 
 
 def _rand(shape, dtype, gen, device):
@@ -4291,6 +4324,147 @@ def phase_serve(hvd, fa, torch, bench, card):
     hvd.shutdown()
 
 
+def phase_timer_tuner(hvd, fa, torch, dev, bench, rows, phase5_tok_s):
+    """19a: the slope-window timer over phase 5's LM step and over K1 at
+    the main shape; 19b: the fusion autotuner over the step's gradients
+    at world 1. Returns 19a's launches of the LM step."""
+    from horovod_tpu_torch import basics
+    print(f"== phase 19a: slope_window (iters {SLOPE['iters']}, "
+          f"{SLOPE['rounds']} rounds) over phase 5's LM step, and over K1")
+    hvd.init()
+    step, model, opt, tokens = _lm_bench(bench, torch, seq_len=LM["seq_len"])
+    step(tokens)  # the first step's warm-up, outside the windows
+    bench.sync()
+
+    def lm_once(n):
+        return n + 1, step(tokens)
+
+    fa.reset_launches()
+    print(f"  19a card before the window (SM clock, power, temperature): "
+          f"{clocks_line()}")
+    dt, steps = bench.slope_window(lm_once, 0, SLOPE["iters"],
+                                   rounds=SLOPE["rounds"])
+    print(f"  19a card after the window: {clocks_line()}")
+    _want_launches(fa, "19a", LM["layers"] * steps)
+    launches = dict(fa.LAUNCHES)
+    slope_ms = 1e3 * float(dt) / SLOPE["iters"]
+    host_ms = LM["batch"] * LM["seq_len"] / phase5_tok_s * 1e3
+    print(f"  19a {steps} steps: slope {slope_ms:.2f} ms a step against "
+          f"phase 5's host-clock median {host_ms:.2f} ms "
+          f"({slope_ms / host_ms:.3f}x); upper_bound {dt.upper_bound}, "
+          f"asymmetric {dt.asymmetric}")
+    if dt.upper_bound:
+        raise AssertionError(f"19a: the slope window over the LM step is an "
+                             f"upper bound ({float(dt)} s)")
+
+    b, h, s = LM["batch"], LM["heads"], LM["seq_len"]
+    d = LM["d_model"] // h
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (_rand((b * h, s, d), torch.bfloat16, gen, dev)
+               for _ in range(3))
+    kw = dict(causal=True, sm_scale=1.0 / d ** 0.5)
+
+    def k1_once(n):
+        return n + 1, fa.flash_fwd(q, k, v, **kw)[0]
+
+    k1, _ = bench.slope_window(k1_once, 0, K1_SLOPE_ITERS)
+    k1_ms = 1e3 * float(k1) / K1_SLOPE_ITERS
+    print(f"  19a K1 [{b * h}, {s}, {d}] bf16 causal: slope {k1_ms:.4f} ms "
+          f"a call ({K1_SLOPE_ITERS} iters) against 3b's CUDA events "
+          f"{rows['fwd']['ms']:.4f} ms; upper_bound {k1.upper_bound}, "
+          f"asymmetric {k1.asymmetric}")
+    del q, k, v
+
+    print(f"== phase 19b: autotune_fusion_threshold over the step's "
+          f"gradients, wires {TUNE_WIRES}, world 1 on NCCL")
+    grads = [p.grad for p in opt.params if p.grad is not None]
+    cfg = basics._state.config
+    before = (cfg.fusion_threshold, cfg.wire_dtype)
+    t = time.perf_counter()
+    best, timings = hvd.autotune_fusion_threshold(
+        grads, wire_candidates=TUNE_WIRES)
+    secs = time.perf_counter() - t
+    after = (cfg.fusion_threshold, cfg.wire_dtype)
+    print(f"  19b {len(grads)} gradients, "
+          f"{sum(g.numel() * g.element_size() for g in grads) / 1e6:.1f} MB "
+          f"on {grads[0].device}: returned {best!r}, {dict(timings)} in "
+          f"{secs * 1e3:.2f} ms; reason: {timings.abstain_reason}")
+    print(f"  19b config (fusion_threshold, wire_dtype) before {before}, "
+          f"after {after}")
+    if best is not None or dict(timings) or \
+            timings.abstain_reason != WORLD_ONE_REASON or after != before:
+        raise AssertionError(f"19b: at world 1 the tuner returned {best!r}, "
+                             f"{dict(timings)}, {timings.abstain_reason!r}; "
+                             f"config {before} -> {after}")
+    del step, model, opt, tokens, grads
+    _free(torch)
+    hvd.shutdown()
+    return launches
+
+
+# 19c's subprocess: the lint CLI and the trend tool, each run as
+# ``python -m`` runs it; then no JAX in the process
+_TOOLS_PROBE = """
+import contextlib, io, json, runpy, sys
+
+def run(mod, argv):
+    sys.argv = [mod] + argv
+    out, err = io.StringIO(), io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            runpy.run_module(mod, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            code = e.code
+    return code, out.getvalue(), err.getvalue()
+
+root, targets = sys.argv[1], sys.argv[2:]
+lint = run("horovod_tpu_torch.analysis.cli", ["--root", root] + targets)
+trend = run("horovod_tpu_torch.telemetry.trend", [root, "--json"])
+report = json.loads(trend[1]) if trend[0] in (0, 1) else {}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "horovod_tpu"))
+assert not bad, bad
+print(json.dumps(dict(
+    lint_rc=lint[0], lint_tail=(lint[1].strip().splitlines() or [""])[-1],
+    lint_err=lint[2][-2000:], trend_rc=trend[0],
+    rows=len(report.get("metrics", {})),
+    rounds=len(report.get("rounds", [])), trend_err=trend[2][-300:])))
+"""
+
+
+def phase_tools():
+    """19c: hvd-lint-torch over the port's tree and the trend tool over
+    the repo's rounds, in a subprocess that must not import JAX."""
+    import os
+    print("== phase 19c: python -m horovod_tpu_torch.analysis.cli and "
+          "python -m horovod_tpu_torch.telemetry.trend in a subprocess")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    t = time.perf_counter()
+    rv = subprocess.run(
+        [sys.executable, "-c", _TOOLS_PROBE, str(ROOT),
+         *(LINT_TARGETS or [])], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    secs = time.perf_counter() - t
+    if rv.returncode != 0:
+        raise AssertionError(f"19c: the tools' subprocess exited "
+                             f"{rv.returncode}:\n{rv.stderr[-4000:]}")
+    res = json.loads(rv.stdout.strip().splitlines()[-1])
+    print(f"  19c hvd-lint-torch exit {res['lint_rc']}: {res['lint_tail']}")
+    print(f"  19c trend exit {res['trend_rc']}: {res['rows']} rows over "
+          f"{res['rounds']} rounds; no jax or horovod_tpu imported; "
+          f"{secs:.1f} s")
+    if res["lint_rc"] != 0:
+        raise AssertionError(f"19c: hvd-lint-torch exited {res['lint_rc']}:"
+                             f" {res['lint_tail']}\n{res['lint_err']}")
+    if res["trend_rc"] not in (0, 1) or not res["rows"]:
+        raise AssertionError(f"19c: the trend tool exited {res['trend_rc']} "
+                             f"with {res['rows']} rows: {res['trend_err']}")
+
+
 def _grad_norm_check(name, torch, step, opt):
     """The step's last ``hvd_grad_norm`` against an fp64 norm of the
     gradients it left in ``.grad``: with plain data parallelism those
@@ -4524,12 +4698,19 @@ def main(argv=None):
     t18 = time.perf_counter()
     phase_serve(hvd, fa, torch, bench, card)
     print(f"== phase 18 took {time.perf_counter() - t18:.1f} s")
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    launches_19 = phase_timer_tuner(hvd, fa, torch, dev, bench, rows,
+                                    phase5_tok_s)
+    phase_tools()
+    print(f"== phase 19 took {time.perf_counter() - t19:.1f} s")
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):
         wrapper, replaces, source, design = KERNELS[kind_]
         main = [launches, launches_11b] + launches_12 + launches_13 + \
-            launches_14 + [launches_15, launches_16, launches_17]
+            launches_14 + [launches_15, launches_16, launches_17,
+                           launches_19]
         kernels.append(dict(name=wrapper, route="cuda", source=source,
                             replaces=replaces, design=design,
                             launches=sum(n[kind_] for n in main),

@@ -24,7 +24,8 @@ torch, start without importing it. Of the JAX package's top-level names
 the port leaves out ``distributed_grad``, ``DistributedGradientTransform``,
 ``HorovodOptimizer`` and ``compat`` (optax's and JAX's forms, which
 ``DistributedOptimizer`` and ``distributed_value_and_grad`` stand for
-here), and the plane not yet ported: ``autotune_fusion_threshold``.
+here). The subpackage ``analysis`` (hvd-lint) is imported by its CLI,
+``python -m horovod_tpu_torch.analysis.cli``, and needs no torch.
 """
 
 import importlib
@@ -50,7 +51,8 @@ _EXPORTS = {
                     "parallel.mesh"),
     **dict.fromkeys(("ring_attention", "ulysses_attention"),
                     "parallel.ring"),
-    **dict.fromkeys(("fused_allreduce", "fused_allreduce_"), "ops.fusion"),
+    **dict.fromkeys(("fused_allreduce", "fused_allreduce_",
+                     "autotune_fusion_threshold"), "ops.fusion"),
     "Compression": "ops.compression",
     **dict.fromkeys(("Sum", "Average", "Adasum", "Min", "Max"),
                     "ops.reduction"),

@@ -304,6 +304,7 @@ class PrefetchLoader:
                     q.get_nowait()
                 except queue.Empty:
                     pass
+                # hvd-lint: disable=HVD-LOCKORDER -- the joined producer takes neither _halt_lock nor _lock, so the join cannot wait on this thread; a consumer's restart, the lock's other taker, waits behind the halt by design; the join must end before the caller mutates source state
                 t.join(timeout=0.05)
 
     # -- the consumer -------------------------------------------------------

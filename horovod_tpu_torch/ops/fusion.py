@@ -34,9 +34,14 @@ and ``ag``), a ``bucket`` event in the flight recorder, and a
 ``BUCKET_RS``/``BUCKET_AG`` marker on the host timeline, linked to the
 step's dispatch flow. The JAX package records them once, when the step
 is traced; the port records every bucket of every step.
+
+``autotune_fusion_threshold`` picks the bucket threshold (and, with
+``wire_candidates``, the wire format) by timed trials of the eager
+``fused_allreduce`` on the tensors' own device.
 """
 
 import dataclasses
+import math
 import time
 import warnings
 
@@ -568,3 +573,184 @@ def unpack_bucket(schedule, idx, flat, leaves):
     tensor}``, each cast to its leaf's dtype (padding tail ignored)."""
     return {i: part.to(leaves[i].dtype)
             for i, part in _unpack(schedule.buckets[idx], flat).items()}
+
+
+class AutotuneTimings(dict):
+    """``{threshold_bytes: seconds}`` (``{(threshold_bytes, wire):
+    seconds}`` on the wire axis) from ``autotune_fusion_threshold``, and:
+    ``retried``, how many candidates hit an inverted slope window and
+    entered the escalation loop; ``slope_window_escalations``, how many
+    4x escalations those retries took in all (0 when every trial
+    measured cleanly); and ``abstain_reason``, why the tuner returned
+    ``(None, timings)`` instead of a winner."""
+
+    def __init__(self, *args, retried=0, slope_window_escalations=0,
+                 abstain_reason=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.retried = retried
+        self.slope_window_escalations = slope_window_escalations
+        self.abstain_reason = abstain_reason
+
+
+def autotune_fusion_threshold(tensors, op=collective.Average, axes=None,
+                              candidates=None, trials=10, apply=True,
+                              tolerance=0.10, wire_candidates=None):
+    """Pick the fusion bucket threshold by timed trials (the JAX
+    package's ``ops/fusion.py:546``).
+
+    Each candidate threshold is one trial: the eager ``fused_allreduce``
+    of ``tensors`` (a list, on their own device) over ``axes`` at that
+    ``threshold_bytes``, timed by ``utils.benchmarks.slope_window`` over
+    ``trials`` iterations. Each call adds an incrementing salt to the
+    float tensors and feeds its output back in as the next input. With
+    ``apply=True`` the fastest becomes ``config.fusion_threshold``, the
+    default of ``fused_allreduce`` and ``DistributedOptimizer``.
+
+    A trial whose window inverted (an upper bound, not a measurement) is
+    run again at 4x the iterations, up to 16x; ``retried`` counts such
+    trials and ``slope_window_escalations`` the escalations. Each rank
+    times its own trials, but every decision that changes which
+    collectives run next is joint, so the ranks' trials pair up
+    collective for collective: a window's inversion tests use the least
+    slope over the world (``slope_window``'s ``agree``), and a trial
+    escalates when any rank's window is an upper bound (the flag is
+    reduced by max after each window). At the end the timings and their
+    upper-bound flags are summed by one all-reduce over the world, so
+    every rank installs the same winner and abstains alike.
+
+    Returns ``(best, timings)``, an ``AutotuneTimings``. It abstains,
+    returning ``(None, timings)`` with ``timings.abstain_reason`` set and
+    installing nothing, when the world over ``axes`` is 1 (the
+    collectives do nothing, so no timing carries a signal) or when a
+    candidate is still an upper bound within ``tolerance`` of the best
+    time after the retries.
+
+    ``wire_candidates`` (wire names, ``"none"`` for uncompressed) makes
+    the grid the cross product ``(threshold, wire)``: the timings are
+    keyed by the pair, ``best`` is a pair, and ``apply`` installs both
+    ``config.fusion_threshold`` and ``config.wire_dtype`` (``"none"`` as
+    None). The trials rank time only; a wire's numerics stay the
+    caller's choice. Every wire runs here, the chunked quantizers too:
+    the eager path exchanges them without a compiled mesh."""
+    from horovod_tpu_torch.utils import benchmarks
+
+    if candidates is None:
+        candidates = [1 << 20, 4 << 20, 16 << 20, 64 << 20]
+    joint = wire_candidates is not None
+    if joint:
+        for w in wire_candidates:
+            compression_lib.by_name(w)  # fail fast on a misspelt name
+        keys = [(thr, w) for thr in candidates for w in wire_candidates]
+    else:
+        keys = list(candidates)
+    mesh = mesh_lib.get_mesh()
+    axes_t = (mesh_lib.data_axis_names(mesh) if axes is None
+              else (axes,) if isinstance(axes, str) else tuple(axes))
+    world = math.prod(mesh.axis_size(a) for a in axes_t)
+    if world <= 1:
+        return None, AutotuneTimings(abstain_reason=(
+            f"world size 1 over axes {axes_t!r}: the fused collectives "
+            "are local no-ops, so threshold timings carry no signal"))
+
+    def over_world(x, op):
+        # x reduced by op over every process, on the collectives' device
+        if mesh.size == 1:
+            return float(x)
+        v = torch.tensor([float(x)], dtype=torch.float64, device=mesh.device)
+        collective.allreduce_(v, op=op, axes=mesh.axis_names)
+        return v.item()
+
+    def window(step_once, st, iters):
+        dt, st = benchmarks.slope_window(
+            step_once, st, iters,
+            agree=lambda slope: over_world(slope, collective.Min))
+        bound = over_world(dt.upper_bound, collective.Max) > 0
+        return benchmarks.WindowTime(float(dt), upper_bound=bound,
+                                     asymmetric=dt.asymmetric), st
+
+    eps = torch.finfo(torch.float32).eps
+    timings = AutotuneTimings()
+    for key in keys:
+        thr, wire_name = key if joint else (key, None)
+
+        def trial(ts, salt):
+            # the salt is kept to match the JAX package, whose tunnel
+            # memoizes repeated pure calls; eager calls are never
+            # memoized, so here it only adds one elementwise pass a
+            # floating tensor to every candidate's trial alike
+            ts = [t + salt * eps if t.is_floating_point() else t
+                  for t in ts]
+            return fused_allreduce(ts, op=op, axes=axes_t,
+                                   threshold_bytes=thr,
+                                   compression=wire_name)
+
+        trial(tensors, 0.0)
+        benchmarks.sync()  # first call outside the timing
+
+        def step_once(st):
+            ts, salt = st
+            out = trial(ts, salt)
+            return (out, salt + 1.0), out
+
+        st = (tensors, 1.0)
+        dt, st = window(step_once, st, trials)
+        iters = trials
+        if dt.upper_bound:
+            timings.retried += 1
+            while dt.upper_bound and iters < trials * 16:
+                iters *= 4
+                timings.slope_window_escalations += 1
+                dt, st = window(step_once, st, iters)
+        # back to seconds per `trials` iterations, comparable under argmin
+        timings[key] = benchmarks.WindowTime(
+            float(dt) * trials / iters, upper_bound=dt.upper_bound,
+            asymmetric=dt.asymmetric)
+
+    if mesh.size > 1:
+        # one sum over the world: every rank ranks the same timings
+        vals = torch.tensor(
+            [float(timings[c]) for c in keys]
+            + [float(timings[c].upper_bound) for c in keys],
+            dtype=torch.float64, device=mesh.device)
+        _AUTOTUNE_CALLS["n"] = _AUTOTUNE_CALLS.get("n", 0) + 1
+        collective.allreduce_(vals, op=collective.Sum,
+                              axes=mesh.axis_names)
+        summed = vals.tolist()
+        timings = AutotuneTimings(
+            {c: benchmarks.WindowTime(s, upper_bound=b > 0)
+             for c, s, b in zip(keys, summed, summed[len(keys):])},
+            retried=timings.retried,
+            slope_window_escalations=timings.slope_window_escalations)
+
+    def _fmt_key(c):
+        if joint:
+            return f"{c[0] >> 20}MB/{c[1]}"
+        return f"{c >> 20}MB"
+
+    best = min(timings, key=timings.get)
+    best_val = float(timings[best])
+    # an upper bound near the best could hide the true winner
+    unresolved = sorted(
+        c for c in keys
+        if timings[c].upper_bound
+        and float(timings[c]) <= best_val * (1.0 + tolerance))
+    if unresolved:
+        timings.abstain_reason = (
+            f"candidate(s) {[_fmt_key(c) for c in unresolved]} are still "
+            f"inverted-window upper bounds within {tolerance:.0%} of the "
+            "best measured time after retries; the argmin would rank "
+            "noise — keeping the current default")
+        return None, timings
+    cfg = basics._state.config
+    if apply and cfg is not None:
+        if joint:
+            cfg.fusion_threshold = best[0]
+            cfg.wire_dtype = None if best[1] in (None, "none") else best[1]
+        else:
+            cfg.fusion_threshold = best
+    return best, timings
+
+
+# the tuner's cross-rank sums, counted (the JAX package names each sum
+# of its native core by this count)
+_AUTOTUNE_CALLS = {}

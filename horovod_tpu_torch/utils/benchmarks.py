@@ -1,8 +1,12 @@
 """The benchmark workloads, each built one way (the port of
 ``horovod_tpu/utils/benchmarks.py``'s ``model_registry``, ``make_model``,
-``synthetic_batch``, ``make_lm_bench`` and ``sync``; ``make_resnet_bench``
+``synthetic_batch``, ``make_lm_bench``, ``sync`` and the slope-window
+timer ``slope_window``/``repeat_step_windows``; ``make_resnet_bench``
 builds ``bench.py``'s image-model step), and timing on the card with CUDA
 events."""
+
+import time
+import warnings
 
 import numpy as np
 import torch
@@ -49,6 +53,144 @@ def sync():
     """Wait until the card has finished all queued work."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+class WindowTime(float):
+    """A ``slope_window`` duration. ``upper_bound`` is True when the
+    inverted-window fallback reported the full window time (fixed costs
+    included) instead of a slope difference: a conservative bound, not a
+    measurement. ``asymmetric`` is True when the per-iteration rates that
+    the two window segments imply disagree beyond tolerance: a fixed cost
+    attached itself to some window lengths but not others, so the slope
+    may be deflated or inflated rather than clean."""
+
+    upper_bound = False
+    asymmetric = False
+
+    def __new__(cls, value, upper_bound=False, asymmetric=False):
+        obj = super().__new__(cls, value)
+        obj.upper_bound = upper_bound
+        obj.asymmetric = asymmetric
+        return obj
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    mid = n // 2
+    return xs[mid] if n % 2 else 0.5 * (xs[mid - 1] + xs[mid])
+
+
+def slope_window(step_once, state, iters, base_iters=2, rounds=3,
+                 rate_tolerance=0.5, agree=None):
+    """Time ``iters`` iterations by the slope method over interleaved
+    windows (the JAX package's timer, ``utils/benchmarks.py:99``).
+
+    Each of ``rounds`` rounds runs a base window (``base_iters``
+    iterations), a mid window (``base_iters + h``, ``h = iters // 2``) and
+    a full window (``base_iters + iters``), each ended by ``sync()``.
+    Every (shorter, longer) pair of windows in a round gives a slope, a
+    time per iteration; the result is the median slope times ``iters``.
+    A fixed cost of a window (the sync, a launch queue draining) cancels
+    in each difference, and the median keeps one polluted window from
+    owning the result.
+
+    With three window lengths the rate is implied twice, over disjoint
+    segments: ``(t_mid - t_base) / h`` and ``(t_full - t_mid) / (iters -
+    h)``. When their medians part by more than ``rate_tolerance`` times
+    the rate, and by more than 1e-4 s over ``iters`` iterations, the
+    result is flagged ``asymmetric`` and a warning names both rates.
+
+    ``step_once(state) -> (state, out)`` advances one iteration and
+    threads its state, so that no two calls see the same inputs. One
+    untimed iteration runs and is synced first, so that work left queued
+    by earlier code lands outside every window. A median slope at or
+    below 0 (fixed-cost noise above the work) reruns the set once; a
+    second inversion returns the median full-window time, flagged
+    ``upper_bound``. Returns ``(WindowTime, state)``.
+
+    ``agree(slope) -> slope`` makes both inversion tests joint across
+    processes whose ``step_once`` runs collectives: each tests the slope
+    it returns (the minimum over the ranks, say), so that every rank
+    reruns a set, and returns a bound, alike, and their windows pair up
+    collective for collective. The result keeps this rank's own slope.
+    None (one process) tests the slope as it is."""
+
+    def window(k, st):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            st, _ = step_once(st)
+        sync()
+        return time.perf_counter() - t0, st
+
+    h = iters // 2
+    lengths = ([base_iters, base_iters + h, base_iters + iters]
+               if 0 < h < iters else [base_iters, base_iters + iters])
+
+    def measure(st):
+        slopes, seg_lo, seg_hi, fulls = [], [], [], []
+        for _ in range(max(1, rounds)):
+            times = []
+            for k in lengths:
+                t, st = window(k, st)
+                times.append(t)
+            fulls.append(times[-1])
+            for i in range(len(lengths)):
+                for j in range(i + 1, len(lengths)):
+                    slopes.append((times[j] - times[i])
+                                  / (lengths[j] - lengths[i]))
+            if len(lengths) == 3:
+                seg_lo.append((times[1] - times[0]) / h)
+                seg_hi.append((times[2] - times[1]) / (iters - h))
+        return slopes, seg_lo, seg_hi, fulls, st
+
+    def inverted(slope):
+        return (slope if agree is None else agree(slope)) <= 0
+
+    _, state = window(1, state)  # untimed flush
+    slopes, seg_lo, seg_hi, fulls, state = measure(state)
+    per_iter = _median(slopes)
+    if inverted(per_iter):
+        slopes, seg_lo, seg_hi, fulls, state = measure(state)
+        per_iter = _median(slopes)
+        if inverted(per_iter):
+            bound = _median(fulls)
+            warnings.warn(
+                f"slope window inverted twice (median pairwise slope "
+                f"{per_iter:.6f}s/iter over {iters} iters); reporting "
+                f"the full-window upper bound — increase iters for a "
+                f"real measurement", stacklevel=2)
+            return WindowTime(bound, upper_bound=True), state
+    asymmetric = False
+    if seg_lo and seg_hi:
+        lo, hi = _median(seg_lo), _median(seg_hi)
+        if (abs(hi - lo) > rate_tolerance * max(per_iter, 1e-12)
+                and abs(hi - lo) * iters > 1e-4):
+            asymmetric = True
+            warnings.warn(
+                f"slope window segments imply different per-iteration "
+                f"rates ({lo:.6f}s vs {hi:.6f}s per iter, median "
+                f"{per_iter:.6f}s): a fixed cost is attaching "
+                f"asymmetrically to window lengths; treat this sample "
+                f"as suspect", stacklevel=2)
+    return WindowTime(per_iter * iters, asymmetric=asymmetric), state
+
+
+def repeat_step_windows(step_once, state, warmup, iters, repeats,
+                        base_iters=2):
+    """``warmup`` synced calls of ``step_once``, then ``repeats`` slope
+    windows over the state it threads. Returns ``(list of WindowTime,
+    state)``; each keeps its ``upper_bound`` and ``asymmetric``
+    flags."""
+    for _ in range(warmup):
+        state, _ = step_once(state)
+        sync()
+    runs = []
+    for _ in range(repeats):
+        dt, state = slope_window(step_once, state, iters,
+                                 base_iters=base_iters)
+        runs.append(dt)
+    return runs, state
 
 
 def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,

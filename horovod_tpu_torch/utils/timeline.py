@@ -74,6 +74,7 @@ class Timeline:
         # close sentinel
         with self._close_lock:
             if not self._closed:
+                # hvd-lint: disable=HVD-LOCKORDER -- the queue is UNBOUNDED so put() never blocks; the lock only orders the closed check against close()
                 self._queue.put(ev)
 
     def negotiate_start(self, tensor_name, request_type):

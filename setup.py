@@ -42,7 +42,8 @@ setup(
               "horovod_tpu.utils",
               # the PyTorch/CUDA port; its kernels build from csrc/ at
               # first use (horovod_tpu_torch/_build.py)
-              "horovod_tpu_torch", "horovod_tpu_torch.chaos",
+              "horovod_tpu_torch", "horovod_tpu_torch.analysis",
+              "horovod_tpu_torch.analysis.rules", "horovod_tpu_torch.chaos",
               "horovod_tpu_torch.ckpt", "horovod_tpu_torch.cluster",
               "horovod_tpu_torch.data", "horovod_tpu_torch.diag",
               "horovod_tpu_torch.elastic",
@@ -68,6 +69,7 @@ setup(
             "hvdrun-torch = horovod_tpu_torch.run.run:main",
             "hvd-doctor = horovod_tpu.diag.doctor:doctor_cli",
             "hvd-lint = horovod_tpu.analysis.cli:main",
+            "hvd-lint-torch = horovod_tpu_torch.analysis.cli:main",
             "hvd-serve = horovod_tpu.serve.cli:main",
             "hvd-serve-torch = horovod_tpu_torch.serve.cli:main",
         ],

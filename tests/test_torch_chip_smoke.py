@@ -211,3 +211,41 @@ def test_phase_18_rehearsed(rehearsal, monkeypatch):
         cs.phase_serve(hvd_t, fa, torch, bench, "card")
     finally:
         torch.set_num_threads(n)
+
+
+def test_phase_19_runs_through_main_after_phase_18():
+    """Phase 19 is called by ``main()`` after phase 18, its launches join
+    the kernels line, and the last line stays the device JSON."""
+    import ast
+    tree = ast.parse(open(cs.__file__).read())
+    main = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name == "main"][0]
+    calls = [n.func.id for n in ast.walk(main) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name)]
+    assert calls.index("phase_serve") < calls.index("phase_timer_tuner")
+    assert calls.index("phase_timer_tuner") < calls.index("phase_tools")
+    assert "launches_19" in ast.unparse(main).split("kernels = []")[1]
+    assert cs.SLOPE == dict(iters=4, rounds=3) and cs.LINT_TARGETS is None
+    assert cs.TUNE_WIRES == ["none", "bf16", "int8"]
+
+
+def test_phase_19_rehearsed(rehearsal, monkeypatch):
+    """19a-19c on the CPU at the tiny size: the slope window over the
+    tiny LM's step is no upper bound and K1's is reported; the tuner at
+    world 1 returns ``(None, {})`` with the JAX package's reason and
+    leaves the config as it was; the tools' subprocess (lint over two
+    files of the port, so the rehearsal stays short) exits 0 for the
+    lint, reads the rounds and imports no JAX."""
+    monkeypatch.setattr(cs, "clocks_line", lambda: "no card")
+    monkeypatch.setattr(cs, "LINT_TARGETS", [
+        "horovod_tpu_torch/telemetry/trend.py",
+        "horovod_tpu_torch/utils/benchmarks.py"])
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = cs.phase_timer_tuner(
+            hvd_t, fa, torch, DEV, bench, {"fwd": {"ms": 0.0}}, 1e5)
+    finally:
+        torch.set_num_threads(n)
+    assert set(launches) == {"fwd", "dq", "dkv"}
+    cs.phase_tools()
