@@ -139,12 +139,14 @@ runs these phases; any failure raises:
   state's bytes, ``save()``'s blocking ms (of it the pinned buffers, the
   gathers and the device-to-host copy), the write and commit, the
   restores;
-* 14b: 12c's MoE LM state saved whole and restored with its experts cut
-  4 ways in this process, and saved cut and restored whole (on 4 of
-  phase 5's 8 sequences): the next loss bit for bit the run it resumes
-  where the cut is the same, within ``_shard_bound`` where it is not;
-* 14c: phase 5's LM through ``DistributedOptimizer(
-  backward_passes_per_step=2)`` (optax's ``MultiStepsState``), saved
+* 14b: 12c's MoE LM state, at 6 of its 12 layers, saved whole and
+  restored with its experts cut 4 ways in this process, and saved cut
+  and restored whole (on 4 of phase 5's 8 sequences): the next loss bit
+  for bit the run it resumes where the cut is the same, within
+  ``_shard_bound`` where it is not;
+* 14c: phase 5's LM at 6 of its 12 layers through
+  ``DistributedOptimizer(backward_passes_per_step=2)`` (optax's
+  ``MultiStepsState``), saved
   after mini-step 1 (inside a window) and 2 (at its boundary): each
   resume repeats the unbroken run's losses and state bit for bit;
 * 15a: phase 5's LM, weights and batch through the GSPMD step
@@ -236,13 +238,29 @@ runs these phases; any failure raises:
 * 19c: in a subprocess, ``python -m horovod_tpu_torch.analysis.cli``
   over the port's tree (exit 0) and ``python -m
   horovod_tpu_torch.telemetry.trend`` over the repo's rounds (exit code
-  and rows printed), neither importing ``jax`` nor ``horovod_tpu``.
+  and rows printed), neither importing ``jax`` nor ``horovod_tpu``;
+* 20a: 6b's configuration built with ``DistributedOptimizer(axes=
+  ("data",), sharded_update=True)`` on a (data 1, model 1) mesh (ZeRO-1
+  over a part of the mesh), in turns with 6b on ``init()``'s mesh: every
+  turn's losses bit for bit 6b's, K1-K3 once a layer, microbatch and
+  step; its state saved and restored into a fresh model, optimizer and
+  step gives the unbroken run's next loss bit for bit; step ms, tokens/s
+  and peak memory of each turn;
+* 20b: the serve engine over 2 gloo ranks sharing the card (this script
+  with ``--serve-rank``, twice: NCCL puts no two ranks on one device),
+  each holding 18a's LM loaded params-only from phase 18's manifest and
+  a replicated pool, the 8 slots split 4 and 4: rank 0 drives 8 of 18a's
+  requests (the shared prefix, the fork, one sampled), rank 1 follows;
+  the ranks' streams, pools and block tables equal, every greedy token
+  within 18a's oracle rule, the sampled stream bit for bit 18a's; decode
+  tokens/s, inter-token p50/p99 and the exchange's share of the decode
+  time beside 18a's (no speed claim: one card).
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
 
-Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b, 11b, 12b, 12c, 14a-14c, 15 and
-19a each
+Phases 4, 4b, 5, 6a, 6b, 6c, 8a, 10b, 11b, 12b, 12c, 14a-14c, 15, 19a
+and 20a each
 count the kernels' launches from 0 on the card and must launch each
 kernel once per layer, shard, microbatch and step (13a and 13b as their
 schedules say); 9a's and 17's workers count their own. The last line of output is
@@ -251,7 +269,8 @@ schedules say); 9a's and 17's workers count their own. The last line of output i
 
 and the line before it a JSON object with each kernel's launches on the
 main paths (phase 5, 11b's two runs, 12b, 12c, phase 13's seven
-runs, 14a, phase 15's and phase 16's runs and 19a's windows, each
+runs, 14a, phase 15's and phase 16's runs, 19a's windows and 20a's
+turns, each
 counted from 0, and phase 17's workers, each counting its own from its
 first step),
 error
@@ -326,6 +345,9 @@ PIPE_RANKS = 2
 # in one process each hold the dense part and its activations)
 TP_CKPT_RANKS = 2
 EP_BATCH = 4
+# 14b's and 14c's depth (their widths kept): half the LM's 12 layers,
+# since their checkpoints' writes and reads held the script past 800 s
+RESUME_LAYERS = 6
 # phase 18: the serving plane on phase 5's LM: the KV pool (block 16,
 # 2048 tokens a sequence = 128 blocks, 8 slots, 1025 blocks incl. the
 # null block), the prefill chunk, and 18a's requests: prompts of
@@ -2660,13 +2682,14 @@ def _moe_token_forms(torch, dev, bench, kw, x, g):
               f"shards {ms:.3f} ms")
 
 
-def _lm_full(torch, dev, shard=None, **moe):
+def _lm_full(torch, dev, shard=None, layers=None, **moe):
     """Phase 5's LM (12c's with ``MOE`` as ``moe``): its config, weights
     (seed 0, cut to ``shard``) and batch (seed 0, rank 0), without the
-    optimizer."""
+    optimizer; ``layers`` (None: ``LM``'s) cuts its depth."""
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
-    cfg = TransformerConfig(vocab_size=LM["vocab"], num_layers=LM["layers"],
+    cfg = TransformerConfig(vocab_size=LM["vocab"],
+                            num_layers=layers or LM["layers"],
                             num_heads=LM["heads"], d_model=LM["d_model"],
                             d_ff=4 * LM["d_model"], dtype=torch.bfloat16,
                             flash_attention=True, **moe)
@@ -2976,13 +2999,14 @@ def phase_pipeline_shards(fa, torch, dev, f1b_s2):
     return [n]
 
 
-def _tp_shards(torch, dev, ranks, moe=False, batch=None):
-    """Phase 5's LM (12c's MoE LM with ``moe``), its seed-0 weights cut
-    into ``ranks`` model shards (expert shards) held in this process,
-    each with phase 5's AdamW, and their step over a ``LocalAxis``
-    (``make_tp_lm_train_step_shards``); ``step()`` runs one step on
-    phase 5's batch (its first ``batch`` sequences) and returns the loss.
-    Returns ``(models, optimizers, step)``."""
+def _tp_shards(torch, dev, ranks, moe=False, batch=None, layers=None):
+    """Phase 5's LM (12c's MoE LM with ``moe``; ``layers`` deep, None:
+    ``LM``'s), its seed-0 weights cut into ``ranks`` model shards (expert
+    shards) held in this process, each with phase 5's AdamW, and their
+    step over a ``LocalAxis`` (``make_tp_lm_train_step_shards``);
+    ``step()`` runs one step on phase 5's batch (its first ``batch``
+    sequences) and returns the loss. Returns ``(models, optimizers,
+    step)``."""
     from horovod_tpu_torch.models.transformer import Axes
     from horovod_tpu_torch.parallel import axis as axis_lib
     from horovod_tpu_torch.parallel import tensor
@@ -2991,7 +3015,8 @@ def _tp_shards(torch, dev, ranks, moe=False, batch=None):
         shard = (tensor.Shard(expert_axis="expert", expert_index=i,
                               expert_size=ranks) if moe
                  else tensor.Shard("model", i, ranks))
-        _, model, tokens = _lm_full(torch, dev, shard, **(MOE if moe else {}))
+        _, model, tokens = _lm_full(torch, dev, shard, layers=layers,
+                                    **(MOE if moe else {}))
         models.append(model)
     tokens = tokens[:batch]
     opts = [torch.optim.AdamW(m.parameters(), lr=3e-4, betas=(0.9, 0.999),
@@ -3135,23 +3160,25 @@ def phase_tp_resume(fa, torch, dev, bench):
 
 
 def phase_ep_resume(fa, torch, dev, bench):
-    """14b: 12c's MoE LM state (``MOE``) saved whole and restored with its
-    experts cut ``EXPERT_RANKS`` ways in this process, and saved so (the
-    expert weights and their moments gathered) and restored whole: the
+    """14b: 12c's MoE LM state (``MOE``, ``RESUME_LAYERS`` deep) saved
+    whole and restored with its experts cut ``EXPERT_RANKS`` ways in this
+    process, and saved so (the expert weights and their moments
+    gathered) and restored whole: the
     next step's loss bit for bit the run it resumes where the cut is the
     same, within ``_shard_bound`` where it is not. On the first
     ``EP_BATCH`` sequences of phase 5's batch: the 4 shards each hold the
     dense part and its activations."""
     import tempfile
     from horovod_tpu_torch import ckpt, convert
-    R, layers = EXPERT_RANKS, LM["layers"]
-    print(f"== phase 14b: the MoE LM ({MOE}) on {EP_BATCH} x "
-          f"{LM['seq_len']} tokens: saved whole and restored cut {R} ways, "
-          "saved cut and restored whole")
+    R, layers = EXPERT_RANKS, min(RESUME_LAYERS, LM["layers"])
+    print(f"== phase 14b: the MoE LM ({MOE}) at {layers} layers on "
+          f"{EP_BATCH} x {LM['seq_len']} tokens: saved whole and restored "
+          f"cut {R} ways, saved cut and restored whole")
 
     def build(ranks):
         _free(torch)
-        return _tp_shards(torch, dev, ranks, moe=True, batch=EP_BATCH)
+        return _tp_shards(torch, dev, ranks, moe=True, batch=EP_BATCH,
+                          layers=layers)
 
     def resume(root, step_no, ranks):
         return _resume_from(bench, root, step_no, lambda: build(ranks))
@@ -3193,22 +3220,23 @@ def phase_ep_resume(fa, torch, dev, bench):
 
 
 def phase_multi_steps_resume(hvd, fa, torch, dev, bench):
-    """14c: phase 5's LM, weights and batch, through
-    ``DistributedOptimizer(backward_passes_per_step=2)`` (optax's
+    """14c: phase 5's LM (``RESUME_LAYERS`` deep), weights and batch,
+    through ``DistributedOptimizer(backward_passes_per_step=2)`` (optax's
     ``MultiStepsState`` in the checkpoint), 4 mini-steps unbroken against
     a save after mini-step 1 (inside a window) and after mini-step 2 (at
     its boundary), each restored into a fresh model and optimizer and
     run to mini-step 4: every loss and the final state bit for bit."""
     import tempfile
     from horovod_tpu_torch import ckpt, convert, training
-    print("== phase 14c: full-width LM through DistributedOptimizer("
-          "backward_passes_per_step=2), saved inside a window and at its "
-          "boundary")
+    layers = min(RESUME_LAYERS, LM["layers"])
+    print(f"== phase 14c: the LM at full width and {layers} layers through "
+          "DistributedOptimizer(backward_passes_per_step=2), saved inside a "
+          "window and at its boundary")
     hvd.init()
 
     def build():
         _free(torch)
-        _, model, tokens = _lm_full(torch, dev)
+        _, model, tokens = _lm_full(torch, dev, layers=layers)
         opt = hvd.DistributedOptimizer(
             torch.optim.AdamW(model.parameters(), lr=3e-4,
                               betas=(0.9, 0.999), eps=1e-8,
@@ -3254,7 +3282,7 @@ def phase_multi_steps_resume(hvd, fa, torch, dev, bench):
         del model, opt, step
     del want
     _free(torch)
-    _want_launches(fa, "14c", LM["layers"] * 12)
+    _want_launches(fa, "14c", layers * 12)
     hvd.shutdown()
 
 
@@ -4013,7 +4041,7 @@ def _serve_requests(rng, vocab):
     return out
 
 
-def _teacher_forced(torch, model, prompt, generated):
+def _teacher_forced(torch, model, prompt, generated, label="18a"):
     """The rank of each greedy token under the port's ordinary forward
     over prompt + generated (no cache): ``(exact, tolerated, worst)``,
     worst the largest (top - chosen) / max|logit|; raises past the
@@ -4031,7 +4059,7 @@ def _teacher_forced(torch, model, prompt, generated):
     if (gap > SERVE_TIE).any():
         i = int(np.argmax(gap))
         raise AssertionError(
-            f"18a: greedy token {i} ({generated[i]}) is {gap[i]:.4g} of "
+            f"{label}: greedy token {i} ({generated[i]}) is {gap[i]:.4g} of "
             f"max|logit| below the oracle's top, past {SERVE_TIE}")
     return exact, len(generated) - exact, float(gap.max())
 
@@ -4060,9 +4088,12 @@ def _drive_engine(eng, reqs):
         raise AssertionError(f"requests failed: {bad}")
 
 
-def phase_serve(hvd, fa, torch, bench, card):
+def phase_serve(hvd, fa, torch, bench, card, root=None):
     """18a-18c (module docstring): the serving plane on phase 5's LM,
-    its weights loaded from a manifest."""
+    its weights loaded from a manifest, saved under ``root`` (the
+    caller's directory, kept for 20b; None: a temporary one). Returns
+    18a's streams by request id and its decode tokens/s and inter-token
+    p50 and p99 (ms)."""
     import tempfile
     import urllib.request as urlreq
     from horovod_tpu_torch import ckpt, convert
@@ -4084,7 +4115,8 @@ def phase_serve(hvd, fa, torch, bench, card):
         step(tokens)
     bench.sync()
     cfg = model.cfg
-    with tempfile.TemporaryDirectory() as root:
+    with (contextlib.nullcontext(root) if root is not None
+          else tempfile.TemporaryDirectory()) as root:
         t0 = time.perf_counter()
         ckpt.save_sharded(root, STEPS, convert.train_state_to_flat(
             model, opt, step.state), meta={"model_config": {
@@ -4172,6 +4204,9 @@ def phase_serve(hvd, fa, torch, bench, card):
     print(f"  18a TTFT p50 {1e3 * _pct(ttft, 50):.1f} ms p99 "
           f"{1e3 * _pct(ttft, 99):.1f} ms; inter-token p50 "
           f"{1e3 * _pct(itl, 50):.2f} ms p99 {1e3 * _pct(itl, 99):.2f} ms")
+    metrics = dict(decode_tok_s=n_decode / parts["decode"],
+                   itl_p50_ms=1e3 * _pct(itl, 50),
+                   itl_p99_ms=1e3 * _pct(itl, 99))
     print(f"  18a decode {n_decode / parts['decode']:.1f} tokens/s, "
           f"prefill {n_prefill / parts['prefill']:.1f} tokens/s; "
           f"cached-prefill fraction "
@@ -4213,7 +4248,7 @@ def phase_serve(hvd, fa, torch, bench, card):
     seeded = [r.id for r in reqs if r.sampling.temperature > 0]
     print(f"  18a seeded streams {seeded} bit for bit alone as in the "
           "batch")
-    streams = {r.id: r.generated for r in reqs}
+    streams = {r.id: r.generated for r in reqs + [fork]}
     # where a decode step's time goes: all slots decoding, 3 steps timed,
     # then one under the profiler
     busy = [eng.submit(engine_lib.Request(
@@ -4322,6 +4357,7 @@ def phase_serve(hvd, fa, torch, bench, card):
     del eng, model, params
     _free(torch)
     hvd.shutdown()
+    return streams, metrics
 
 
 def phase_timer_tuner(hvd, fa, torch, dev, bench, rows, phase5_tok_s):
@@ -4599,15 +4635,333 @@ def profile_step(torch, run, step_ms, layers=LAYERS, ranges=None):
     return by_layer
 
 
+def phase_zero_mesh(hvd, fa, torch, bench, losses_6b):
+    """20a: 6b's configuration (2 microbatches, the overlapped pipeline,
+    ZeRO-1) built with ``DistributedOptimizer(axes=("data",),
+    sharded_update=True)`` on a (data 1, model 1) mesh, in turns with 6b
+    itself on ``init()``'s mesh: every turn's losses bit for bit phase
+    6's 6b, K1-K3 once a layer, microbatch and step; the last turn's
+    state saved and restored into a fresh model, optimizer and step,
+    whose next loss is the unbroken run's bit for bit. Returns the 20a
+    turns' launches."""
+    import gc
+    import tempfile
+    from horovod_tpu_torch import basics, ckpt, convert, training
+    from horovod_tpu_torch.parallel import mesh as mesh_lib
+    print("== phase 20a: 6b's LM with ZeRO-1 over ('data',) on a "
+          "(data 1, model 1) mesh, in turns with 6b")
+    hvd.init()
+    flat = basics._state.mesh  # init()'s 1-D mesh
+    part = mesh_lib.build_mesh((1, 1), ("data", "model"))
+    layers, seq = LM["layers"], LM["seq_len"]
+    turns = {"6b": [], "20a": []}
+    launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    order = ("6b", "20a", "6b", "20a")
+    for n, label in enumerate(order):
+        gc.collect()
+        torch.cuda.empty_cache()
+        on_part = label == "20a"
+        mesh_lib.set_mesh(part if on_part else flat)
+        # the bench's own LM step is dropped at once: it holds the model,
+        # which would outlive the turn into the next one's peak
+        _, model, opt, tokens = _lm_bench(
+            bench, torch, seq_len=seq + 1, sharded_update=True,
+            mesh=part if on_part else None)
+        del _
+        rows = opt.zero_state.plan.schedule
+        if on_part and (opt.axes != ("data",) or rows.world != 1):
+            raise AssertionError(f"20a: the optimizer reduces over "
+                                 f"{opt.axes}, rows of world {rows.world}")
+        step = training.make_train_step(model, opt, accum_steps=2,
+                                        overlap_grads=True)
+        batch = (tokens[:, :seq], tokens[:, 1:seq + 1])
+        got, counted, step_ms = _drive(
+            f"20a turn {n + 1} ({label})", hvd, fa, torch, bench, step,
+            batch, 2 * layers * STEPS, LM["batch"] * seq,
+            lambda: (f"ZeRO-1 over {opt.axes or 'the data axes'} on "
+                     f"{mesh_lib.get_mesh().axis_names}; "
+                     f"{_schedule_line(step.schedule)}"))
+        peak = torch.cuda.max_memory_allocated()
+        if got != losses_6b:
+            raise AssertionError(f"20a turn {n + 1} ({label}): losses {got} "
+                                 f"against 6b's {losses_6b}")
+        turns[label].append((step_ms, peak))
+        if on_part:
+            for k in launches:
+                launches[k] += counted[k]
+        if n == len(order) - 1:
+            with tempfile.TemporaryDirectory() as root:
+                ckpt.save_sharded(root, STEPS, convert.train_state_to_flat(
+                    model, opt, step.state))
+                want = float(step(*batch))
+                del step, model, opt
+                gc.collect()
+                torch.cuda.empty_cache()
+                _, model, opt, _ = _lm_bench(bench, torch, seq_len=seq + 1,
+                                             sharded_update=True, mesh=part)
+                del _
+                step = training.make_train_step(model, opt, accum_steps=2,
+                                                overlap_grads=True)
+                _, restored, _ = ckpt.restore_sharded(
+                    root, convert.train_state_to_flat(model, opt,
+                                                      step.state))
+                convert.train_state_from_flat(model, opt, step.state,
+                                              restored)
+                got_next = float(step(*batch))
+            if got_next != want:
+                raise AssertionError(f"20a: the restored state's next loss "
+                                     f"{got_next}, the unbroken run's {want}")
+            print(f"  20a saved at step {STEPS}, restored into a fresh "
+                  f"model, optimizer and step: next loss {got_next!r} bit "
+                  "for bit the unbroken run's")
+        del step, model, opt, tokens, batch
+    ntok = LM["batch"] * seq
+    for label, runs in turns.items():
+        ms = [t for t, _ in runs]
+        print(f"  20a {label} turns: step ms {[round(t, 2) for t in ms]}, "
+              f"tokens/s {[round(ntok / t * 1e3) for t in ms]}, peak "
+              f"{[round(p / 2**30, 3) for _, p in runs]} GiB")
+    ratio = np.median([t for t, _ in turns["20a"]]) / np.median(
+        [t for t, _ in turns["6b"]])
+    print(f"  20a against 6b in turns: step time {ratio:.4f}x; losses bit "
+          f"for bit 6b's in every turn")
+    hvd.shutdown()
+    return launches
+
+
+def serve_rank(path):
+    """One rank of 20b (``chip_smoke.py --serve-rank CONFIG``): ``init()``
+    over gloo, phase 18's LM loaded params-only from its manifest onto
+    the configured device, one ``ServeEngine`` over the 2 ranks (8
+    slots, 4 a rank). Rank 0 drives 8 of 18a's requests (the shared
+    prefix, the fork, one sampled) and stops the engine; rank 1 follows.
+    Each writes its streams, its decode rows, a digest of its pool and
+    its block tables, and rank 0 its figures, to ``rank<r>.json``."""
+    import hashlib
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    from horovod_tpu_torch.serve import engine as engine_lib
+    from horovod_tpu_torch.serve import kvcache, loader
+    from horovod_tpu_torch.serve.sampling import SamplingParams
+    from horovod_tpu_torch.telemetry.registry import MetricsRegistry
+    with open(path) as f:
+        c = json.load(f)
+    # the caller's settings, which _serve_requests reads too
+    SERVE.update(c["serve"])
+    LM.update(c["lm"])
+    s, lm = SERVE, LM
+    hvd.init(device="cpu")
+    dev = torch.device(c["device"])
+    cfg = TransformerConfig(vocab_size=lm["vocab"], num_layers=lm["layers"],
+                            num_heads=lm["heads"], d_model=lm["d_model"],
+                            d_ff=4 * lm["d_model"], dtype=torch.bfloat16,
+                            flash_attention=True)
+    model = Transformer(cfg, device=dev)
+    t0 = time.perf_counter()
+    loaded, params, _ = loader.load_params(c["root"],
+                                           loader.abstract_params(model))
+    t_load = time.perf_counter() - t0
+    kv = kvcache.KVCacheConfig(
+        num_blocks=s["blocks"], block_size=s["block"],
+        num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+        head_dim=cfg.d_model // cfg.num_heads,
+        max_blocks_per_seq=-(-s["max_seq_len"] // s["block"]),
+        dtype=cfg.dtype)
+    eng = engine_lib.ServeEngine(
+        model, params, kv, mesh=hvd.mesh(), device=dev,
+        max_slots=s["slots"], prefill_chunk=s["chunk"],
+        registry=MetricsRegistry(), weights_version=loaded)
+    out = {"rank": hvd.rank(), "rows": [eng._rows.start, eng._rows.stop],
+           "load_s": t_load}
+    if hvd.rank() == 0:
+        specs = _serve_requests(np.random.default_rng(18), cfg.vocab_size)
+
+        def request(i, **kw):
+            p, skw = specs[i]
+            return engine_lib.Request(
+                p, s["new"], request_id=i,
+                sampling=SamplingParams(**skw) if skw else None, **kw)
+
+        first = eng.submit(request(0))
+        t_start = first.arrival
+        while first.state not in ("decode", "done"):
+            eng.step()
+        reqs = [first, eng.submit(request(1)),
+                eng.submit(engine_lib.Request(specs[0][0], s["new"],
+                                              request_id="fork")),
+                eng.submit(request(2))]
+        reqs += [eng.submit(request(i)) for i in range(4, 8)]
+        _drive_engine(eng, reqs)
+        wall = eng._clock() - t_start
+        eng.stop()
+        parts = eng.time_breakdown
+        itl = [b - a for r in reqs for a, b in zip(r.token_times,
+                                                   r.token_times[1:])]
+        out.update(
+            wall=wall, decode_steps=eng.dispatches["decode"],
+            forks=eng.dispatches["fork"],
+            decode_tok_s=sum(len(r.generated) - 1 for r in reqs)
+            / parts["decode"],
+            itl_p50_ms=1e3 * _pct(itl, 50), itl_p99_ms=1e3 * _pct(itl, 99),
+            exchange_share=eng.exchange_seconds / parts["decode"],
+            sampled=[r.id for r in reqs if r.sampling.temperature > 0],
+            cached=reqs[1].cached_prompt_tokens)
+    else:
+        reqs = []
+        eng.follow(on_request=reqs.append)
+        out["exchange_s"] = eng.exchange_seconds
+    out["streams"] = {str(r.id): r.generated for r in reqs}
+    out["prompts"] = {str(r.id): r.prompt for r in reqs}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for name in ("k", "v"):
+        digest.update(eng._pool[name].contiguous().view(torch.uint8)
+                      .cpu().numpy().tobytes())
+    out["pool"] = digest.hexdigest()
+    out["tables"] = eng._tables.tolist()
+    with open(os.path.join(c["out"], f"rank{hvd.rank()}.json"), "w") as f:
+        json.dump(out, f)
+    hvd.shutdown()
+    return 0
+
+
+def phase_serve_mesh(torch, root, streams18, metrics18, card,
+                     device="cuda:0"):
+    """20b: the serve engine over 2 gloo ranks sharing the card
+    (``serve_rank``), against 18a's one-rank engine: the ranks' streams,
+    pools and tables equal; each greedy token the teacher-forced
+    oracle's argmax or within one bf16 step of its top; the sampled
+    stream bit for bit 18a's. Reports decode tokens/s, inter-token p50
+    and p99 and the exchange's share of the decode time beside 18a's."""
+    import shutil
+    import socket
+    import tempfile
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    from horovod_tpu_torch.serve import loader
+    print("== phase 20b: the serve engine over 2 gloo ranks on the card "
+          "(4 + 4 slots, the pool replicated)")
+    print(f"  {card}")
+    work = tempfile.mkdtemp(prefix="serve_mesh_")
+    try:
+        config = os.path.join(work, "config.json")
+        with open(config, "w") as f:
+            json.dump(dict(root=root, device=device, serve=SERVE, lm=LM,
+                           out=work), f)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(2):
+            env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
+                       HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       # the host's cores shared by two ranks
+                       OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2)
+                                               // 2)))
+            log = open(os.path.join(work, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--serve-rank", config], env=env, stdout=log,
+                stderr=subprocess.STDOUT, cwd=str(ROOT)), log))
+        try:
+            for r, (p, log) in enumerate(procs):
+                rc = p.wait(timeout=400)
+                log.close()
+                if rc:
+                    with open(os.path.join(work, f"rank{r}.log")) as f:
+                        tail = f.read()[-3000:]
+                    raise AssertionError(f"20b: rank {r} exited {rc}:\n{tail}")
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        took = time.perf_counter() - t0
+        outs = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lead, other = outs
+    print(f"  20b two worker processes in {took:.1f} s (start, params-only "
+          f"load {lead['load_s']:.2f} / {other['load_s']:.2f} s, drive); "
+          f"decode rows {lead['rows']} and {other['rows']}")
+    if lead["streams"] != other["streams"]:
+        raise AssertionError("20b: the ranks' streams differ")
+    if lead["pool"] != other["pool"] or lead["tables"] != other["tables"]:
+        raise AssertionError("20b: the ranks' pools or block tables differ")
+    if lead["forks"] < 1 or lead["cached"] != SERVE["prefix"]:
+        raise AssertionError(f"20b: {lead['forks']} forks, the prefix pair "
+                             f"cached {lead['cached']} tokens")
+    print(f"  20b the ranks' {len(lead['streams'])} streams equal token for "
+          f"token; pools and block tables equal bit for bit (sha256 "
+          f"{lead['pool'][:16]}); {lead['forks']} fork(s), the prefix pair "
+          f"cached {lead['cached']} tokens")
+    for i in lead["sampled"]:
+        if lead["streams"][str(i)] != streams18[i]:
+            raise AssertionError(f"20b: sampled request {i} "
+                                 f"{lead['streams'][str(i)]}, 18a's "
+                                 f"{streams18[i]}")
+    print(f"  20b sampled request(s) {lead['sampled']} bit for bit 18a's "
+          "one-rank stream")
+    cfg = TransformerConfig(vocab_size=LM["vocab"], num_layers=LM["layers"],
+                            num_heads=LM["heads"], d_model=LM["d_model"],
+                            d_ff=4 * LM["d_model"], dtype=torch.bfloat16,
+                            flash_attention=True)
+    dev = torch.device(device)
+    model = Transformer(cfg, device=dev)
+    _, params, _ = loader.load_params(root, loader.abstract_params(model))
+    model.load_state_dict(convert.params_from_flax(params, model))
+    exact = tolerated = 0
+    worst = 0.0
+    for key, gen in lead["streams"].items():
+        if key in {str(i) for i in lead["sampled"]}:
+            continue
+        e, t, w = _teacher_forced(torch, model, lead["prompts"][key], gen,
+                                  label="20b")
+        exact, tolerated, worst = exact + e, tolerated + t, max(worst, w)
+    same = sum(lead["streams"][k] == streams18.get(
+        int(k) if k.isdigit() else k) for k in lead["streams"])
+    print(f"  20b greedy tokens against the teacher-forced oracle: {exact} "
+          f"its argmax, {tolerated} within one bf16 step of its top "
+          f"(largest gap {worst:.3g} of max|logit|); {same} of "
+          f"{len(lead['streams'])} streams equal 18a's")
+    print(f"  20b decode {lead['decode_tok_s']:.1f} tokens/s (18a "
+          f"{metrics18['decode_tok_s']:.1f}), inter-token p50 "
+          f"{lead['itl_p50_ms']:.2f} ms p99 {lead['itl_p99_ms']:.2f} ms "
+          f"(18a {metrics18['itl_p50_ms']:.2f}, "
+          f"{metrics18['itl_p99_ms']:.2f}); the token and K/V exchange "
+          f"{100 * lead['exchange_share']:.1f} % of rank 0's decode time "
+          f"({lead['decode_steps']} decode steps, wall "
+          f"{lead['wall']:.3f} s)")
+    print(f"  {card}")
+    del model, params
+    _free(torch)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tune", action="store_true",
                     help="time the tile configurations, then stop")
+    ap.add_argument("--serve-rank", metavar="CONFIG",
+                    help="run one rank of phase 20b (the script starts "
+                         "them itself)")
     args = ap.parse_args(argv)
     if not (ROOT / "horovod_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: horovod_tpu_torch is not beside this script",
               file=sys.stderr)
         return 2
+    if args.serve_rank:
+        sys.path.insert(0, str(ROOT))
+        return serve_rank(args.serve_rank)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4696,7 +5050,11 @@ def main(argv=None):
     print(f"== phase 17 took {time.perf_counter() - t17:.1f} s")
     torch.cuda.empty_cache()
     t18 = time.perf_counter()
-    phase_serve(hvd, fa, torch, bench, card)
+    import shutil
+    import tempfile
+    serve_root = tempfile.mkdtemp(prefix="serve_ckpt_")  # kept for 20b
+    streams18, metrics18 = phase_serve(hvd, fa, torch, bench, card,
+                                       root=serve_root)
     print(f"== phase 18 took {time.perf_counter() - t18:.1f} s")
     torch.cuda.empty_cache()
     t19 = time.perf_counter()
@@ -4704,13 +5062,22 @@ def main(argv=None):
                                     phase5_tok_s)
     phase_tools()
     print(f"== phase 19 took {time.perf_counter() - t19:.1f} s")
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    launches_20 = phase_zero_mesh(hvd, fa, torch, bench, losses_6b)
+    torch.cuda.empty_cache()
+    try:
+        phase_serve_mesh(torch, serve_root, streams18, metrics18, card)
+    finally:
+        shutil.rmtree(serve_root, ignore_errors=True)
+    print(f"== phase 20 took {time.perf_counter() - t20:.1f} s")
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):
         wrapper, replaces, source, design = KERNELS[kind_]
         main = [launches, launches_11b] + launches_12 + launches_13 + \
             launches_14 + [launches_15, launches_16, launches_17,
-                           launches_19]
+                           launches_19, launches_20]
         kernels.append(dict(name=wrapper, route="cuda", source=source,
                             replaces=replaces, design=design,
                             launches=sum(n[kind_] for n in main),

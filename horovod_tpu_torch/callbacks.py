@@ -61,9 +61,7 @@ class BroadcastGlobalVariablesCallback(Callback):
         if isinstance(params, dict):
             hvd_torch.broadcast_parameters(params, self.root_rank)
         elif params is not None:
-            with torch.no_grad():
-                for t in params:
-                    collective.broadcast_(t, root_rank=self.root_rank)
+            hvd_torch.broadcast_variables(params, self.root_rank)
         return ctx
 
 

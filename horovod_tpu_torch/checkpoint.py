@@ -32,6 +32,7 @@ from horovod_tpu_torch import basics, convert
 from horovod_tpu_torch.ckpt import _msgpack, sharded
 from horovod_tpu_torch.ckpt.manifest import fsync_dir
 from horovod_tpu_torch.ops import collective
+from horovod_tpu_torch.parallel import mesh as mesh_lib
 
 _STEP_RE = re.compile(r"ckpt-(\d+)\.msgpack$")
 
@@ -128,7 +129,8 @@ def resume_step(directory, default=0):
         step = default
     if basics.size() > 1:
         t = torch.tensor([step], dtype=torch.int64, device=basics.device())
-        collective.broadcast_(t, root_rank=0)
+        collective.broadcast_(t, root_rank=0,
+                              axes=mesh_lib.get_mesh().world_axes)
         step = int(t.item())
     return step
 
@@ -176,7 +178,8 @@ def restore_or_init(directory, model, optimizer=None):
         leaves = []
         for leaf in sharded.tree_flatten(trees):
             t = torch.as_tensor(np.asarray(leaf)).to(basics.device())
-            collective.broadcast_(t, root_rank=0)
+            collective.broadcast_(t, root_rank=0,
+                                  axes=mesh_lib.get_mesh().world_axes)
             leaves.append(t.cpu().numpy())
         params, opt_state = sharded.tree_unflatten(trees, leaves)
     convert.load_train_state_trees(model, optimizer, None, params,

@@ -72,11 +72,17 @@ class ZeroLeaf:
     ``jax.tree_util.keystr``. A bucket entry's value is ``{row index:
     [shard] array}`` of the rows held (to save), or the whole
     ``[world, shard]`` array (restored); a replicated entry's is its
-    array."""
+    array. ``replica`` is this process's index among the ranks that hold
+    the same row (``Mesh.replica_index`` of the schedule's axes: rows
+    laid out over a part of the mesh, such as ``("data",)`` on a
+    ``(data, model)`` mesh, are replicated along the other axes); the
+    rows are written once, by replica 0. None: the rows are laid out
+    over every process of the save."""
 
-    def __init__(self, schedule, rank, entries):
+    def __init__(self, schedule, rank, entries, replica=None):
         self.schedule, self.rank = schedule, rank
         self.entries = list(entries)
+        self.replica = replica
 
     @property
     def used_sizes(self):
@@ -263,9 +269,14 @@ def snapshot_payload(tree, rank, world, staging=None):
     for i, leaf in enumerate(leaves):
         if isinstance(leaf, ZeroLeaf):
             sched_world = int(leaf.schedule.world)
-            # one rank a row: the row it holds; else a block of rows
-            held = ([leaf.rank] if sched_world == world
-                    else _owned_rows(sched_world, rank, world))
+            # one rank a row: the row it holds, once however many
+            # replicas hold it; else a block of rows
+            if leaf.replica is not None and sched_world < world:
+                held = [leaf.rank] if leaf.replica == 0 else []
+            elif sched_world == world:
+                held = [leaf.rank]
+            else:
+                held = _owned_rows(sched_world, rank, world)
             for key, bucket, value in leaf.entries:
                 if bucket is not None:
                     for r in held:
@@ -414,7 +425,7 @@ def _assemble_zero(target, z, payloads, info):
         out[:n_used] = flat[:n_used]
         entries.append((key, bucket, out.reshape(
             sched.world, sched.shard_sizes[bucket])))
-    return ZeroLeaf(sched, target.rank, entries)
+    return ZeroLeaf(sched, target.rank, entries, replica=target.replica)
 
 
 def restore_sharded(root, target, step=None):

@@ -791,12 +791,16 @@ class _ZeroSlots:
     row ``rank`` of each bucket (``zero.row_index``)."""
 
     def __init__(self, optimizer):
+        from horovod_tpu_torch.parallel import mesh as mesh_lib
         from horovod_tpu_torch.parallel import zero
         zs = optimizer.zero_state
         self.schedule = zs.plan.schedule
-        # the row this rank holds: its rank, or its (data, dcn)-major
-        # index under a hierarchical schedule
+        # the row this rank holds: its index over the rows' axes (its
+        # rank on init()'s meshes), (data, dcn)-major under a
+        # hierarchical schedule; replicas along the other axes hold the
+        # same row, and replica 0 writes it
         self.rank = zero.row_index(self.schedule)
+        self.replica = mesh_lib.get_mesh().replica_index(self.schedule.axes)
         keyed = {f"b{i}": row for i, row in enumerate(zs.rows)}
         names = sorted(keyed)
         rows = [keyed[k] for k in names]
@@ -815,7 +819,7 @@ class _ZeroSlots:
         from horovod_tpu_torch import ckpt
         return ckpt.ZeroLeaf(self.schedule, self.rank, [
             (key, b, slot.get() if b is None else {self.rank: slot.get()})
-            for key, b, slot in self.entries])
+            for key, b, slot in self.entries], replica=self.replica)
 
     def load(self, leaf):
         """Write a restored ``ckpt.ZeroLeaf`` into the rows: each bucket

@@ -324,7 +324,8 @@ class TorchState(ObjectState):
                         else:
                             entries.append((key, b, {r: self._host(
                                 v, (i, key, r)) for r, v in value.items()}))
-                    leaves.append(ckpt.ZeroLeaf(x.schedule, x.rank, entries))
+                    leaves.append(ckpt.ZeroLeaf(x.schedule, x.rank, entries,
+                                                replica=x.replica))
                 else:
                     leaves.append(self._host(x, i))
             if torch.cuda.is_available():
@@ -498,7 +499,7 @@ class TorchState(ObjectState):
                 out.append(ckpt.ZeroLeaf(x.schedule, x.rank, [
                     (key, b, _np(v) if b is None
                      else {r: _np(row) for r, row in v.items()})
-                    for key, b, v in x.entries]))
+                    for key, b, v in x.entries], replica=x.replica))
                 continue
             if isinstance(x, ckpt.GatheredLeaf):
                 x = x.gather()
@@ -579,7 +580,10 @@ def _elect_root(root_rank, has_commit):
     from horovod_tpu_torch.ops.reduction import Min
     me = basics.rank() if has_commit else _UNCOMMITTED
     t = torch.tensor([me], dtype=torch.int64, device=basics.device())
-    root = int(collective.allreduce_(t, op=Min).item())
+    from horovod_tpu_torch.parallel import mesh as mesh_lib
+    # over the world, whatever axes the training reduces over
+    root = int(collective.allreduce_(
+        t, op=Min, axes=mesh_lib.get_mesh().world_axes).item())
     return None if root >= _UNCOMMITTED else root
 
 

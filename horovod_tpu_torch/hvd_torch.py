@@ -60,12 +60,14 @@ class DistributedOptimizer(torch.optim.Optimizer):
       each rank's accumulator is its own mean, and a save keeps the copy
       of the rank that writes each leaf).
     * ``axes`` are the mesh axes the gradients are reduced over
-      (``ops/collective.py``): None, the default, is the whole mesh (the
-      JAX package defaults to the data axes, the same on a 1-D mesh and
-      on ``init()``'s ``(dcn, data)`` mesh); ``("data", "seq")`` for a
+      (``ops/collective.py``): None, the default, is the data axes, as
+      in the JAX package (the world on a 1-D mesh and on ``init()``'s
+      ``(dcn, data)`` mesh); ``("data", "seq")`` for a
       sequence-parallel LM on a (data, seq) mesh. ZeRO-1 and the
-      overlapped pipeline of ``make_train_step`` need axes that span the
-      whole mesh.
+      overlapped pipeline of ``make_train_step`` may run over a part of
+      the mesh (``("data",)`` on a (data, model) mesh): their rows and
+      buckets are laid out over the axes' ranks, and the ranks along
+      the other axes hold replicas.
     * ``op`` is Average, Sum, Min, Max or Adasum: Adasum reduces each
       fused bucket by ``ops/adasum.py`` (its XOR tree over one axis, its
       two-level composite across ``dcn``); it composes with a cast wire,
@@ -88,10 +90,12 @@ class DistributedOptimizer(torch.optim.Optimizer):
       carries error feedback.
 
     Under ``sharded_update``, ``state_dict()`` also carries this rank's
-    ZeRO-1 rows' state (``"zero"``: the rank, the world, the row this
-    rank owns (``zero.row_index``, which a hierarchical schedule
-    permutes) and the row optimizer's ``state_dict``), and
-    ``load_state_dict`` restores it where all three match;
+    ZeRO-1 rows' state (``"zero"``: the rank, the world of the rows'
+    axes, the row this rank owns (``zero.row_index``, which a
+    hierarchical schedule permutes) and the row optimizer's
+    ``state_dict``), and ``load_state_dict`` restores it where the world
+    and the row match (a replica along the other axes holds the same
+    row);
     the row optimizer takes the user's hyperparameters at every step, so
     a scheduler's learning rate reaches it on the next step."""
 
@@ -111,7 +115,6 @@ class DistributedOptimizer(torch.optim.Optimizer):
                     "sharded_update accumulates via make_train_step("
                     "accum_steps=...); backward_passes_per_step>1 would "
                     "stack a second accumulator on top")
-            require_whole_mesh(axes, "sharded_update (ZeRO-1)")
         self.optimizer = optimizer
         self.axes = axes
         self.op = op
@@ -177,9 +180,10 @@ class DistributedOptimizer(torch.optim.Optimizer):
     def state_dict(self):
         sd = self.optimizer.state_dict()
         if self.zero_state is not None:
-            m = mesh_lib.get_mesh()
-            sd["zero"] = {"rank": m.rank, "world": m.size,
-                          "row": zero.row_index(self.zero_state.plan.schedule),
+            schedule = self.zero_state.plan.schedule
+            sd["zero"] = {"rank": mesh_lib.get_mesh().rank,
+                          "world": schedule.world,
+                          "row": zero.row_index(schedule),
                           "state": self.zero_state.inner.state_dict()}
         return sd
 
@@ -193,17 +197,17 @@ class DistributedOptimizer(torch.optim.Optimizer):
                 + " ZeRO-1 rows; this optimizer has sharded_update="
                 f"{self.zero_state is not None}")
         if rows is not None:
-            m = mesh_lib.get_mesh()
-            row = zero.row_index(self.zero_state.plan.schedule)
+            schedule = self.zero_state.plan.schedule
+            row = zero.row_index(schedule)
             # rows saved before the row was recorded were flat: row = rank
-            saved = (rows["rank"], rows["world"],
-                     rows.get("row", rows["rank"]))
-            if saved != (m.rank, m.size, row):
+            saved = (rows["world"], rows.get("row", rows["rank"]))
+            if saved != (schedule.world, row):
                 raise ValueError(
-                    f"ZeRO-1 row {saved[2]} of rank {rows['rank']} of "
-                    f"{rows['world']} cannot load into row {row} of rank "
-                    f"{m.rank} of {m.size}: restore through "
-                    "horovod_tpu_torch.ckpt, which reshards")
+                    f"ZeRO-1 row {saved[1]} of {saved[0]} (rank "
+                    f"{rows['rank']}) cannot load into row {row} of "
+                    f"{schedule.world} (rank {mesh_lib.get_mesh().rank}): "
+                    "restore through horovod_tpu_torch.ckpt, which "
+                    "reshards")
             self.zero_state.inner.load_state_dict(rows["state"])
         self.optimizer.load_state_dict(state_dict)
 
@@ -247,11 +251,13 @@ class DistributedOptimizer(torch.optim.Optimizer):
         return wire
 
     def reduce_axes(self):
-        """The axes the gradients are reduced over: ZeRO-1's schedule's,
-        else ``axes`` resolved on the installed mesh."""
-        if self.zero_state is not None:
-            return self.zero_state.plan.schedule.axes
-        return mesh_lib.get_mesh().resolve(self.axes)
+        """The axes the gradients are reduced over: ZeRO-1's rows' (its
+        schedule's scatter order), else ``axes``, resolved on the
+        installed mesh (None: the data axes)."""
+        axes = (self.zero_state.plan.schedule.axes
+                if self.zero_state is not None else self.axes)
+        return (mesh_lib.get_mesh().resolve(axes) if axes is None
+                else ((axes,) if isinstance(axes, str) else tuple(axes)))
 
     def hierarchical_resolved(self):
         """``hierarchical``, or with None ``HOROVOD_HIERARCHICAL_ALLREDUCE``
@@ -365,38 +371,35 @@ class DistributedOptimizer(torch.optim.Optimizer):
         return self.optimizer.step()
 
 
-def require_whole_mesh(axes, what):
-    """Raise ``NotImplementedError`` unless ``axes`` (in any order: a
-    hierarchical schedule's ``("data", "dcn")``) reduce over the whole
-    installed mesh: ZeRO-1's rows and the overlapped bucket schedule are
-    laid out over every rank."""
-    if axes is None:
-        return
-    m = mesh_lib.get_mesh()
-    named = {axes} if isinstance(axes, str) else set(axes)
-    for a in named:
-        m.axis_size(a)  # an axis the mesh lacks raises ValueError
-    if not all(n == 1 or a in named for a, n in zip(m.axis_names, m.shape)):
-        raise NotImplementedError(
-            f"{what} over the axes {axes!r}, a part of the mesh, is not "
-            "ported (ROADMAP.md Queue 1 item 4); reduce over the whole "
-            "mesh (axes=None)")
+def _sync_axes(axes):
+    """The axes of a startup sync: ``axes``, or with None every axis of
+    the mesh (``Mesh.world_axes``). The JAX package's default is the
+    data axes, but there a replicated parameter is one array on one
+    controller; here every rank holds its own copy of the parameters and
+    of their optimizer state, on a (data, model) mesh too, so the sync
+    that makes the copies equal spans the world."""
+    return mesh_lib.get_mesh().world_axes if axes is None else axes
 
 
 @torch.no_grad()
-def broadcast_parameters(state_dict, root_rank=0):
-    """Overwrite, in place, every tensor of ``state_dict`` with rank
-    ``root_rank``'s, in the order of the names."""
+def broadcast_parameters(state_dict, root_rank=0, axes=None):
+    """Overwrite, in place, every tensor of ``state_dict`` with the value
+    of the rank whose ``mesh_rank(axes)`` is ``root_rank`` (None: every
+    axis, ``_sync_axes``), in the order of the names."""
+    axes = _sync_axes(axes)
     for name in sorted(state_dict):
-        collective.broadcast_(state_dict[name], root_rank=root_rank)
+        collective.broadcast_(state_dict[name], root_rank=root_rank,
+                              axes=axes)
 
 
 @torch.no_grad()
 def broadcast_variables(variables, root_rank=0, axes=None):
     """Overwrite, in place, every tensor of ``variables`` (an iterable of
     tensors, in order) with the value of the rank whose
-    ``mesh_rank(axes)`` is ``root_rank``: the startup sync of a list of
-    tensors. Returns them as a list."""
+    ``mesh_rank(axes)`` is ``root_rank`` (None: every axis,
+    ``_sync_axes``): the startup sync of a list of tensors. Returns them
+    as a list."""
+    axes = _sync_axes(axes)
     variables = list(variables)
     for v in variables:
         collective.broadcast_(v, root_rank=root_rank, axes=axes)
@@ -420,20 +423,23 @@ def distributed_value_and_grad(fun, op=Average, axes=None, compression=None):
 
 
 @torch.no_grad()
-def broadcast_optimizer_state(optimizer, root_rank=0):
+def broadcast_optimizer_state(optimizer, root_rank=0, axes=None):
     """Overwrite, in place, the optimizer's per-parameter state tensors
-    and its hyperparameters with rank ``root_rank``'s. Tensors that live
+    and its hyperparameters with those of the rank whose
+    ``mesh_rank(axes)`` is ``root_rank`` (None: every axis,
+    ``_sync_axes``); both travel over the same group. Tensors that live
     off this process's device (e.g. AdamW's ``step`` on the CPU) travel
     through the device and are copied back."""
     opt = getattr(optimizer, "optimizer", optimizer)
     m = mesh_lib.get_mesh()
+    axes = _sync_axes(axes)
+    group, src = collective.root_of(root_rank, axes)
     groups = [{k: v for k, v in g.items() if k != "params"}
               for g in opt.param_groups]
     obj = [groups]
-    dist.broadcast_object_list(obj, src=root_rank, group=m.group,
-                               device=m.device)
-    for g, src in zip(opt.param_groups, obj[0]):
-        g.update(src)
+    dist.broadcast_object_list(obj, src=src, group=group, device=m.device)
+    for g, new in zip(opt.param_groups, obj[0]):
+        g.update(new)
     params = [p for g in opt.param_groups for p in g["params"]]
     for p in params:
         for key in sorted(opt.state.get(p, {})):
@@ -441,7 +447,7 @@ def broadcast_optimizer_state(optimizer, root_rank=0):
             if not torch.is_tensor(v):
                 continue
             tmp = v.to(m.device)
-            collective.broadcast_(tmp, root_rank=root_rank)
+            collective.broadcast_(tmp, root_rank=root_rank, axes=axes)
             if tmp is not v:
                 v.copy_(tmp)
 
@@ -456,10 +462,11 @@ def _numeric(x):
 
 
 @torch.no_grad()
-def allreduce_metrics(metrics, op=Average):
-    """Reduce scalar metrics across ranks (Horovod's
-    ``MetricAverageCallback``). ``metrics`` is any nest of dicts, lists and
-    tuples; each numeric leaf comes back as a tensor on this process's
+def allreduce_metrics(metrics, op=Average, axes=None):
+    """Reduce scalar metrics across the ranks of ``axes`` (None: the data
+    axes, as in the JAX package; the replicas along the other axes hold
+    equal metrics) (Horovod's ``MetricAverageCallback``). ``metrics`` is
+    any nest of dicts, lists and tuples; each numeric leaf comes back as a tensor on this process's
     device: fp32 under Average (an averaged count is a float), its own
     dtype under Sum for integers. Other leaves (strings, None) pass
     through unchanged."""
@@ -473,24 +480,27 @@ def allreduce_metrics(metrics, op=Average):
             t = t.long()
         if op == Average or t.is_floating_point():
             t = t.float()
-        return collective.allreduce(t, op=op)
+        return collective.allreduce(t, op=op, axes=axes)
 
     return _pytree.tree_map(one, metrics)
 
 
 @torch.no_grad()
-def join(grads, is_active, op=Average):
-    """Join-aware gradient allreduce for uneven data: a rank whose data
-    is exhausted passes ``is_active=False`` and contributes zeros, and the
-    mean is over the active ranks only. Returns ``(reduced grads, number
+def join(grads, is_active, op=Average, axes=None):
+    """Join-aware gradient allreduce for uneven data over the ranks of
+    ``axes`` (None: the data axes, as in the JAX package): a rank whose
+    data is exhausted passes ``is_active=False`` and contributes zeros,
+    and the mean is over the active ranks only. Returns ``(reduced grads, number
     of active ranks)``; ``grads`` is any nest of tensors."""
     m = mesh_lib.get_mesh()
     active = torch.as_tensor(is_active, dtype=torch.float32,
                              device=m.device)
-    n_active = collective.allreduce(active, op=Sum).clamp_min(1.0)
+    n_active = collective.allreduce(active, op=Sum,
+                                    axes=axes).clamp_min(1.0)
 
     def one(g):
-        summed = collective.allreduce(g * active.to(g.dtype), op=Sum)
+        summed = collective.allreduce(g * active.to(g.dtype), op=Sum,
+                                      axes=axes)
         if op == Average:
             summed = summed / n_active.to(summed.dtype)
         return summed

@@ -5,9 +5,10 @@ The port of ``horovod_tpu/ops/collective.py``'s ``allreduce``,
 ``mesh_size`` and ``mesh_rank``, and of ``lax.ppermute``:
 ``torch.distributed`` calls on a process group of the installed mesh
 (``parallel/mesh.py``; NCCL on the card, gloo on the CPU). ``axes`` names
-the mesh axes a collective runs over: None for the whole mesh (the
-world), a name, or a tuple. (The JAX package's default is the data axes,
-``data_axis_names()``; on a 1-D mesh the two are the world.) Average is
+the mesh axes a collective runs over: a name, a tuple, or None for the
+data axes (``data_axis_names()``, as the JAX package's
+``_resolve_axes``; every axis of a mesh without one; the world on a 1-D
+mesh and on ``init()``'s ``(dcn, data)`` mesh). Average is
 a Sum followed by a division by the group's size, one path for both
 backends (gloo has no AVG). Chunk ``i`` of dim 0 belongs to the rank
 whose ``mesh_rank(axes)`` is ``i`` in every collective that splits or
@@ -164,14 +165,14 @@ def _inverse(lin):
 def allreduce_(x, op=Average, axes=None, logical_nbytes=None):
     """Reduce ``x`` in place across the ranks of ``axes``; every rank
     gets the result. ``op=Adasum`` runs ``ops/adasum.py``'s
-    ``adasum_allreduce`` over ``axes`` (None: every axis of the mesh):
+    ``adasum_allreduce`` over ``axes`` (None: the data axes):
     its XOR tree over one axis (a power of 2 of ranks, else
     ``ValueError``), its two-level composite over several.
     ``logical_nbytes`` is the uncompressed width behind a payload a
     caller narrowed (telemetry's logical bytes; default: ``x``'s)."""
     if op == Adasum:
         from horovod_tpu_torch.ops import adasum
-        axes = mesh_lib.get_mesh().axis_names if axes is None else axes
+        axes = mesh_lib.get_mesh().resolve(axes)
         return x.copy_(adasum.adasum_allreduce(x, axes))
     if op not in _OPS:
         raise ValueError(f"unknown reduction op: {op!r}")
@@ -449,14 +450,21 @@ def ppermute(x, axis, perm):
     return _PPermute.apply(x, axis, [tuple(p) for p in perm])
 
 
+def root_of(root_rank=0, axes=None):
+    """``(group, global rank)`` of the rank whose ``mesh_rank(axes)`` is
+    ``root_rank``: the group over ``axes`` and the ``src`` a
+    ``torch.distributed`` broadcast from that rank takes."""
+    group, ranks, _ = _group(axes)
+    lin = _linear(axes)
+    return group, ranks[root_rank if lin is None else lin.index(root_rank)]
+
+
 def broadcast_(x, root_rank=0, axes=None):
     """Overwrite ``x`` in place with the value of the rank whose
     ``mesh_rank(axes)`` is ``root_rank``."""
-    group, ranks, _ = _group(axes)
-    lin = _linear(axes)
-    root = root_rank if lin is None else lin.index(root_rank)
+    group, src = root_of(root_rank, axes)
     with _recorded("broadcast", x):
-        dist.broadcast(x, src=ranks[root], group=group)
+        dist.broadcast(x, src=src, group=group)
     return x
 
 

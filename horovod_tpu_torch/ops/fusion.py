@@ -21,7 +21,7 @@ Two exchanges use it:
   of ``ops/compression.py``, with an optional error-feedback residual.
 
 Every exchange takes ``axes``, the mesh axes it reduces over
-(``ops/collective.py``; None: the whole mesh). A ``BucketSchedule``
+(``ops/collective.py``; None: the data axes). A ``BucketSchedule``
 carries its own: the scatter order, walked axis by axis, which
 ``hierarchical=True`` makes ICI-first (``("data", "dcn")`` on a
 ``(dcn, data)`` mesh) so the cross-host stage moves 1/ici_size of the
@@ -301,8 +301,9 @@ def fused_allreduce(tensors, op=collective.Average, axes=None,
 class BucketSchedule:
     """Static plan of the bucketed exchange: the buckets in
     reverse (backward-ready) order, each padded to a multiple of
-    ``world``. ``axes`` is the scatter order (None: the whole mesh, one
-    collective): the reduce-scatter walks it first to last, the
+    ``world``, the number of ranks across ``axes``. ``axes`` is the
+    scatter order (None: the data axes, one collective): the
+    reduce-scatter walks it first to last, the
     all-gather inverts it, and the rank whose
     ``collective.mesh_rank(axes)`` is ``r`` owns chunk ``r``
     (``shard_sizes[i]`` elements) of bucket ``i``. Every collective of
@@ -323,10 +324,13 @@ def bucket_schedule(leaves, world, threshold_bytes=None, perms=None,
     """Plan the bucketed exchange for ``leaves`` (one plan, reused by
     every microbatch and every step); ``perms`` as in
     ``plan_buckets``. With ``hierarchical`` and a ``dcn`` axis among
-    ``axes`` (None: the installed mesh's), the scatter order is made
-    ICI-first, ``dcn`` last."""
+    ``axes`` (None: the installed mesh's data axes), the scatter order
+    is made ICI-first, ``dcn`` last. ``world`` is the number of ranks
+    across ``axes`` (``collective.mesh_size(axes)``): the rows of a
+    schedule over a part of the mesh are replicated along the other
+    axes."""
     if hierarchical:
-        axes = mesh_lib.get_mesh().axis_names if axes is None else axes
+        axes = mesh_lib.get_mesh().resolve(axes) if axes is None else axes
     if axes is not None:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         if _two_level(hierarchical, axes):
@@ -373,7 +377,7 @@ def _record_bucket(kind, schedule, idx, nbytes, t0, dtype,
 
 def _reduce_scatter(flat, op, axes, async_op=False, logical_nbytes=None):
     """Reduce-scatter ``flat`` over ``axes``: one collective over one axis
-    or the whole mesh (None), else the two-level stages of
+    or the data axes (None), else the two-level stages of
     ``parallel/hierarchical.py`` in the order of ``axes``."""
     if op not in (collective.Sum, collective.Average):
         raise ValueError("reducescatter supports Sum or Average")

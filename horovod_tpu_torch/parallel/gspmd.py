@@ -233,7 +233,7 @@ def derive_plan(mesh=None, model_axis=None):
 
 def _row_axes(zstate, mesh):
     axes = zstate.plan.schedule.axes
-    return tuple(mesh.axis_names if axes is None else axes)
+    return mesh.resolve(axes) if axes is None else tuple(axes)
 
 
 def state_partition_specs(model, optimizer):

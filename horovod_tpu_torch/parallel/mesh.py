@@ -16,9 +16,12 @@ the job spans hosts (``HOROVOD_CROSS_SIZE > 1``, dividing the world), the
 JAX package's ``build_mesh`` form; Horovod's ranks are host-major, so
 row-major order is rank order); ``build_mesh`` installs the one it
 builds. ``group``, ``size`` and
-``rank`` are always the whole mesh's (the world's): the default
-reduction of the collectives, ``DistributedOptimizer``, the bucket
-exchange, ZeRO-1 and the checkpoints read them.
+``rank`` are always the whole mesh's (the world's), and ``world_axes``
+names every axis. ``axes=None`` in a collective, in
+``DistributedOptimizer``, the bucket exchange and ZeRO-1 means the data
+axes (``data_axis_names``: ``data``, and ``dcn`` when present), as the
+JAX package's ``collective._resolve_axes`` resolves it; on a mesh with
+no data axis, every axis. On ``init()``'s meshes the two are the world.
 """
 
 import dataclasses
@@ -79,6 +82,13 @@ class Mesh:
         """This rank's coordinate on each axis (row-major)."""
         return tuple(int(c) for c in np.unravel_index(self.rank, self.shape))
 
+    @property
+    def world_axes(self):
+        """Every axis of the mesh: the axes of a collective that must
+        reach every rank whatever the data axes are (the startup sync,
+        the checkpoints' and the elastic state's broadcasts)."""
+        return self.axis_names
+
     def axis_size(self, axis):
         return self.shape[self._axis(axis)]
 
@@ -93,10 +103,11 @@ class Mesh:
                              f"{self.axis_names}") from None
 
     def resolve(self, axes):
-        """``axes`` (None: every axis; a name; a tuple of names in mesh
+        """``axes`` (None: the data axes, ``data_axis_names``, or every
+        axis of a mesh without one; a name; a tuple of names in mesh
         order) as a tuple in mesh order."""
         if axes is None:
-            return self.axis_names
+            return data_axis_names(self) or self.axis_names
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         idx = [self._axis(a) for a in axes]
         if not idx or idx != sorted(set(idx)):
@@ -110,6 +121,19 @@ class Mesh:
         axes = self.resolve(axes)
         return all(n == 1 or a in axes
                    for a, n in zip(self.axis_names, self.shape))
+
+    def replica_index(self, axes):
+        """This rank's row-major index over the axes that ``axes`` (in
+        any order; None: the data axes) leave out, 0 where they span the
+        mesh: the replicas of a state laid out over ``axes`` are told
+        apart by it, and the replica at 0 writes it once."""
+        axes = (self.resolve(None) if axes is None else
+                (axes,) if isinstance(axes, str) else tuple(axes))
+        idx = 0
+        for a, n, c in zip(self.axis_names, self.shape, self.coords):
+            if a not in axes:
+                idx = idx * n + c
+        return idx
 
     def group_of(self, axes):
         """``(group, ranks)`` of this rank over ``axes``: the process

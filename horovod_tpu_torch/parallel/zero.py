@@ -10,8 +10,12 @@ replicated.
 
 The partition is ``ops.fusion.BucketSchedule``: the rank whose
 ``mesh_rank`` over the schedule's axes is ``r`` owns flat chunk ``r`` of
-every padded bucket (rank ``r`` itself, unless a hierarchical schedule
-orders the rows ``(data, dcn)``-major). Torch keys optimizer state by tensor
+every padded bucket (rank ``r`` itself on ``init()``'s meshes, unless a
+hierarchical schedule orders the rows ``(data, dcn)``-major). Over a
+part of the mesh (``axes=("data",)`` on a ``(data, model)`` mesh) every
+collective runs on the axes' process group, and the ranks that differ
+only along the other axes hold equal rows: replicas, as the JAX rows
+``P(("data",))`` are replicated over ``model``. Torch keys optimizer state by tensor
 identity, so this rank's chunk of every bucket is a persistent tensor (a
 "row"), and an inner optimizer of the user's class and hyperparameters
 owns the rows. Each step follows the reference's ``_local_param_rows`` and
@@ -48,7 +52,8 @@ class ZeroPlan:
 def make_plan(params, op=Average, threshold_bytes=None, perms=None,
               axes=None, hierarchical=False):
     """The ZeRO partition of ``params`` (a list, in the order the buckets
-    pack it) over ``axes`` (None: the whole mesh); ``perms``
+    pack it) over ``axes`` (None: the data axes, as the JAX plan's;
+    ranks along the other axes hold equal rows); ``perms``
     (``fusion.plan_buckets``) packs each parameter as its flax array
     flattens, so row ``r`` holds the elements the JAX package's row ``r``
     holds. With ``hierarchical`` on a mesh with a ``dcn`` axis the

@@ -1,4 +1,4 @@
 """Host-side services attached at ``init()`` time: the port of
 ``horovod_tpu/runtime/`` (``services.py``, and the stall inspector,
 ``stall.py``). Only the native-core controller waits, for ROADMAP
-item 8."""
+Queue 1 item 4a (the port's shim over the native core)."""

@@ -11,6 +11,14 @@ polling the checkpoint dir for newer manifests — a training job
 committing checkpoints into the same directory rolls new weights into
 serving without a restart.
 
+Under ``hvdrun-torch -np N`` (N > 1) every rank loads the params and
+runs one rank of a single engine over the ranks (``serve/engine.py``):
+the decode slots split over the data ranks, the pool replicated. Only
+rank 0 binds HTTP and takes requests (and polls for new checkpoints,
+whose weights it broadcasts); the other ranks follow its iterations and
+leave SIGTERM and SIGINT to it: a shutdown on rank 0 ends every rank.
+``--fleet`` serves the cards of one process and is refused there.
+
 The model architecture is not recorded in the checkpoint (params are a
 plain tree), so the flags must restate it. A manifest whose ``meta``
 carries a ``model_config`` dict is cross-checked against the flags and
@@ -135,12 +143,27 @@ def main(argv=None):
     from horovod_tpu_torch.serve.server import ServeServer
     from horovod_tpu_torch.serve.tracing import ServeTracer
 
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.config import Config
+    from horovod_tpu_torch.telemetry.registry import MetricsRegistry
+
+    mesh = None
+    if Config.from_env().size > 1:
+        if args.fleet > 1:
+            raise SystemExit("hvd-serve-torch: --fleet serves the cards of "
+                             "one process; under hvdrun -np N > 1 the ranks "
+                             "serve one engine")
+        basics.init(device="cpu" if args.device == "cpu" else None)
+        mesh = basics.mesh()
+    leader = mesh is None or mesh.rank == 0
+
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     cfg = TransformerConfig(
         vocab_size=args.vocab_size, num_layers=args.num_layers,
         num_heads=args.num_heads, d_model=args.d_model, d_ff=args.d_ff,
         dtype=dtype, causal=True)
-    devices = replica_devices(max(1, args.fleet), args.device)
+    devices = ([basics.device()] if mesh is not None
+               else replica_devices(max(1, args.fleet), args.device))
     model = Transformer(cfg)
 
     target = loader.abstract_params(model)
@@ -164,7 +187,8 @@ def main(argv=None):
 
     # tracing is opt-in (env knobs / --trace-dir); tracer=None keeps
     # the request path free of any recording
-    tracer = ServeTracer.from_env(out_dir=args.trace_dir)
+    tracer = (ServeTracer.from_env(out_dir=args.trace_dir) if leader
+              else None)
     if tracer is not None:
         logger.info("hvd-serve-torch: request tracing armed (sample=%.3g, "
                     "slo_ms=%s, dir=%s)", tracer.sample, tracer.slo_ms,
@@ -187,9 +211,25 @@ def main(argv=None):
         router.start()
         target_for_reload, frontend = router, FleetServer(
             router, addr=args.addr, port=args.port)
+    elif not leader:
+        # a rank of the engine over the ranks: its own registry (the
+        # serve instruments count once per job, on rank 0), rank 0's
+        # iterations followed until its stop
+        eng = engine_lib.ServeEngine(
+            model, params, kv, mesh=mesh, device=devices[0],
+            max_slots=args.max_slots, prefill_chunk=args.prefill_chunk,
+            weights_version=step, registry=MetricsRegistry())
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        logger.info("hvd-serve-torch: rank %d follows rank 0's engine "
+                    "(decode rows %d..%d)", mesh.rank, eng._rows.start,
+                    eng._rows.stop - 1)
+        eng.follow()
+        basics.shutdown()
+        return 0
     else:
         eng = engine_lib.ServeEngine(
-            model, params, kv, device=devices[0],
+            model, params, kv, mesh=mesh, device=devices[0],
             max_slots=args.max_slots, prefill_chunk=args.prefill_chunk,
             weights_version=step, tracer=tracer)
         eng.start()
@@ -238,6 +278,8 @@ def main(argv=None):
                             "to %s (ndjson) and %s (Chrome)", n,
                             tracer.out_dir, merged)
             tracer.close()
+        if mesh is not None:
+            basics.shutdown()
     return 0
 
 

@@ -33,10 +33,25 @@ written in place. The model runs with the engine's parameters through
 engines and weight versions, as one flax module serves the JAX
 package's.
 
-The engine holds one device. The JAX package's batch sharding of the
-slots over a data mesh is not ported: an engine given a mesh of more
-than one rank raises ``NotImplementedError``. Several cards serve as a
-fleet (``serve/fleet/``), one engine a card.
+Each process holds one device. Over a mesh of more than one rank (one
+process a card, ``hvdrun-torch -np N``) every rank runs the same engine
+on a replicated pool, and the decode slots are split over the data
+ranks as the JAX engine's ``batch_spec`` splits them (``max_slots``
+divided by the data axes' size; an indivisible count runs every row on
+every rank, logged once): each rank decodes its rows, and one
+all-gather over the data axes hands every rank every slot's next token
+and new K/V rows, which it writes into its own pool, as the JAX decode
+program's replicated outputs do. Prefill and the copy-on-write fork run
+replicated. The scheduler's decisions stay equal on every rank because
+they are taken from one stream of inputs: requests enter on rank 0,
+and at the head of each iteration rank 0 broadcasts what arrived since
+the last one (with its arrival stamps), its draining flag, a staged
+weight swap and its stop; the other ranks follow (``follow()``). The
+stop goes out from the thread that drives rank 0's iterations, after
+its last one, and also when a dispatch breaks the engine, so the
+followers never wait on a rank that has ended.
+Several cards may also serve as a fleet (``serve/fleet/``), one engine
+a card.
 
 Sampling defaults to greedy (argmax) — deterministic, which is what
 makes "continuous-batched decode equals a single-shot decode" a testable
@@ -72,6 +87,7 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from horovod_tpu_torch.parallel import mesh as mesh_lib
 from horovod_tpu_torch.serve import kvcache
@@ -183,6 +199,21 @@ def _select(logits, sampling, indices):
     return sampling_lib.sample_tokens(logits, seeds, indices, temps, top_ps)
 
 
+def decode_rows(model, params, pool, tokens, lengths, tables, sampling,
+                max_context):
+    """The decode program's work on some rows, without the pool write:
+    ``tokens`` ``[b]`` the last tokens at positions ``lengths`` ``[b]``,
+    ``tables`` ``[b, max_blocks_per_seq]``. Returns ``(next tokens [b],
+    new K [L, b, 1, H, D], new V)``; a row's results do not depend on the
+    other rows, so a rank of a mesh runs its own rows only."""
+    logits, (nk, nv) = _forward(
+        model, params, tokens[:, None], lengths[:, None], pool, tables,
+        kvcache.context_positions(lengths, max_context))
+    # the token being sampled sits at absolute index len+1 (the fed
+    # token occupies len) — the index the per-slot RNG key is folded from
+    return _select(logits[:, -1, :], sampling, lengths + 1), nk, nv
+
+
 def decode_program(model, params, pool, tokens, lengths, tables, sampling,
                    max_context):
     """One new token for every slot: ``tokens`` ``[B]`` the last tokens at
@@ -190,15 +221,11 @@ def decode_program(model, params, pool, tokens, lengths, tables, sampling,
     the null block and whose token the host ignores), ``tables`` ``[B,
     max_blocks_per_seq]``. Writes the fed tokens' K/V into the pool and
     returns the ``[B]`` next tokens (``sampling`` None: all greedy)."""
-    active = lengths > 0
-    logits, (nk, nv) = _forward(
-        model, params, tokens[:, None], lengths[:, None], pool, tables,
-        kvcache.context_positions(lengths, max_context))
+    nxt, nk, nv = decode_rows(model, params, pool, tokens, lengths, tables,
+                              sampling, max_context)
     kvcache.write_tokens(pool, tables, lengths, nk, nv,
-                         mask=active[:, None])
-    # the token being sampled sits at absolute index len+1 (the fed
-    # token occupies len) — the index the per-slot RNG key is folded from
-    return _select(logits[:, -1, :], sampling, lengths + 1)
+                         mask=(lengths > 0)[:, None])
+    return nxt
 
 
 def prefill_program(model, params, pool, tokens, start, total, table,
@@ -227,23 +254,23 @@ def prefill_program(model, params, pool, tokens, start, total, table,
     return _select(logits[0, last][None], sampling, index)
 
 
-def engine_device(mesh=None, device=None):
-    """The one device an engine computes on: ``device``, else the mesh's
-    (``mesh``, else the installed one after ``init()``), else the current
-    CUDA device. A mesh of more than one rank raises: sharding the decode
-    batch over it is not ported (ROADMAP item 7's remainder). No card
-    and no device raises too: nothing falls back to the CPU unasked."""
+def engine_mesh(mesh=None, device=None):
+    """The mesh an engine runs over: ``mesh``, else, unless a ``device``
+    is given without one, the installed one after ``init()``; None
+    without either."""
     if mesh is None and device is None:
         try:
             mesh = mesh_lib.get_mesh()
         except RuntimeError:
             mesh = None
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"serve: an engine over a mesh of {mesh.size} ranks (the decode "
-            "batch sharded over its data axes) is not ported (ROADMAP item "
-            "7's remainder); serve one engine a card, several behind "
-            "serve.fleet.FleetRouter")
+    return mesh
+
+
+def engine_device(mesh=None, device=None):
+    """The device an engine computes on: ``device``, else the mesh's
+    (``engine_mesh``), else the current CUDA device. No card and no
+    device raises: nothing falls back to the CPU unasked."""
+    mesh = engine_mesh(mesh, device)
     if device is not None:
         return torch.device(device)
     if mesh is not None:
@@ -252,6 +279,23 @@ def engine_device(mesh=None, device=None):
         raise RuntimeError("serve: no CUDA device; pass device='cpu' to "
                            "serve on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def decode_layout(mesh, max_slots):
+    """``(rows, world, sharded)`` of this rank's decode rows over
+    ``mesh`` (None: one rank): the data axes split the ``max_slots``
+    rows into ``world`` equal blocks, block ``i`` to the rank whose
+    row-major index over them is ``i``, as the JAX engine's
+    ``batch_spec``; an indivisible count leaves every row on every rank
+    (``sharded`` False)."""
+    if mesh is None or mesh.size == 1:
+        return slice(0, max_slots), 1, False
+    _, ranks = mesh.group_of(None)  # the data axes, row-major
+    world, index = len(ranks), ranks.index(mesh.rank)
+    if max_slots % world:
+        return slice(0, max_slots), world, False
+    b = max_slots // world
+    return slice(index * b, (index + 1) * b), world, True
 
 
 class ServeEngine:
@@ -265,7 +309,13 @@ class ServeEngine:
     masked); ``prefill_chunk`` the per-iteration prompt chunk.
     ``clock`` is injectable for deterministic scheduler tests. Drive it
     either with :meth:`start`/:meth:`stop` (background thread — the HTTP
-    frontend's mode) or by calling :meth:`step` yourself."""
+    frontend's mode) or by calling :meth:`step` yourself.
+
+    ``mesh`` (None: the installed one after ``init()``, unless a
+    ``device`` is given without it) of more than one rank makes this a
+    rank of one engine over the mesh (module docstring): rank 0 takes
+    the requests and drives it; every other rank calls :meth:`follow`,
+    which returns when rank 0's engine stops."""
 
     def __init__(self, model, params, kv_config, mesh=None, max_slots=4,
                  prefill_chunk=16, clock=time.monotonic, registry=None,
@@ -275,7 +325,27 @@ class ServeEngine:
             raise ValueError("max_slots must be >= 1")
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        mesh = engine_mesh(mesh, device)
         self.device = engine_device(mesh, device)
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._rows, world, self._sharded = decode_layout(self._mesh,
+                                                         int(max_slots))
+        if self._mesh is not None and not self._sharded:
+            # an indivisible slot count replicates the decode batch —
+            # correct everywhere, parallel nowhere; say so once
+            logger.info(
+                "serve: max_slots=%d does not divide the %d-way data "
+                "mesh — decode batch replicated (pick a multiple for "
+                "batch sharding)", int(max_slots), world)
+        self.leader = self._mesh is None or self._mesh.rank == 0
+        # rank 0's requests since the last iteration's broadcast
+        self._inbox = []
+        self._on_request = None
+        self._stop_sent = False
+        # host seconds of the decode steps' token and K/V exchange (over
+        # gloo the copies through the host and the wait for the other
+        # ranks; over NCCL only the issue, the collective being async)
+        self.exchange_seconds = 0.0
         self._model = model
         self._kv = kv_config
         self._clock = clock
@@ -370,6 +440,9 @@ class ServeEngine:
         immediately — loudly to the caller AND on the request's own
         stream."""
         kv = self._kv
+        if not self.leader:
+            raise RequestError("requests enter a serve engine over a mesh "
+                               "on rank 0; this rank follows it")
         with self._work:
             request.arrival = self._clock()
             err = None
@@ -411,9 +484,12 @@ class ServeEngine:
                 self._live_traces += 1
                 tr.phase(request.arrival, "queued")
                 tr.event("submit", request.arrival, actor=self.name)
-            self._waiting.append(request)
+            # over a mesh a request joins the queue at the next
+            # iteration's head, on every rank at once
+            (self._inbox if self._mesh is not None
+             else self._waiting).append(request)
             self.instruments.submitted.inc()
-            self.instruments.queue_depth.set(len(self._waiting))
+            self.instruments.queue_depth.set(self.queue_depth)
             self._work.notify_all()
         return request
 
@@ -485,6 +561,8 @@ class ServeEngine:
             # admission is inside the failure boundary: the CoW fork it
             # may dispatch writes the pool like the two programs below
             with self._lock:
+                if self._mesh is not None and not self._sync_iteration():
+                    return {"stopped": True}
                 swapped = False
                 if self._staged is not None:
                     t_sw = self._clock()
@@ -533,6 +611,8 @@ class ServeEngine:
                     if r is not None and r.state not in ("done", "failed"):
                         self._fail(r, f"engine dispatch failed: {e}")
                 self._waiting.clear()
+            # over a mesh, end the other ranks' follow() with this one
+            self._send_stop()
             raise
         # whatever the iteration spent outside the two dispatches
         # (admission, bookkeeping, streaming) is scheduler overhead —
@@ -540,6 +620,121 @@ class ServeEngine:
         self.time_breakdown["overhead"] += max(
             0.0, self._clock() - t0 - compute_s)
         return stats
+
+    # -- the ranks of an engine over a mesh -----------------------------------
+    def _bcast(self, obj):
+        """``obj`` of rank 0 on every rank of the mesh."""
+        box = [obj]
+        dist.broadcast_object_list(
+            box, src=0, group=self._mesh.group,
+            device=self.device if dist.get_backend(self._mesh.group)
+            == "nccl" else None)
+        return box[0]
+
+    def _sync_iteration(self):
+        """The head of an iteration over a mesh (under the lock): rank 0
+        moves its inbox into the queue and broadcasts what every rank's
+        scheduler reads from outside (the new requests with their
+        arrival stamps, the draining flag, a staged weight swap, the
+        stop); the others take them. Returns False at the stop."""
+        if self.leader:
+            msg = {"new": [_request_spec(r) for r in self._inbox],
+                   "draining": self.draining, "stop": False,
+                   "swap": self._staged is not None,
+                   "version": (self._staged[1] if self._staged is not None
+                               else None)}
+            self._waiting.extend(self._inbox)
+            self._inbox = []
+            self._bcast(msg)
+        else:
+            msg = self._bcast(None)
+            if msg["stop"]:
+                return False
+            for spec in msg["new"]:
+                req = _request_from_spec(spec)
+                self._waiting.append(req)
+                self.instruments.submitted.inc()
+                if self._on_request is not None:
+                    self._on_request(req)
+            self.draining = msg["draining"]
+        if msg["swap"]:
+            # rank 0's staged parameters, tensor by tensor in name order
+            params = (self._staged[0] if self.leader else
+                      {k: torch.empty_like(v)
+                       for k, v in self._params.items()})
+            for name in sorted(params):
+                self._bcast_tensor(params[name])
+            self._staged = (params, msg["version"])
+        return True
+
+    def _bcast_tensor(self, t):
+        group = self._mesh.group
+        if t.is_cuda and dist.get_backend(group) != "nccl":
+            host = t.cpu()
+            dist.broadcast(host, src=0, group=group)
+            t.copy_(host)
+        else:
+            dist.broadcast(t, src=0, group=group)
+
+    def _send_stop(self):
+        if self._mesh is None or not self.leader or self._stop_sent:
+            return
+        self._stop_sent = True
+        self._bcast({"stop": True})
+
+    def _gather_rows(self, nxt, nk, nv):
+        """Every rank's decode rows on every rank: the next tokens and the
+        new K/V rows, packed as bytes into one ``[b, n]`` buffer a row
+        and all-gathered over the data axes (through the host where the
+        group is gloo and the tensors are on a card: gloo all-gathers
+        host memory only)."""
+        dtype = self._pool["k"].dtype
+        b = nxt.shape[0]
+        parts = [nxt.to(torch.int32).reshape(b, 1),
+                 nk.to(dtype).transpose(0, 1).reshape(b, -1),
+                 nv.to(dtype).transpose(0, 1).reshape(b, -1)]
+        widths = [p.shape[1] * p.element_size() for p in parts]
+        buf = torch.cat([p.contiguous().view(torch.uint8) for p in parts],
+                        dim=1)
+        group, ranks = self._mesh.group_of(None)  # the data axes
+        host = buf.is_cuda and dist.get_backend(group) != "nccl"
+        if host:
+            # the copy to the host waits for this rank's decode anyway:
+            # wait first, so the clock times the exchange alone (and the
+            # wait for the other ranks inside it)
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        if host:
+            buf = buf.cpu()
+        out = buf.new_empty((len(ranks) * b, buf.shape[1]))
+        dist.all_gather_into_tensor(out, buf, group=group)
+        if host:
+            out = out.to(self.device)
+        self.exchange_seconds += time.perf_counter() - t0
+        cols = torch.split(out, widths, dim=1)
+        L, shape = nk.shape[0], nk.shape[2:]
+        full = out.shape[0]
+
+        def kv(c):
+            return c.contiguous().view(dtype).reshape(
+                (full, L) + tuple(shape)).transpose(0, 1)
+
+        return (cols[0].contiguous().view(torch.int32).reshape(full),
+                kv(cols[1]), kv(cols[2]))
+
+    def follow(self, on_request=None):
+        """A rank other than 0 of an engine over a mesh: run the
+        iterations rank 0 leads, until it stops; then fail what is left,
+        as :meth:`stop` does. ``on_request`` is called with each request
+        as it reaches this rank (its stream is rank 0's)."""
+        if self.leader:
+            raise RuntimeError("rank 0 leads the engine; follow() is the "
+                               "other ranks'")
+        self._on_request = on_request
+        while not self.step().get("stopped"):
+            pass
+        self._stop.set()
+        self._fail_all("serve engine stopped")
 
     def note_idle(self, seconds):
         """Attribute wait-for-work time (the run loop's, or a load generator's
@@ -630,7 +825,7 @@ class ServeEngine:
                 self.cached_prefill_tokens += cached_len
                 self.instruments.cached_prefill_tokens.inc(cached_len)
             admitted.append(req)
-        self.instruments.queue_depth.set(len(self._waiting))
+        self.instruments.queue_depth.set(self.queue_depth)
         self.instruments.kv_blocks.set(self.allocator.in_use)
         return admitted
 
@@ -696,12 +891,20 @@ class ServeEngine:
         traced = self._live_traces > 0  # the one hot-path check
         t0 = self._clock() if traced else 0.0
         with torch.no_grad():
-            nxt = decode_program(
+            # this rank's rows (every row, unless sharded), then, sharded,
+            # every rank's, written into the pool, replicated on every rank
+            rows = self._rows
+            lengths_d = self._to_device(lengths)
+            tables_d = self._to_device(self._tables)
+            nxt, nk, nv = decode_rows(
                 self._model, self._params, self._pool,
-                self._to_device(self._last_token),
-                self._to_device(lengths), self._to_device(self._tables),
-                self._sampling(slice(None), decoding),
-                self._kv.max_context)
+                self._to_device(self._last_token[rows]),
+                lengths_d[rows], tables_d[rows],
+                self._sampling(rows, decoding), self._kv.max_context)
+            if self._sharded:
+                nxt, nk, nv = self._gather_rows(nxt, nk, nv)
+            kvcache.write_tokens(self._pool, tables_d, lengths_d, nk, nv,
+                                 mask=(lengths_d > 0)[:, None])
         self.dispatches["decode"] += 1
         nxt = nxt.cpu().numpy()
         now = self._clock()
@@ -798,10 +1001,10 @@ class ServeEngine:
 
     @property
     def queue_depth(self):
-        return len(self._waiting)
+        return len(self._waiting) + len(self._inbox)
 
     def _has_work_locked(self):
-        if self._staged is not None:
+        if self._staged is not None or self._inbox:
             return True
         if any(r is not None for r in self._slots):
             return True
@@ -820,17 +1023,22 @@ class ServeEngine:
         return False
 
     def _loop(self):
-        while not self._stop.is_set():
-            stats = self.step()
-            if not stats:
-                with self._work:
-                    if self._stop.is_set() or self._has_work_locked():
-                        continue
-                    t = self._clock()
-                    self._idle_since = t
-                    self._work.wait(timeout=0.05)
-                    self._idle_since = None
-                    self.note_idle(self._clock() - t)
+        try:
+            while not self._stop.is_set():
+                stats = self.step()
+                if not stats:
+                    with self._work:
+                        if self._stop.is_set() or self._has_work_locked():
+                            continue
+                        t = self._clock()
+                        self._idle_since = t
+                        self._work.wait(timeout=0.05)
+                        self._idle_since = None
+                        self.note_idle(self._clock() - t)
+        finally:
+            # over a mesh, the other ranks' follow() ends with this one:
+            # sent from the thread that issues the engine's collectives
+            self._send_stop()
 
     def attribution_snapshot(self):
         """``time_breakdown`` including the run loop's in-progress idle
@@ -861,10 +1069,18 @@ class ServeEngine:
         with self._work:
             self._work.notify_all()
         if self._thread is not None:
+            # the loop thread sends the mesh's stop as it exits
             self._thread.join(timeout=30)
             self._thread = None
+        else:
+            # step() driven by the caller: over a mesh, the other ranks'
+            # follow() ends with this one
+            self._send_stop()
+        self._fail_all("serve engine stopped")
+
+    def _fail_all(self, message):
         with self._work:
-            for req in list(self._waiting) + [
+            for req in list(self._waiting) + self._inbox + [
                     r for r in self._slots if r is not None]:
                 if req.state not in ("done", "failed"):
                     if req.blocks:
@@ -872,5 +1088,30 @@ class ServeEngine:
                         req.blocks = None
                     if req.slot is not None:
                         self._slots[req.slot] = None
-                    self._fail(req, "serve engine stopped")
+                    self._fail(req, message)
             self._waiting.clear()
+            self._inbox = []
+
+
+def _request_spec(req):
+    """What a rank other than 0 needs to rebuild ``req``: its id,
+    tokens, limits, sampling knobs, replay count and rank 0's arrival
+    stamp (the scheduler's prefill order reads it)."""
+    sp = req.sampling
+    return {"id": req.id, "prompt": req.prompt,
+            "max_new_tokens": req.max_new_tokens, "eos_id": req.eos_id,
+            "sampling": (float(sp.temperature), float(sp.top_p),
+                         int(sp.seed)),
+            "replay": req.replay, "arrival": req.arrival}
+
+
+def _request_from_spec(spec):
+    t, p, seed = spec["sampling"]
+    req = Request(spec["prompt"], spec["max_new_tokens"],
+                  eos_id=spec["eos_id"], request_id=spec["id"],
+                  sampling=sampling_lib.SamplingParams(
+                      temperature=t, top_p=p, seed=seed),
+                  replay=spec["replay"])
+    req.state = "queued"
+    req.arrival = spec["arrival"]
+    return req

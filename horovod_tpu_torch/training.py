@@ -308,8 +308,6 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                 "accum_steps and backward_passes_per_step are two "
                 "accumulators for the same thing; use accum_steps")
         if overlap_grads:
-            hvd_torch.require_whole_mesh(optimizer.axes,
-                                         "overlap_grads=True")
             if not optimizer.sharded_update and \
                     optimizer.op not in (Sum, Average):
                 # the pipeline reduce-scatters, as the JAX one does
@@ -324,6 +322,11 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
             "BatchNorm as the JAX package does with "
             "models.resnet.ResNet(bn_cross_replica_axes=('data',))")
     mesh = mesh_lib.get_mesh()
+    # the batch is split over the data axes: the loss, the BatchNorm
+    # statistics and the dropout streams go by them (JAX's data_axes),
+    # and the ranks along any other axis are replicas
+    data_axes = mesh.resolve(None)
+    data_rank = collective.mesh_rank(data_axes)
     # the wire format of the overlapped pipeline's bucket collectives,
     # resolved once; the other paths compress inside optimizer.step()
     wire = optimizer.compression if (is_hvd and overlap_grads) else None
@@ -338,7 +341,7 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         # the flax dim orders only where the quantizer's chunks read them
         chunked = wire is not None and wire.chunked
         schedule = fusion.bucket_schedule(
-            optimizer.params, mesh.size,
+            optimizer.params, collective.mesh_size(optimizer.axes),
             threshold_bytes=optimizer.threshold_bytes,
             perms=optimizer.perms if chunked else None,
             axes=optimizer.axes,
@@ -382,7 +385,7 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
         if not takes_rng:
             return model(x)
         return model(x, dropout_generator=_dropout_generator(
-            mesh.device, dropout_seed, state.step, mesh.rank, k))
+            mesh.device, dropout_seed, state.step, data_rank, k))
 
     def reduce_scatter(res):
         """Issue every bucket of this microbatch's gradients, in schedule
@@ -474,9 +477,9 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                     gnorm = _grad_norm(grads)
             stats = _batch_stats(model)
             if stats:
-                fusion.fused_allreduce_(stats, op=Average)
-            return (collective.allreduce_(loss_sum * inv_k, op=Average),
-                    gnorm)
+                fusion.fused_allreduce_(stats, op=Average, axes=data_axes)
+            return (collective.allreduce_(loss_sum * inv_k, op=Average,
+                                          axes=data_axes), gnorm)
 
     # telemetry: the gradient norm reads the averaged gradients where
     # an allreduce leaves them in .grad (after optimizer.step()), else

@@ -249,3 +249,57 @@ def test_phase_19_rehearsed(rehearsal, monkeypatch):
         torch.set_num_threads(n)
     assert set(launches) == {"fwd", "dq", "dkv"}
     cs.phase_tools()
+
+
+def test_phase_20_runs_through_main_after_phase_19():
+    """Phase 20 is called by ``main()`` after phase 19 (20a, then 20b on
+    phase 18's kept manifest), its 20a launches join the kernels line,
+    and the last line stays the device JSON."""
+    import ast
+    tree = ast.parse(open(cs.__file__).read())
+    main = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name == "main"][0]
+    calls = [n.func.id for n in ast.walk(main) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name)]
+    assert calls.index("phase_tools") < calls.index("phase_zero_mesh")
+    assert calls.index("phase_zero_mesh") < calls.index("phase_serve_mesh")
+    assert "launches_20" in ast.unparse(main).split("kernels = []")[1]
+    assert "serve_root" in ast.unparse(main).split("phase_serve(")[1][:80]
+
+
+def test_phase_20_rehearsed(rehearsal, monkeypatch, tmp_path):
+    """20a and 20b on the CPU at the tiny size: 20a's turns bit for bit
+    6b's losses and its restored next loss the unbroken run's; 20b's two
+    ranks (this script with ``--serve-rank``, device cpu) on phase 18's
+    manifest: the ranks' streams, pools and tables equal, the greedy
+    tokens within the oracle rule, the sampled stream 18a's."""
+    from horovod_tpu_torch import training
+    # 18a at 8 requests (20b drives the first 8) keeps the rehearsal short
+    for key, value in dict(block=4, max_seq_len=64, slots=4, blocks=65,
+                           chunk=8, new=8, prompt_lo=8, prompt_hi=40,
+                           prefix=16, requests=8).items():
+        monkeypatch.setitem(cs.SERVE, key, value)
+    monkeypatch.setattr(cs, "profile_step", lambda *a, **k: {})
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        hvd_t.init()
+        _, model, opt, tokens = cs._lm_bench(
+            bench, torch, seq_len=cs.LM["seq_len"] + 1, sharded_update=True)
+        step = training.make_train_step(model, opt, accum_steps=2,
+                                        overlap_grads=True)
+        seq = cs.LM["seq_len"]
+        losses_6b = [float(step(tokens[:, :seq], tokens[:, 1:seq + 1]))
+                     for _ in range(cs.STEPS)]
+        hvd_t.shutdown()
+        launches = cs.phase_zero_mesh(hvd_t, fa, torch, bench, losses_6b)
+        assert set(launches) == {"fwd", "dq", "dkv"}
+        root = str(tmp_path / "serve")
+        os.makedirs(root)
+        streams, metrics = cs.phase_serve(hvd_t, fa, torch, bench, "card",
+                                          root=root)
+        assert set(metrics) == {"decode_tok_s", "itl_p50_ms", "itl_p99_ms"}
+        cs.phase_serve_mesh(torch, root, streams, metrics, "card",
+                            device="cpu")
+    finally:
+        torch.set_num_threads(n)

@@ -137,7 +137,7 @@ def test_mesh_groups_match_jax_mesh(shape):
 def test_mesh_refuses_bad_axes():
     m = tmesh.Mesh(group=None, device=torch.device("cpu"), size=4, rank=1,
                    axis_names=("data", "seq"), shape=(2, 2))
-    assert m.resolve(None) == ("data", "seq")
+    assert m.resolve(None) == ("data",)  # the data axes, as JAX's
     assert m.resolve("seq") == ("seq",)
     for bad in (("seq", "data"), ("data", "data"), ("model",), ()):
         with pytest.raises(ValueError):
@@ -364,10 +364,31 @@ def rank_checks(out_dir):
             row = torch.from_numpy(_collective_inputs()[2 * d]).reshape(-1)
             fusion.fused_allreduce_([row], compression="int8", axes="seq")
             res["int8_seq"] = row.numpy()
-            try:
-                hvd_torch.require_whole_mesh(("seq",), "ZeRO-1")
-            except NotImplementedError as e:
-                res["refused"] = np.asarray("item 4" in str(e))
+            # ZeRO-1 over the seq axis alone: each data index's 2 seq
+            # ranks share the rows of one SGD step, held to this run's
+            # own average of the gradient over seq
+            w0 = torch.arange(7.0) / 7
+            w = torch.nn.Parameter(w0.clone())
+            opt = hvd_torch.DistributedOptimizer(
+                torch.optim.SGD([w], lr=0.5), sharded_update=True,
+                axes=("seq",))
+            g = x.reshape(-1)[:7].clone()
+            w.grad = g.clone()
+            opt.step()
+            sched = opt.zero_state.plan.schedule
+            want = w0 - 0.5 * collective.allreduce(g, op=collective.Average,
+                                                   axes="seq")
+            padded = torch.cat([want, want.new_zeros(
+                sched.padded_sizes[0] - 7)])
+            shard = sched.shard_sizes[0]
+            row = opt.state_dict()["zero"]["row"]
+            res["zero_seq/layout"] = np.asarray(
+                [sched.world, row, opt.state_dict()["zero"]["world"]])
+            res["zero_seq/row"] = opt.zero_state.rows[0].detach().numpy()
+            res["zero_seq/want_row"] = padded[
+                row * shard:(row + 1) * shard].numpy()
+            res["zero_seq/w"] = w.detach().numpy()
+            res["zero_seq/want"] = want.numpy()
     np.savez(os.path.join(out_dir, f"rank{hvd.rank()}.npz"), **res)
 
 
@@ -415,8 +436,8 @@ def test_four_gloo_ranks_match_local_rotation(tmp_path):
     ``shard_map`` on a 2 x 2 mesh, exactly; ring (dense, flash) and
     Ulysses over the seq axis of (2 x 2) and (1 x 4), outputs and
     gradients bit for bit equal to the port's in-process rotation; an
-    int8 fused allreduce over the seq axis alone; and ZeRO-1 over a part
-    of the mesh refused."""
+    int8 fused allreduce over the seq axis alone; and ZeRO-1 over the
+    seq axis alone, its rows bit for bit this run's own seq average."""
     run_ranks(_WORKER.format(tests=os.path.join(REPO, "tests"),
                              out=str(tmp_path)), 4, timeout=240)
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
@@ -454,7 +475,13 @@ def test_four_gloo_ranks_match_local_rotation(tmp_path):
             else:
                 np.testing.assert_array_equal(ranks[r][f"coll/{key}"],
                                               value[r], err_msg=key)
-    assert all(bool(res["refused"]) for res in ranks)
+    for r, res in enumerate(ranks):
+        # rows over the seq axis: world 2, row = the seq index
+        assert list(res["zero_seq/layout"]) == [2, r % 2, 2]
+        np.testing.assert_array_equal(res["zero_seq/row"],
+                                      res["zero_seq/want_row"])
+        np.testing.assert_allclose(res["zero_seq/w"], res["zero_seq/want"],
+                                   rtol=0, atol=1e-6)
     x = _collective_inputs()
     for r, res in enumerate(ranks):
         want = x[2 * (r // 2)].reshape(-1)

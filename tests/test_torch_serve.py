@@ -27,6 +27,7 @@ drawn by flax from a seed and carried across with
 
 import functools
 import json
+import logging
 import time
 import urllib.error
 import urllib.request
@@ -654,12 +655,25 @@ def test_engine_takes_a_flax_tree_or_a_state_dict():
     assert ra.generated == rb.generated == oracle(p, 4)
 
 
-def test_engine_device_rules(monkeypatch):
+def test_engine_device_rules(monkeypatch, caplog):
     _, _, model, params = lm()
     kv = kv_config(PORT)
+    # a mesh of 2 ranks: the slots split over the data ranks as JAX's
+    # batch_spec splits them, an indivisible count replicated (logged
+    # once, JAX's message); only rank 0 takes requests
     wide = mesh_lib.Mesh(group=None, device=DEV, size=2, rank=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tengine.ServeEngine(model, params, kv, mesh=wide)
+    eng = tengine.ServeEngine(model, params, kv, mesh=wide)
+    assert eng.device == DEV and eng._rows == slice(0, 2) and eng.leader
+    other = mesh_lib.Mesh(group=None, device=DEV, size=2, rank=1)
+    eng = tengine.ServeEngine(model, params, kv, mesh=other)
+    assert eng._rows == slice(2, 4) and not eng.leader
+    with pytest.raises(tengine.RequestError, match="rank 0"):
+        eng.generate([1, 2], 2)
+    with caplog.at_level(logging.INFO, logger="horovod_tpu_torch"):
+        eng = tengine.ServeEngine(model, params, kv, mesh=other,
+                                  max_slots=3)
+    assert eng._rows == slice(0, 3)
+    assert "max_slots=3 does not divide the 2-way data mesh" in caplog.text
     one = mesh_lib.Mesh(group=None, device=DEV, size=1, rank=0)
     assert tengine.ServeEngine(model, params, kv, mesh=one).device == DEV
 
