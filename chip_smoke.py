@@ -130,8 +130,8 @@ runs these phases; any failure raises:
 * 13b: 1F1B at S 2, M 4 over 2 model shards of each stage (Megatron's
   blocks), every shard in this process, against 13a's S 2 1F1B within
   ``_shard_bound`` over the stack's 24 row-parallel sums;
-* 14a: phase 5's LM, weights and batch, over 2 model shards in this
-  process (``make_tp_lm_train_step_shards``, AdamW): 4 steps unbroken
+* 14a: phase 5's LM at ``RESUME_LAYERS`` (6) of its 12 layers, weights
+  and batch, over 2 model shards in this process (``make_tp_lm_train_step_shards``, AdamW): 4 steps unbroken
   against 2 steps, an ``AsyncCheckpointer`` save of the state gathered
   whole, a restore and 2 more steps; restored at R = 2 the losses and
   every leaf bit for bit, restored at R = 1 and R = 4 the next loss
@@ -254,7 +254,31 @@ runs these phases; any failure raises:
   the ranks' streams, pools and block tables equal, every greedy token
   within 18a's oracle rule, the sampled stream bit for bit 18a's; decode
   tokens/s, inter-token p50/p99 and the exchange's share of the decode
-  time beside 18a's (no speed claim: one card).
+  time beside 18a's (no speed claim: one card);
+* 21a: the native host core (``horovod_tpu_torch/_core.py``) built from
+  ``cxx/`` with ``g++`` (its seconds printed), ``--check-build`` with the
+  core's controller and ring-collective boxes checked, and this
+  process's mapped ``libhvdcore`` the port's build under ``_build/``;
+* 21b: the classic torch API (``horovod_tpu_torch.torch``) on 2 ranks
+  sharing the card (``python -m horovod_tpu_torch.run -np 2`` of this
+  script with ``--native-rank``; the first collective after ``init()``
+  starts the core, controller 127.0.0.1, port 0 through the launcher's
+  store): host collectives on seeded arrays equal to numpy exactly
+  (allreduce sum, average, min and max, allgather of unequal rows,
+  broadcast, alltoall, reducescatter with a remainder, card tensors
+  staged and in place, an uneven Join returning the last rank, a
+  barrier) and Adasum within rtol 1e-4, atol 1e-5 of numpy's; then
+  phase 5's LM at ``NATIVE["layers"]`` layers, ``NATIVE["batch"]``
+  sequences a rank from the seed plus the rank: rank 1 perturbs its
+  weights, ``broadcast_parameters`` and ``broadcast_optimizer_state``
+  run, and ``DistributedOptimizer(AdamW)`` takes ``NATIVE["steps"]``
+  steps, with rank 1's AdamW state drifted after the first and rank 0's
+  brought back by ``broadcast_optimizer_state``; both
+  ranks' parameters equal bit for bit, and equal a one-process run on the
+  card that averages both ranks' gradients as ``(g0 + g1) / 2``; each
+  step's time, the host exchange's share of it and the workers' start
+  time printed (no claim); the ranks' K1-K3 launches join the kernels
+  line.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
@@ -271,8 +295,8 @@ and the line before it a JSON object with each kernel's launches on the
 main paths (phase 5, 11b's two runs, 12b, 12c, phase 13's seven
 runs, 14a, phase 15's and phase 16's runs, 19a's windows and 20a's
 turns, each
-counted from 0, and phase 17's workers, each counting its own from its
-first step),
+counted from 0, and phase 17's and 21b's workers, each counting its own
+from its first step),
 error
 against its plain version, time, plain time, bound and library time. After the timed steps of phases 5, 6b and 15a one
 more step runs under ``torch.profiler`` for the device's busy share and
@@ -345,8 +369,9 @@ PIPE_RANKS = 2
 # in one process each hold the dense part and its activations)
 TP_CKPT_RANKS = 2
 EP_BATCH = 4
-# 14b's and 14c's depth (their widths kept): half the LM's 12 layers,
-# since their checkpoints' writes and reads held the script past 800 s
+# 14a's, 14b's and 14c's depth (their widths kept): half the LM's 12
+# layers, since their checkpoints' writes and reads held the script past
+# 800 s
 RESUME_LAYERS = 6
 # phase 18: the serving plane on phase 5's LM: the KV pool (block 16,
 # 2048 tokens a sequence = 128 blocks, 8 slots, 1025 blocks incl. the
@@ -372,6 +397,11 @@ WORLD_ONE_REASON = ("world size 1 over axes ('data',): the fused "
                     "collectives are local no-ops, so threshold timings "
                     "carry no signal")
 LINT_TARGETS = None
+# phase 21b: the classic torch API's run of phase 5's LM over 2 ranks on
+# the card (depth cut, widths kept), and the bound on its parameters
+# against the one-process average where they are not bit for bit
+NATIVE = dict(layers=2, batch=2, steps=3)
+NATIVE_RTOL = 1e-6
 
 
 # the JAX package's compressed-vs-exact contract (__graft_entry__.py
@@ -2701,6 +2731,13 @@ def _lm_full(torch, dev, shard=None, layers=None, **moe):
     return cfg, model, tokens
 
 
+def _lm_adamw(torch, params):
+    """Phase 5's AdamW (optax.adamw's defaults, decay 1e-4) over
+    ``params``."""
+    return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
 def _stacked_blocks(torch, model):
     """The model's blocks' parameters stacked ``{name: [L, ...]}``: fp32
     leaves of their own, the model's untouched."""
@@ -3019,8 +3056,7 @@ def _tp_shards(torch, dev, ranks, moe=False, batch=None, layers=None):
                                     **(MOE if moe else {}))
         models.append(model)
     tokens = tokens[:batch]
-    opts = [torch.optim.AdamW(m.parameters(), lr=3e-4, betas=(0.9, 0.999),
-                              eps=1e-8, weight_decay=1e-4) for m in models]
+    opts = [_lm_adamw(torch, m.parameters()) for m in models]
     one, local = axis_lib.single_axis(ranks), axis_lib.LocalAxis(ranks)
     inner = tensor.make_tp_lm_train_step_shards(
         models, opts, Axes(one, local, one) if moe else Axes(local, one, one))
@@ -3096,7 +3132,8 @@ def _loss_bound(torch, label, got, want, ranks):
 
 
 def phase_tp_resume(fa, torch, dev, bench):
-    """14a: phase 5's LM, weights and batch, over ``TP_CKPT_RANKS`` model
+    """14a: phase 5's LM (``RESUME_LAYERS`` deep), weights and batch, over
+    ``TP_CKPT_RANKS`` model
     shards held in this process, each with AdamW: 4 steps unbroken
     against 2 steps, an ``AsyncCheckpointer`` save of the state (each cut
     leaf gathered whole: the JAX package's tensor-parallel checkpoint), a
@@ -3107,14 +3144,15 @@ def phase_tp_resume(fa, torch, dev, bench):
     shard and step. Returns the kernels' launches."""
     import tempfile
     from horovod_tpu_torch import ckpt, convert
-    R, layers = TP_CKPT_RANKS, LM["layers"]
-    print(f"== phase 14a: full-width LM over R = {R} model shards in one "
-          "process (AdamW), 4 steps unbroken against 2 + save of the "
-          f"gathered state + restore at R = {R}, 1, 4")
+    R, layers = TP_CKPT_RANKS, min(RESUME_LAYERS, LM["layers"])
+    print(f"== phase 14a: the LM at full width and {layers} layers over R = "
+          f"{R} model shards in one process (AdamW), 4 steps unbroken "
+          "against 2 + save of the gathered state + restore at R = "
+          f"{R}, 1, 4")
 
     def build(ranks):
         _free(torch)
-        return _tp_shards(torch, dev, ranks)
+        return _tp_shards(torch, dev, ranks, layers=layers)
 
     fa.reset_launches()  # count only this path's launches
     models, opts, step = build(R)
@@ -3238,9 +3276,7 @@ def phase_multi_steps_resume(hvd, fa, torch, dev, bench):
         _free(torch)
         _, model, tokens = _lm_full(torch, dev, layers=layers)
         opt = hvd.DistributedOptimizer(
-            torch.optim.AdamW(model.parameters(), lr=3e-4,
-                              betas=(0.9, 0.999), eps=1e-8,
-                              weight_decay=1e-4),
+            _lm_adamw(torch, model.parameters()),
             named_parameters=convert.flax_named_parameters(model),
             backward_passes_per_step=2)
         inner = training.make_lm_train_step(model, opt)
@@ -4947,12 +4983,398 @@ def phase_serve_mesh(torch, root, streams18, metrics18, card,
     _free(torch)
 
 
+def _native_batch(torch, rank, dev):
+    """Rank ``rank``'s ``NATIVE["batch"]`` sequences, drawn from the seed
+    plus the rank as phase 5's are."""
+    rng = np.random.default_rng(rank)
+    return torch.from_numpy(rng.integers(
+        0, LM["vocab"], size=(NATIVE["batch"], LM["seq_len"])).astype(
+            np.int64)).to(dev)
+
+
+def _native_loss(model, tokens):
+    from horovod_tpu_torch import training
+    return training.softmax_cross_entropy(model(tokens)[:, :-1],
+                                          tokens[:, 1:])
+
+
+def _native_collectives(torch, hvd, core, rank, dev):
+    """21b's host collectives over the 2 ranks on seeded arrays, card
+    tensors through the classic API and host arrays through the core,
+    each result held to numpy's bytes (Adasum to numpy's within its
+    tolerance). Returns the checks' names."""
+    done = []
+
+    def same(label, got, want, on=dev):
+        if torch.is_tensor(got):
+            if got.device != on:
+                raise AssertionError(f"21b rank {rank}: {label} came back "
+                                     f"on {got.device}")
+            got = got.cpu().numpy()
+        if got.shape != want.shape or got.tobytes() != want.tobytes():
+            raise AssertionError(f"21b rank {rank}: {label} differs from "
+                                 "numpy")
+        done.append(label)
+
+    xs = [np.random.default_rng(2100 + k).standard_normal((5, 3)).astype(
+        np.float32) for k in range(2)]
+    x = torch.from_numpy(xs[rank]).to(dev)
+    total = xs[0] + xs[1]
+    same("allreduce sum", hvd.allreduce(x, average=False, name="n.sum"),
+         total)
+    same("allreduce average", hvd.allreduce(x, name="n.avg"),
+         total * np.float32(0.5))
+    same("allreduce min", hvd.allreduce(x, op=hvd.Min, name="n.min"),
+         np.minimum(*xs))
+    same("allreduce max", hvd.allreduce(x, op=hvd.Max, name="n.max"),
+         np.maximum(*xs))
+    y = x.clone()
+    hvd.allreduce_(y, name="n.avg_")
+    same("allreduce in place", y, total * np.float32(0.5))
+    same("allreduce on the host", hvd.allreduce(x.cpu(), name="n.cpu"),
+         total * np.float32(0.5), on=torch.device("cpu"))
+    rows = [np.full((k + 1, 3), k + 0.5, np.float32) for k in range(2)]
+    same("allgather of unequal rows", hvd.allgather(
+        torch.from_numpy(rows[rank]).to(dev), name="n.ag"),
+        np.concatenate(rows))
+    # Adasum's combination of the 2 ranks' vectors, held as the core's own
+    # tests hold it (tests/native_worker.py: rtol 1e-4, atol 1e-5): the
+    # core's dot products run in another order than numpy's
+    a, b = (v.ravel().astype(np.float64) for v in xs)
+    dot, na, nb = a @ b, a @ a, b @ b
+    want = ((1 - dot / (2 * na)) * a + (1 - dot / (2 * nb)) * b).reshape(
+        xs[0].shape)
+    got = hvd.allreduce(x, op=hvd.Adasum, name="n.adasum").cpu().numpy()
+    if not np.allclose(got, want, rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"21b rank {rank}: Adasum off numpy's by "
+                             f"{float(np.abs(got - want).max())}")
+    done.append("Adasum (rtol 1e-4, atol 1e-5)")
+    same("broadcast", hvd.broadcast(x, 1, name="n.bc"), xs[1])
+    b = x.clone()
+    hvd.broadcast_(b, 1, name="n.bc_")
+    same("broadcast in place", b, xs[1])
+    a2a = [np.arange(8, dtype=np.int64).reshape(4, 2) + 100 * k
+           for k in range(2)]
+    same("alltoall", hvd.alltoall(torch.from_numpy(a2a[rank]).to(dev),
+                                  name="n.a2a"),
+         np.concatenate([a[2 * rank:2 * rank + 2] for a in a2a]))
+    rs = [np.random.default_rng(2200 + k).standard_normal((3, 4)).astype(
+        np.float32) for k in range(2)]
+    mine = slice(0, 2) if rank == 0 else slice(2, 3)  # 3 rows: 2 and 1
+    same("reducescatter with a remainder",
+         core.reducescatter(rs[rank], "n.rs", op="sum"),
+         (rs[0] + rs[1])[mine])
+    core.barrier()
+    done.append("barrier")
+    return done
+
+
+def native_rank(path):
+    """One rank of 21b (``chip_smoke.py --native-rank CONFIG`` under
+    ``python -m horovod_tpu_torch.run -np 2``): ``init()`` (gloo on the
+    host; no native core yet), the first collective, which starts the
+    core, the host collectives, then the LM through the classic torch API
+    on the configured card: rank 1 perturbed, the startup broadcasts,
+    ``NATIVE["steps"]`` steps of ``DistributedOptimizer(AdamW)`` with
+    ``broadcast_optimizer_state`` of rank 0's AdamW state over rank 1's
+    drifted one after the first, an uneven Join. Writes its parameters to
+    ``rank<r>.pt`` and its figures to ``rank<r>.json``."""
+    import torch
+
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import _core
+    from horovod_tpu_torch.ops import flash_attention as fa
+    with open(path) as f:
+        c = json.load(f)
+    LM.update(c["lm"])
+    NATIVE.update(c["native"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    hvd.init(device="cpu")
+    rank = hvd.rank()
+    dev = torch.device(c["device"])
+    out = {"rank": rank, "size": hvd.size(),
+           "init_s": time.perf_counter() - t0,
+           "started_s": time.time() - c["launched"]}
+    if _core.is_initialized():
+        raise AssertionError("21b: init() started the native core; the "
+                             "first collective starts it")
+    first = torch.zeros(1, device=dev)  # the card's context, untimed
+    t0 = time.perf_counter()
+    hvd.allreduce(first, name="n.first")
+    out["core_start_s"] = time.perf_counter() - t0
+    out["collectives"] = _native_collectives(torch, hvd, _core, rank, dev)
+    model = _lm_full(torch, dev, layers=NATIVE["layers"])[1]
+    if rank == 1:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1e-3)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    inner = _lm_adamw(torch, model.parameters())
+    opt = hvd.DistributedOptimizer(inner,
+                                   named_parameters=model.named_parameters())
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    tokens = _native_batch(torch, rank, dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    # the host exchange's time: the hooks' staging and enqueues, and
+    # step()'s wait and copies back (its inner AdamW step taken out)
+    spent = {"hooks": 0.0, "inner": 0.0}
+    fire, inner_step = opt._fire_allreduce, inner.step
+
+    def timed_fire(p):
+        t = time.perf_counter()
+        handle = fire(p)
+        spent["hooks"] += time.perf_counter() - t
+        return handle
+
+    def timed_inner(*a, **k):
+        t = time.perf_counter()
+        value = inner_step(*a, **k)
+        sync()
+        spent["inner"] += time.perf_counter() - t
+        return value
+
+    opt._fire_allreduce, inner.step = timed_fire, timed_inner
+    fa.reset_launches()
+    losses, steps = [], []
+    for i in range(NATIVE["steps"]):
+        if i == 1:
+            # rank 1's AdamW state drifts; broadcast_optimizer_state
+            # brings rank 0's back over the card's state
+            if rank == 1:
+                with torch.no_grad():
+                    for st in inner.state.values():
+                        for v in st.values():
+                            v.add_(1.0)
+            sync()
+            t = time.perf_counter()
+            hvd.broadcast_optimizer_state(opt, root_rank=0)
+            sync()
+            out["bos_ms"] = 1e3 * (time.perf_counter() - t)
+            out["bos_mb"] = sum(v.numel() * v.element_size()
+                                for st in inner.state.values()
+                                for v in st.values()) / 1e6
+        spent.update(hooks=0.0, inner=0.0)
+        sync()
+        t = time.perf_counter()
+        opt.zero_grad()
+        loss = _native_loss(model, tokens)
+        loss.backward()
+        t_step = time.perf_counter()
+        opt.step()
+        sync()
+        end = time.perf_counter()
+        losses.append(loss.item())
+        steps.append(dict(ms=1e3 * (end - t), hooks_ms=1e3 * spent["hooks"],
+                          wait_ms=1e3 * (end - t_step - spent["inner"])))
+    out.update(launches=dict(fa.LAUNCHES), losses=losses, steps=steps)
+    torch.save({k: v.detach().cpu() for k, v in model.named_parameters()},
+               os.path.join(c["out"], f"rank{rank}.pt"))
+    if rank == 1:
+        # hvd-lint: disable=HVD-DESYNC -- an uneven Join: rank 0 joins while rank 1 reduces once more
+        hvd.allreduce(torch.ones(4, device=dev), name="n.late")
+    out["join"] = hvd.join()
+    _core.barrier()
+    with open(os.path.join(c["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    hvd.shutdown()
+    return 0
+
+
+def start_core_build():
+    """Start building the native host core (``_core.build``, one ``g++``
+    a source) on a thread, beside the kernels' build; returns a function
+    that waits for it and returns ``(library, seconds, was_cached)``, or
+    raises the build's error."""
+    from horovod_tpu_torch import _core
+    done = {}
+
+    def build():
+        t = time.perf_counter()
+        done["cached"] = _core.library_path().exists()
+        try:
+            done["lib"] = _core.build()
+        # hvd-lint: disable=HVD-EXCEPT -- kept for wait(), which re-raises it on the main thread
+        except Exception as e:
+            done["error"] = e
+        done["s"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=build, name="core_build")
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in done:
+            raise done["error"]
+        return done["lib"], done["s"], done["cached"]
+    return wait
+
+
+def _native_reference(torch, device):
+    """21b's one-process run on the card: both ranks' gradients with the
+    same kernels, averaged as the 2-rank ring does (one fp32 add, then a
+    halving), through the same AdamW. Returns its parameters (on the
+    host) and each rank's losses."""
+    dev = torch.device(device)
+    model = _lm_full(torch, dev, layers=NATIVE["layers"])[1]
+    opt = _lm_adamw(torch, model.parameters())
+    batches = [_native_batch(torch, r, dev) for r in range(2)]
+    losses = [[], []]
+    for _ in range(NATIVE["steps"]):
+        grads = []
+        for r, tokens in enumerate(batches):
+            model.zero_grad(set_to_none=True)
+            loss = _native_loss(model, tokens)
+            loss.backward()
+            losses[r].append(loss.item())
+            grads.append([p.grad for p in model.parameters()])
+        for p, g0, g1 in zip(model.parameters(), *grads):
+            p.grad = (g0 + g1) / 2
+        opt.step()
+    return ({k: v.detach().cpu() for k, v in model.named_parameters()},
+            losses)
+
+
+def phase_native_core(torch, card, device="cuda:0", core_build=None):
+    """21a: the native host core's build (``core_build``, from
+    ``start_core_build``; started here if not given), ``--check-build``
+    and the library this process maps. 21b: the classic torch API over 2
+    ranks sharing the card (``native_rank``) against a one-process run
+    that averages both ranks' gradients, computed while the ranks start.
+    Returns the ranks' K1-K3 launches."""
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch import _core
+    print("== phase 21a: the native host core (cxx/ built by g++)")
+    lib, secs, cached = (core_build or start_core_build())()
+    print(f"  {'loaded a cached build' if cached else 'built'} in "
+          f"{secs:.1f} s (beside the kernels' build) -> {lib}")
+    rv, _ = _hvdrun_ok("21a --check-build", ["--check-build"], 300)
+    for want in ("[X] TCP (native host core)",
+                 "[X] host ring collectives (allreduce/allgatherv/broadcast/"
+                 "alltoall/reducescatter/Adasum)"):
+        if want not in rv.stdout:
+            raise AssertionError(f"21a: --check-build lacks {want!r}:\n"
+                                 f"{rv.stdout}")
+        print(f"  --check-build: {want}")
+    if not _core.core_available():
+        raise AssertionError("21a: the native core is not available")
+    with open("/proc/self/maps") as f:
+        mapped = sorted({line.split()[-1] for line in f
+                         if "libhvdcore" in line})
+    if mapped != [str(lib)]:
+        raise AssertionError(f"21a: mapped {mapped}, want only {lib}")
+    print(f"  this process maps {mapped[0]}")
+
+    print(f"== phase 21b: the classic torch API over 2 ranks on the card "
+          f"(phase 5's LM at {NATIVE['layers']} layers, {NATIVE['batch']} "
+          f"sequences a rank, {NATIVE['steps']} steps)")
+    print(f"  {card}")
+    work = tempfile.mkdtemp(prefix="native_core_")
+    try:
+        config = os.path.join(work, "config.json")
+        with open(config, "w") as f:
+            json.dump(dict(lm=LM, native=NATIVE, device=device, out=work,
+                           launched=time.time()), f)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+        t0 = time.perf_counter()
+        with open(os.path.join(work, "hvdrun.log"), "w+") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2",
+                 sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--native-rank", config], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+            try:
+                ref, ref_losses = _native_reference(torch, device)
+                rc = proc.wait(timeout=400)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            took = time.perf_counter() - t0
+            log.seek(0)
+            if rc != 0:
+                raise AssertionError(f"21b: hvdrun exited {rc}:\n"
+                                     f"{log.read()[-6000:]}")
+        outs, params = [], []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+            params.append(torch.load(os.path.join(work, f"rank{r}.pt")))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for o in outs:
+        print(f"  21b rank {o['rank']}: started {o['started_s']:.1f} s after "
+              f"the launch (init() {o['init_s']:.2f} s, the core's start at "
+              f"the first collective {o['core_start_s']:.2f} s); "
+              f"{len(o['collectives'])} host collectives equal numpy, bit "
+              f"for bit but Adasum ({', '.join(o['collectives'])})")
+    if {o["join"] for o in outs} != {1}:
+        raise AssertionError(f"21b: join returned {[o['join'] for o in outs]}"
+                             ", want the last rank, 1, on both")
+    print(f"  21b uneven join: both ranks returned the last rank, 1; the "
+          f"launch took {took:.1f} s")
+    for o in outs:
+        if o["losses"] != ref_losses[o["rank"]]:
+            raise AssertionError(f"21b: rank {o['rank']}'s losses "
+                                 f"{o['losses']}, the reference's "
+                                 f"{ref_losses[o['rank']]}")
+    for k in ref:
+        if not torch.equal(params[0][k].view(torch.int32),
+                           params[1][k].view(torch.int32)):
+            raise AssertionError(f"21b: the ranks' {k} differ")
+    gaps = {k: float(((params[0][k] - ref[k]).abs()
+                      / ref[k].abs().clamp_min(1e-30)).max()) for k in ref
+            if not torch.equal(params[0][k].view(torch.int32),
+                               ref[k].view(torch.int32))}
+    n = sum(v.numel() for v in ref.values())
+    if gaps:
+        worst = max(gaps, key=gaps.get)
+        print(f"  21b NOT bit for bit the one-process average in "
+              f"{len(gaps)} of {len(ref)} tensors; largest relative gap "
+              f"{gaps[worst]:.3g} in {worst}")
+        if gaps[worst] > NATIVE_RTOL:
+            raise AssertionError(f"21b: {worst} off the one-process average "
+                                 f"by {gaps[worst]:.3g} > {NATIVE_RTOL}")
+    else:
+        print(f"  21b both ranks' {len(ref)} parameter tensors ({n / 1e6:.2f}"
+              f" M values) bit for bit equal, and bit for bit the "
+              "one-process run averaging (g0 + g1) / 2; losses equal the "
+              "reference's")
+    for o in outs:
+        print(f"  21b rank {o['rank']}: broadcast_optimizer_state after step "
+              f"1, {o['bos_mb']:.1f} MB of AdamW state, {o['bos_ms']:.1f} ms")
+        print(f"  21b rank {o['rank']} losses {[round(x, 5) for x in o['losses']]}")
+        for i, st in enumerate(o["steps"]):
+            share = (st["hooks_ms"] + st["wait_ms"]) / st["ms"]
+            print(f"  21b rank {o['rank']} step {i + 1}: {st['ms']:.1f} ms, "
+                  f"the host exchange {st['hooks_ms'] + st['wait_ms']:.1f} ms"
+                  f" ({100 * share:.1f} %: hooks' staging and enqueues "
+                  f"{st['hooks_ms']:.1f} ms, step()'s wait and copies back "
+                  f"{st['wait_ms']:.1f} ms)")
+    launches = {k: sum(o["launches"][k] for o in outs)
+                for k in ("fwd", "dq", "dkv")}
+    for o in outs:
+        _worker_launches(f"21b rank {o['rank']}", o["launches"],
+                         NATIVE["layers"] * NATIVE["steps"])
+    print(f"  21b launches (both ranks): {launches}")
+    print(f"  {card}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tune", action="store_true",
                     help="time the tile configurations, then stop")
     ap.add_argument("--serve-rank", metavar="CONFIG",
                     help="run one rank of phase 20b (the script starts "
+                         "them itself)")
+    ap.add_argument("--native-rank", metavar="CONFIG",
+                    help="run one rank of phase 21b (the script starts "
                          "them itself)")
     args = ap.parse_args(argv)
     if not (ROOT / "horovod_tpu_torch" / "__init__.py").is_file():
@@ -4962,6 +5384,9 @@ def main(argv=None):
     if args.serve_rank:
         sys.path.insert(0, str(ROOT))
         return serve_rank(args.serve_rank)
+    if args.native_rank:
+        sys.path.insert(0, str(ROOT))
+        return native_rank(args.native_rank)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4980,7 +5405,8 @@ def main(argv=None):
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    print("== phase 2: kernel build")
+    print("== phase 2: kernel build (the native core's beside it)")
+    core_build = None if args.tune else start_core_build()
     t0 = time.perf_counter()
     lib = _build.build()
     print(f"  built in {time.perf_counter() - t0:.1f} s -> {lib}")
@@ -5071,13 +5497,17 @@ def main(argv=None):
     finally:
         shutil.rmtree(serve_root, ignore_errors=True)
     print(f"== phase 20 took {time.perf_counter() - t20:.1f} s")
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    launches_21 = phase_native_core(torch, card, core_build=core_build)
+    print(f"== phase 21 took {time.perf_counter() - t21:.1f} s")
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):
         wrapper, replaces, source, design = KERNELS[kind_]
         main = [launches, launches_11b] + launches_12 + launches_13 + \
             launches_14 + [launches_15, launches_16, launches_17,
-                           launches_19, launches_20]
+                           launches_19, launches_20, launches_21]
         kernels.append(dict(name=wrapper, route="cuda", source=source,
                             replaces=replaces, design=design,
                             launches=sum(n[kind_] for n in main),

@@ -26,6 +26,9 @@ the port leaves out ``distributed_grad``, ``DistributedGradientTransform``,
 ``DistributedOptimizer`` and ``distributed_value_and_grad`` stand for
 here). The subpackage ``analysis`` (hvd-lint) is imported by its CLI,
 ``python -m horovod_tpu_torch.analysis.cli``, and needs no torch.
+Horovod's classic adapters, ``horovod_tpu_torch.torch``, ``.tensorflow``,
+``.mxnet`` and ``.spark``, run over the native host core (``_core.py``,
+started at their first collective) and are imported by name.
 """
 
 import importlib

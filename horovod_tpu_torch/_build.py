@@ -87,7 +87,7 @@ def _run_all(cmds):
         out = proc.communicate()[0]
         outs.append(out)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): "
+            failed.append(f"build step failed ({proc.returncode}): "
                           f"{' '.join(cmd)}\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -33,6 +33,7 @@ from horovod_tpu_torch.parallel import mesh as mesh_lib
 from horovod_tpu_torch.runtime import services
 
 _lock = threading.Lock()
+_core_lock = threading.Lock()  # native_core()'s start of the core
 
 
 class _State:
@@ -47,7 +48,10 @@ class _State:
         self.flight_recorder = None
         self.timeline = None
         self.metrics_server = None
-        # the elastic worker's stall inspector and eviction handler
+        # the native host core (_core) of the classic adapters, the stall
+        # inspector and the eviction handler
+        self.controller = None
+        self.core_starts = 0  # keys of the controller's port (services)
         self.stall_inspector = None
         self.preempt_handler = None
 
@@ -152,10 +156,12 @@ def init(device=None):
       (there the JAX ``build_mesh`` raises, or builds a mesh that does
       not follow the hosts).
 
-    Before the rendezvous it starts the run's telemetry and diagnosis
-    services (``runtime/services.py``): a fresh goodput ledger, the
-    flight recorder, the host timeline and the metrics server, each as
-    its ``HOROVOD_*`` variable asks."""
+    Before the rendezvous it starts the run's host services
+    (``runtime/services.py``): a fresh goodput ledger, the flight
+    recorder, the host timeline and the metrics server, each as its
+    ``HOROVOD_*`` variable asks. The native host core (``_core.py``) of
+    the classic adapters starts at their first collective
+    (``native_core``), not here."""
     with _lock:
         if _state.initialized:
             return
@@ -210,8 +216,8 @@ def invalidate_meshes():
 
 def shutdown():
     """Destroy the process group and stop the run's services (the
-    goodput dump, the server, the timeline, the recorder's final dump);
-    a later ``init()`` starts afresh."""
+    goodput dump, the server, the native core, the timeline, the
+    recorder's final dump); a later ``init()`` starts afresh."""
     with _lock:
         if not _state.initialized:
             return
@@ -230,6 +236,43 @@ def shutdown():
 
 def is_initialized():
     return _state.initialized
+
+
+def native_core():
+    """The running native host core (``_core.py``) of the classic
+    adapters (``torch/``, ``tensorflow/``, ``mxnet/``), started here at
+    their first collective, which every rank makes: in a multi-process
+    job under the launcher the job's core (``services.start_core``), in
+    a one-rank job a core of size 1. ``shutdown()`` stops it. Raises
+    before ``init()``, and in a job of more ranks that the launcher did
+    not give a controller: a core of one rank there would return each
+    rank's own tensor as the job's.
+
+    The JAX package starts its core in ``init()``; the port starts it at
+    first use, since its own collectives never use it (``_core.py``):
+    a job that does not call a classic adapter builds and runs no core.
+    As at the JAX ``init()``, every rank's first collective must come
+    within the core's 120 s wait for its peers."""
+    from horovod_tpu_torch import _core
+    with _core_lock:
+        if not _state.initialized:
+            raise RuntimeError(
+                "horovod_tpu_torch has not been initialized; call hvd.init()")
+        if _core.is_initialized():
+            return _core
+        cfg = _state.config
+        if cfg.size == 1:
+            _core.init(rank=0, size=1)
+            _state.controller = _core
+        elif cfg.controller_addr:
+            services.start_core(_state, cfg)
+        else:
+            raise RuntimeError(
+                f"this job of {cfg.size} ranks runs no native core: "
+                "launch it under hvdrun-torch (python -m "
+                "horovod_tpu_torch.run), which names the core's controller "
+                "(HOROVOD_CONTROLLER_ADDR)")
+        return _core
 
 
 def _cfg():

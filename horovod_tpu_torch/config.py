@@ -1,4 +1,5 @@
-"""Environment-variable configuration: the launcher's rank contract, the
+"""Environment-variable configuration: the launcher's rank contract and
+the native core's controller (``HOROVOD_CONTROLLER_ADDR/PORT``), the
 fusion threshold, the wire format, the two-level reduction and the
 process mesh across hosts (``HOROVOD_SPMD_*``) and the observability
 planes (timeline, metrics endpoint, profile directory, flight recorder),
@@ -60,6 +61,10 @@ class Config:
     rendezvous_addr: str = None
     rendezvous_port: int = 0
     kv_store: bool = False
+    # the native core's controller (runtime/services.start_core): set by
+    # the launcher; port 0 is resolved through the key-value store
+    controller_addr: str = None
+    controller_port: int = 0
     fusion_threshold: int = DEFAULT_FUSION_THRESHOLD
     # the default wire format of DistributedOptimizer(compression=None),
     # a name of ops/compression.by_name
@@ -118,6 +123,8 @@ class Config:
             rendezvous_port=_env_int("HOROVOD_GLOO_RENDEZVOUS_PORT",
                                      _env_int("MASTER_PORT", 0)),
             kv_store=_env_str("HOROVOD_GLOO_RENDEZVOUS_ADDR") is not None,
+            controller_addr=_env_str("HOROVOD_CONTROLLER_ADDR"),
+            controller_port=_env_int("HOROVOD_CONTROLLER_PORT", 0),
             fusion_threshold=_env_int("HOROVOD_FUSION_THRESHOLD",
                                       DEFAULT_FUSION_THRESHOLD),
             wire_dtype=_env_str("HOROVOD_WIRE_DTYPE"),

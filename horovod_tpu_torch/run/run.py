@@ -56,12 +56,13 @@ def _version():
 
 def check_build():
     """Print the planes this installation has: PyTorch and CUDA, the
-    process-group backends, and the CUDA compiler the kernels build
-    with."""
+    process-group backends, the native host core (built here from
+    ``cxx/`` if it is not yet) with its ring collectives, and the CUDA
+    compiler the kernels build with."""
     import torch
     import torch.distributed as dist
 
-    from horovod_tpu_torch import _build
+    from horovod_tpu_torch import _build, _core
 
     def box(ok):
         return "X" if ok else " "
@@ -70,6 +71,7 @@ def check_build():
         nvcc = _build.nvcc_path()
     except RuntimeError:
         nvcc = None
+    core_ok = _core.core_available()
     lines = [
         _version(),
         "",
@@ -82,12 +84,15 @@ def check_build():
         "Available controllers:",
         f"    [{box(dist.is_available())}] torch.distributed "
         "(TCP store, found through the launcher's key-value store)",
+        f"    [{box(core_ok)}] TCP (native host core)",
         "",
         "Available tensor operations:",
         f"    [{box(dist.is_available() and dist.is_nccl_available())}] "
         "NCCL",
         f"    [{box(dist.is_available() and dist.is_gloo_available())}] "
         "gloo",
+        f"    [{box(core_ok)}] host ring collectives "
+        "(allreduce/allgatherv/broadcast/alltoall/reducescatter/Adasum)",
         "",
         "Kernel build:",
         f"    [{box(nvcc)}] nvcc{f' ({nvcc})' if nvcc else ''}",

@@ -1,9 +1,10 @@
-"""The telemetry and diagnosis services of one run, started by
-``init()`` and stopped by ``shutdown()`` (``basics.py``).
+"""The host services of one run, started by ``init()`` and stopped by
+``shutdown()`` (``basics.py``).
 
-The port of the telemetry part of ``horovod_tpu/runtime/services.py``
-(``start``, ``:54-115``, and its ``stop`` counterpart), in the JAX
-order:
+The port of ``horovod_tpu/runtime/services.py`` (``start``, ``:54-178``,
+and ``stop``), in the JAX order, but for the native host core, which
+``start_core`` starts at the classic adapters' first collective
+(``basics.native_core``):
 
 * a fresh goodput ledger for the run (``telemetry/ledger.py``;
   ``HOROVOD_GOODPUT=0`` turns it off);
@@ -11,26 +12,30 @@ order:
   what follows (``diag/recorder.py``; on by default for a multi-process
   job, ``HOROVOD_FLIGHTREC`` forces it);
 * the per-rank host timeline (``utils/timeline.py``;
-  ``HOROVOD_TIMELINE``, one file a rank in a multi-process job);
+  ``HOROVOD_TIMELINE``, one file a rank in a multi-process job; the
+  native core's own timeline of rank 0's negotiations keeps the plain
+  path);
 * the metrics server with its health function (``telemetry/server.py``;
   ``HOROVOD_METRICS_PORT``, bound to ``HOROVOD_METRICS_ADDR``): a taken
   port is logged and the run goes on without a scrape plane;
 * for an elastic worker (``HOROVOD_ELASTIC=1``) the stall inspector
   (``runtime/stall.py``, unless ``HOROVOD_STALL_CHECK_DISABLE``), whose
   progress hooks publish the heartbeats of the elastic driver's
-  liveness view (``elastic/worker.py``), as the JAX ``services.py:146-
-  166`` does; the JAX package's native controller, the inspector's other
-  host there, is not ported;
+  liveness view (``elastic/worker.py``). The JAX package also starts it
+  with its native core, where nothing but an elastic commit feeds it
+  progress, so that it warns of a stall after 60 s in every healthy
+  job; the port does not;
 * the graceful-eviction handler (``elastic/preempt.py``) for an elastic
   worker or a run that set a grace budget or a notice source, after the
-  recorder, so that SIGTERM rides its signal watcher (JAX
-  ``services.py:167-178``).
+  recorder, so that SIGTERM rides its signal watcher.
 
 ``stop`` writes ``goodput.rank<r>.json`` beside the flight-recorder
 dumps, uninstalls the eviction handler, stops the server and the
-inspector, closes the elastic worker's endpoint and the timeline, and
-uninstalls the recorder with a final dump, which is how the doctor tells
-a clean exit from a hard kill.
+inspector, closes the elastic worker's endpoint, stops the native host
+core where the classic adapters started it (``start_core``, called by
+``basics.native_core``), closes the timeline, and uninstalls the recorder
+with a final dump, which is how the doctor tells a clean exit from a hard
+kill.
 """
 
 import logging
@@ -47,6 +52,71 @@ def rank_timeline_path(path, rank, size):
         return path
     base, ext = os.path.splitext(path)
     return f"{base}.rank{rank}{ext or '.json'}"
+
+
+def _controller_port(state, cfg):
+    """The controller's port: the launcher's, or for port 0 a free port
+    on rank 0's host, published through the launcher's key-value store
+    under a key of this run's elastic epoch and this process's count of
+    core starts (as ``basics._kv_store`` keys the torch store), so that a
+    later start never reads an earlier one's port."""
+    if cfg.controller_port:
+        return cfg.controller_port
+    import socket
+
+    from horovod_tpu_torch.run import rendezvous
+    if not cfg.kv_store:
+        raise RuntimeError(
+            "HOROVOD_CONTROLLER_PORT=0 requires the launcher's key-value "
+            "store (HOROVOD_GLOO_RENDEZVOUS_ADDR/PORT)")
+    state.core_starts += 1
+    key = (f"controller/port/{os.environ.get('HOROVOD_ELASTIC_EPOCH', '0')}"
+           f"/{state.core_starts}")
+    if cfg.rank == 0:
+        with socket.socket() as s:
+            s.bind(("0.0.0.0", 0))
+            port = s.getsockname()[1]
+        rendezvous.kv_put(cfg.rendezvous_addr, cfg.rendezvous_port, key,
+                          str(port).encode())
+        return port
+    return int(rendezvous.kv_wait(cfg.rendezvous_addr, cfg.rendezvous_port,
+                                  key, timeout=120).decode())
+
+
+def _advertise_addr():
+    """The address this rank's data plane advertises: ``HOROVOD_HOSTNAME``
+    (loopback for ``localhost``), or across hosts this host's address on
+    the first interface of ``HOROVOD_COMMON_INTERFACES`` (hvdrun's NIC
+    pre-flight) that it owns."""
+    advertise = os.environ.get("HOROVOD_HOSTNAME", "127.0.0.1")
+    if advertise == "localhost":
+        advertise = "127.0.0.1"
+    common = os.environ.get("HOROVOD_COMMON_INTERFACES")
+    if common and advertise != "127.0.0.1":
+        from horovod_tpu_torch.run.discovery import local_interfaces
+        mine = local_interfaces()
+        for intf in common.split(","):
+            if mine.get(intf):
+                return mine[intf][0][0]
+    return advertise
+
+
+def start_core(state, cfg):
+    """Start the native host core of a multi-process job whose launcher
+    named a controller (``HOROVOD_CONTROLLER_ADDR``); sets
+    ``state.controller``. Every rank builds (or loads) the library
+    first, then rank 0 resolves port 0 to a free port and publishes it
+    through the launcher's key-value store, and every rank joins the
+    core's controller, advertising its address on the first of
+    ``HOROVOD_COMMON_INTERFACES`` it owns. A failure raises."""
+    from horovod_tpu_torch import _core
+    _core.build()  # every rank, before any wait on another's start
+    port = _controller_port(state, cfg)
+    _core.init(rank=cfg.rank, size=cfg.size, coord_host=cfg.controller_addr,
+               coord_port=port, advertise_host=_advertise_addr())
+    state.controller = _core
+    logger.info("native core started (controller %s:%d)",
+                cfg.controller_addr, port)
 
 
 def start(state):
@@ -149,6 +219,9 @@ def stop(state, reason="shutdown"):
     if os.environ.get("HOROVOD_ELASTIC") == "1":
         from horovod_tpu_torch.elastic import worker as elastic_worker
         elastic_worker.shutdown_worker_context()
+    if state.controller is not None:
+        state.controller.shutdown()
+        state.controller = None
     if state.timeline is not None:
         state.timeline.close()
         state.timeline = None

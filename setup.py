@@ -48,14 +48,22 @@ setup(
               "horovod_tpu_torch.data", "horovod_tpu_torch.diag",
               "horovod_tpu_torch.elastic",
               "horovod_tpu_torch.examples",
-              "horovod_tpu_torch.models", "horovod_tpu_torch.ops",
+              "horovod_tpu_torch.models", "horovod_tpu_torch.mxnet",
+              "horovod_tpu_torch.ops",
               "horovod_tpu_torch.parallel", "horovod_tpu_torch.run",
               "horovod_tpu_torch.runtime", "horovod_tpu_torch.serve",
-              "horovod_tpu_torch.serve.fleet",
+              "horovod_tpu_torch.serve.fleet", "horovod_tpu_torch.spark",
               "horovod_tpu_torch.telemetry",
-              "horovod_tpu_torch.utils"],
+              "horovod_tpu_torch.tensorflow", "horovod_tpu_torch.torch",
+              "horovod_tpu_torch.utils",
+              # the native host core's sources, which the port's
+              # _core.py builds at first use
+              "horovod_tpu_torch._cxx"],
+    package_dir={"horovod_tpu_torch._cxx": "cxx"},
     package_data={"horovod_tpu": ["lib/libhvdcore.so"],
-                  "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "horovod_tpu_torch._cxx": ["src/*.cc",
+                                             "include/hvd/*.h"]},
     include_package_data=True,
     python_requires=">=3.10",
     install_requires=["numpy", "jax", "flax", "optax"],

@@ -303,3 +303,32 @@ def test_phase_20_rehearsed(rehearsal, monkeypatch, tmp_path):
                             device="cpu")
     finally:
         torch.set_num_threads(n)
+
+
+def test_phase_21_runs_through_main_after_phase_20():
+    """Phase 21 is called by ``main()`` after phase 20, its workers'
+    launches join the kernels line, and ``--native-rank`` runs a rank."""
+    import ast
+    tree = ast.parse(open(cs.__file__).read())
+    main = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name == "main"][0]
+    calls = [n.func.id for n in sorted(
+        (n for n in ast.walk(main) if isinstance(n, ast.Call)
+         and isinstance(n.func, ast.Name)), key=lambda n: n.lineno)]
+    assert calls.index("phase_serve_mesh") < calls.index("phase_native_core")
+    assert "launches_21" in ast.unparse(main).split("kernels = []")[1]
+    assert "native_rank" in calls
+
+
+def test_phase_21_rehearsed(rehearsal, monkeypatch):
+    """21a and 21b on the CPU at the tiny size: the core built (or
+    loaded) and listed by ``--check-build``, this process mapping the
+    port's library only; two ``--native-rank`` workers under
+    ``python -m horovod_tpu_torch.run -np 2`` (device cpu): the host
+    collectives equal numpy, the uneven join, both ranks' parameters bit
+    for bit equal and bit for bit the one-process average (the plain
+    kernels launch nothing, so the launch counts are not held)."""
+    monkeypatch.setattr(cs, "_worker_launches", lambda *a: None)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    launches = cs.phase_native_core(torch, "card", device="cpu")
+    assert set(launches) == {"fwd", "dq", "dkv"}

@@ -392,16 +392,20 @@ def _descendants(pid):
 
 def _cli_rank_pid(root, rank):
     """The pid of the serve CLI of ``rank`` among ``root``'s
-    descendants."""
+    descendants: the process that runs the module, not the launcher's
+    middleman (``run/safe_exec.py``), whose command line names the module
+    too and whose environment holds the same rank. A SIGTERM to the
+    middleman is forwarded, and the middleman SIGKILLs the CLI 5 s later
+    if it has not exited by then, which a loaded machine can take."""
     for pid in _descendants(root):
         try:
             with open(f"/proc/{pid}/cmdline", "rb") as f:
-                cmd = f.read()
+                argv = f.read().split(b"\0")
             with open(f"/proc/{pid}/environ", "rb") as f:
                 env = f.read().split(b"\0")
         except OSError:
             continue
-        if b"horovod_tpu_torch.serve.cli" in cmd and \
+        if argv[1:3] == [b"-m", b"horovod_tpu_torch.serve.cli"] and \
                 f"HOROVOD_RANK={rank}".encode() in env:
             return pid
     raise AssertionError(f"no serve CLI of rank {rank} under {root}")
