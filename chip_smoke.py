@@ -278,7 +278,22 @@ runs these phases; any failure raises:
   card that averages both ranks' gradients as ``(g0 + g1) / 2``; each
   step's time, the host exchange's share of it and the workers' start
   time printed (no claim); the ranks' K1-K3 launches join the kernels
-  line.
+  line;
+* 22a: the port's example drivers in this process at world 1, each
+  through its ``main(argv)``: ``examples/imagenet_resnet50`` at full
+  width (``EXAMPLES``: ResNet-50, 224x224, 1000 classes, batch 64 over
+  256 synthetic examples, the prefetch loader, the fused allreduce, SGD
+  with momentum), one epoch, then a run to two epochs that resumes the
+  first's checkpoint: finite losses, the disjoint-shard and resume
+  lines; the second run's step times and img/s, its peak memory and each
+  checkpoint's write ms;
+* 22b: ``examples/synthetic_benchmark --model resnet50 --batch-size 64``
+  (3 warm-up batches, 3 slope-window iterations of 10): img/s and MFU
+  from hook-counted multiply-adds;
+* 22c: Horovod's classic ``pytorch_synthetic_benchmark`` and
+  ``pytorch_mnist`` over ``horovod_tpu_torch.torch`` with their tensors
+  on the card: img/s, and MNIST learning (the driver's own assert). No
+  flash kernel runs in phase 22.
 
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
@@ -312,6 +327,7 @@ K3 kernels at the main path's shape and stops, printing no result lines.
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -402,6 +418,13 @@ LINT_TARGETS = None
 # against the one-process average where they are not bit for bit
 NATIVE = dict(layers=2, batch=2, steps=3)
 NATIVE_RTOL = 1e-6
+# phase 22: the example drivers at world 1 in this process: 22a the
+# ImageNet trainer's ResNet-50 at full width over 256 synthetic examples
+# (4 steps an epoch), 22b the synthetic benchmark's ResNet-50, 22c the
+# classic torch drivers at their defaults
+EXAMPLES = dict(depth=50, num_filters=64, image_size=224, num_classes=1000,
+                batch=64, examples=256, synth_model="resnet50",
+                synth_warmup=3, synth_iters=3, synth_per_iter=10)
 
 
 # the JAX package's compressed-vs-exact contract (__graft_entry__.py
@@ -5235,6 +5258,13 @@ def _native_reference(torch, device):
             losses)
 
 
+def _mapped_cores():
+    """The native host cores' libraries this process maps."""
+    with open("/proc/self/maps") as f:
+        return sorted({line.split()[-1] for line in f
+                       if "libhvdcore" in line})
+
+
 def phase_native_core(torch, card, device="cuda:0", core_build=None):
     """21a: the native host core's build (``core_build``, from
     ``start_core_build``; started here if not given), ``--check-build``
@@ -5260,9 +5290,7 @@ def phase_native_core(torch, card, device="cuda:0", core_build=None):
         print(f"  --check-build: {want}")
     if not _core.core_available():
         raise AssertionError("21a: the native core is not available")
-    with open("/proc/self/maps") as f:
-        mapped = sorted({line.split()[-1] for line in f
-                         if "libhvdcore" in line})
+    mapped = _mapped_cores()
     if mapped != [str(lib)]:
         raise AssertionError(f"21a: mapped {mapped}, want only {lib}")
     print(f"  this process maps {mapped[0]}")
@@ -5364,6 +5392,121 @@ def phase_native_core(torch, card, device="cuda:0", core_build=None):
     print(f"  21b launches (both ranks): {launches}")
     print(f"  {card}")
     return launches
+
+
+def _driver(label, module, argv):
+    """``module.main(argv)`` in this process, its lines printed under
+    ``label``. Returns what ``main`` returns and its output."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ret = module.main(argv)
+    for line in out.getvalue().splitlines():
+        print(f"  {label} | {line}")
+    return ret, out.getvalue()
+
+
+def _finite(label, losses):
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+
+
+def phase_examples(hvd, fa, torch, card, device=None):
+    """22a: ``examples/imagenet_resnet50`` at full width (``EXAMPLES``),
+    one epoch, then a second run to 2 epochs that resumes the first's
+    checkpoint; 22b ``examples/synthetic_benchmark``; 22c the classic
+    ``pytorch_synthetic_benchmark`` and ``pytorch_mnist`` over
+    ``horovod_tpu_torch.torch``, their tensors on the card. Each driver's
+    ``main`` runs here at world 1 (its ``init()`` returns at once); no
+    flash kernel runs on this path."""
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch.examples import (imagenet_resnet50,
+                                            pytorch_mnist,
+                                            pytorch_synthetic_benchmark,
+                                            synthetic_benchmark)
+    ex = EXAMPLES
+    hvd.init(device=device)
+    dev = hvd.device()
+    on = ["--device", str(dev)]
+    fa.reset_launches()
+    print(f"== phase 22a: examples/imagenet_resnet50, ResNet-{ex['depth']}"
+          f" at {ex['num_filters']} filters, {ex['image_size']}x"
+          f"{ex['image_size']}, {ex['num_classes']} classes, batch "
+          f"{ex['batch']}, {ex['examples']} synthetic examples; --epochs 1,"
+          " then --epochs 2 from its checkpoint")
+    print(f"  {card}")
+    root = tempfile.mkdtemp(prefix="examples_ckpt_")
+    argv = ["--depth", str(ex["depth"]), "--num-filters",
+            str(ex["num_filters"]), "--image-size", str(ex["image_size"]),
+            "--num-classes", str(ex["num_classes"]), "--num-examples",
+            str(ex["examples"]), "--batch-size", str(ex["batch"]),
+            "--ckpt-dir", root] + on
+    try:
+        leg1, out1 = _driver("22a leg 1", imagenet_resnet50,
+                             argv + ["--epochs", "1"])
+        torch.cuda.reset_peak_memory_stats()
+        leg2, out2 = _driver("22a leg 2", imagenet_resnet50,
+                             argv + ["--epochs", "2"])
+        peak = torch.cuda.max_memory_allocated()
+        mb = os.path.getsize(os.path.join(root, "ckpt-2.msgpack")) / 1e6
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _finite("22a", leg1["losses"] + leg2["losses"])
+    shard = f"({ex['examples']} examples/epoch across 1 ranks)"
+    if shard not in out1 or shard not in out2:
+        raise AssertionError(f"22a: no {shard!r} line")
+    if leg2["start"] != 1 or "resuming from epoch 1" not in out2:
+        raise AssertionError("22a: the second run did not resume epoch 1")
+    step_s = float(np.median(leg2["step_s"]))
+    print(f"  22a leg 2 step ms {[round(1e3 * x, 2) for x in leg2['step_s']]}"
+          f" (the loader's batch, its copy to the card, forward, backward, "
+          f"the allreduce, SGD and the loss read back): median "
+          f"{1e3 * step_s:.2f} ms, {ex['batch'] / step_s:.1f} img/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+    print(f"  22a checkpoint writes (params and SGD momentum, "
+          f"{mb:.1f} MB a file): "
+          f"{[round(x, 1) for x in leg1['save_ms'] + leg2['save_ms']]} ms")
+
+    print(f"== phase 22b: examples/synthetic_benchmark --model "
+          f"{ex['synth_model']} --batch-size {ex['batch']}, "
+          f"{ex['synth_warmup']} warm-up batches, {ex['synth_iters']} "
+          f"iterations of {ex['synth_per_iter']}")
+    print(f"  {card}")
+    synth, out = _driver("22b", synthetic_benchmark, [
+        "--model", ex["synth_model"], "--batch-size", str(ex["batch"]),
+        "--image-size", str(ex["image_size"]), "--num-warmup-batches",
+        str(ex["synth_warmup"]), "--num-iters", str(ex["synth_iters"]),
+        "--num-batches-per-iter", str(ex["synth_per_iter"])] + on)
+    rates = synth["img_secs"]
+    if "Total img/sec on 1 chip(s)" not in out or not all(
+            math.isfinite(r) and r > 0 for r in rates):
+        raise AssertionError(f"22b: rates {rates}")
+    macs = _conv_macs(torch, synth.pop("model"), ex["image_size"])
+    rate = float(np.mean(rates))
+    print(f"  22b {rate:.1f} img/s (iterations {[round(r, 1) for r in rates]}"
+          f"); {macs / 1e9:.3f} G multiply-adds an image forward, "
+          f"{6 * macs * rate / 1e12:.1f} TFLOP/s, "
+          f"{100 * 6 * macs * rate / PEAK_FLOPS['bfloat16']:.2f} % of the "
+          "bf16 peak (MFU)")
+
+    print("== phase 22c: examples/pytorch_synthetic_benchmark and "
+          "examples/pytorch_mnist over horovod_tpu_torch.torch, tensors on "
+          "the card")
+    print(f"  {card}")
+    classic, out = _driver("22c pytorch_synthetic_benchmark",
+                           pytorch_synthetic_benchmark, on)
+    if "Total img/sec on 1 processes" not in out or not all(
+            math.isfinite(r) and r > 0 for r in classic["img_secs"]):
+        raise AssertionError(f"22c: rates {classic['img_secs']}")
+    mnist, out = _driver("22c pytorch_mnist", pytorch_mnist, on)
+    _finite("22c pytorch_mnist", mnist["epoch_losses"])
+    print(f"  22c {float(np.mean(classic['img_secs'])):.1f} img/s through "
+          f"the classic optimizer; MNIST learned: epoch losses "
+          f"{[round(x, 4) for x in mnist['epoch_losses']]}")
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"22: flash kernels launched {fa.LAUNCHES}")
+    hvd.shutdown()
 
 
 def main(argv=None):
@@ -5501,6 +5644,10 @@ def main(argv=None):
     t21 = time.perf_counter()
     launches_21 = phase_native_core(torch, card, core_build=core_build)
     print(f"== phase 21 took {time.perf_counter() - t21:.1f} s")
+    torch.cuda.empty_cache()
+    t22 = time.perf_counter()
+    phase_examples(hvd, fa, torch, card)
+    print(f"== phase 22 took {time.perf_counter() - t22:.1f} s")
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):

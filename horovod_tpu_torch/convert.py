@@ -176,6 +176,11 @@ def _table(spec):
         return _resnet_table(spec)
     if isinstance(spec, VGG16):
         return _vgg_table(spec)
+    if type(spec) is torch.nn.Module and not any(spec.children()):
+        # a bare module of parameters is a flat dict of arrays (the JAX
+        # examples' ``{"w": w}``): each leaf under its own name
+        return [((name,), name, "same") for name, _ in
+                spec.named_parameters()]
     raise TypeError(f"no flax layout for {type(spec).__name__}")
 
 
@@ -524,12 +529,19 @@ def _opt_kind(inner):
             raise NotImplementedError("AdamW(amsgrad=True) keeps a state "
                                       "that optax.adamw has not")
         return "adamw"
+    if type(inner) is torch.optim.Adam:
+        if inner.param_groups[0].get("amsgrad") or \
+                inner.param_groups[0].get("weight_decay"):
+            raise NotImplementedError("Adam(amsgrad=True) or with weight "
+                                      "decay keeps a state or takes a "
+                                      "step that optax.adam has not")
+        return "adam"
     if type(inner) is torch.optim.SGD:
         return "sgd"
     raise NotImplementedError(
         f"no optax state mapping for {type(inner).__name__}: the "
-        "checkpoint carries torch.optim.AdamW (optax.adamw) and "
-        "torch.optim.SGD (optax.sgd)")
+        "checkpoint carries torch.optim.AdamW (optax.adamw), "
+        "torch.optim.Adam (optax.adam) and torch.optim.SGD (optax.sgd)")
 
 
 def _count_slot(inner, params):
@@ -572,18 +584,20 @@ def _moment_slot(inner, p, key, layout, spec):
 
 
 def _optax_state(inner, params, layouts, spec, tree):
-    """The optax state of ``optax.adamw`` or ``optax.sgd`` over
-    ``params`` (each with its flax path and layout), as ``tree`` nests
-    the per-parameter pieces: a ``_Named`` chain of the same fields."""
+    """The optax state of ``optax.adamw``, ``optax.adam`` or
+    ``optax.sgd`` over ``params`` (each with its flax path and layout), as
+    ``tree`` nests the per-parameter pieces: a ``_Named`` chain of the
+    same fields (adam's chain lacks adamw's weight-decay link)."""
     kind = _opt_kind(inner)
     empty = _Named()
-    if kind == "adamw":
+    if kind in ("adamw", "adam"):
         mu = tree([_moment_slot(inner, p, "exp_avg", lay, spec)
                    for p, lay in zip(params, layouts)])
         nu = tree([_moment_slot(inner, p, "exp_avg_sq", lay, spec)
                    for p, lay in zip(params, layouts)])
-        return (_Named(("count", _count_slot(inner, params)), ("mu", mu),
-                       ("nu", nu)), empty, empty)
+        adam = _Named(("count", _count_slot(inner, params)), ("mu", mu),
+                      ("nu", nu))
+        return (adam, empty, empty) if kind == "adamw" else (adam, empty)
     if not inner.param_groups[0].get("momentum"):
         return (empty, empty)
     trace = tree([_moment_slot(inner, p, "momentum_buffer", lay, spec)
@@ -594,16 +608,6 @@ def _optax_state(inner, params, layouts, spec, tree):
 def _is_hvd_optimizer(optimizer):
     from horovod_tpu_torch.hvd_torch import DistributedOptimizer
     return isinstance(optimizer, DistributedOptimizer)
-
-
-def _hvd_optimizer(optimizer):
-    if not _is_hvd_optimizer(optimizer):
-        raise TypeError("the train state's optimizer is a "
-                        "DistributedOptimizer (the JAX TrainState holds "
-                        "its chained state), or a plain torch.optim.AdamW "
-                        "or SGD of a model shard from "
-                        "parallel.tensor.shard_lm_state")
-    return optimizer
 
 
 def _int_slot(obj, attr):
@@ -853,8 +857,13 @@ def _train_state_tree(model, optimizer, step_state):
     if _is_model_shard(model, optimizer):
         return (*_shard_tree(model, optimizer), {}, step)
     params, layouts, tree, p_tree = _model_leaves(model)
-    if optimizer is not None:
-        optimizer = _hvd_optimizer(optimizer)
+    if optimizer is not None and not _is_hvd_optimizer(optimizer):
+        # a plain torch optimizer stepped on averaged gradients: the
+        # bare optax state, as the JAX examples that run ``optax.sgd``
+        # after an explicit allreduce save it
+        return (p_tree, _optax_state(optimizer, params, layouts, model,
+                                     tree), _stats_tree(model),
+                _int_slot(step_state, "step"))
     if optimizer is not None and \
             [id(p) for p in params] != [id(p) for p in optimizer.params]:
         raise ValueError("the optimizer must pack the model's parameters "
@@ -869,14 +878,20 @@ def _train_state_tree(model, optimizer, step_state):
                                       model, tree))
         if optimizer.backward_passes_per_step > 1:
             opt = _multi_steps(optimizer, opt, layouts, model, tree)
-    stats = {}
-    if isinstance(model, ResNet):
-        def stat_slot(buf):
-            return _Slot(lambda: buf.detach(),
-                         lambda arr: _load(buf, arr, "same"))
-        stats = _nest([(path, stat_slot(model.get_buffer(name)))
-                       for path, name in _stats_table(model)])
-    return p_tree, opt, stats, step
+    return p_tree, opt, _stats_tree(model), step
+
+
+def _stats_tree(model):
+    """A ResNet's BatchNorm statistics as the flax ``batch_stats`` tree of
+    ``_Slot``s; ``{}`` for a model without them."""
+    if not isinstance(model, ResNet):
+        return {}
+
+    def stat_slot(buf):
+        return _Slot(lambda: buf.detach(),
+                     lambda arr: _load(buf, arr, "same"))
+    return _nest([(path, stat_slot(model.get_buffer(name)))
+                  for path, name in _stats_table(model)])
 
 
 def _flat_slots(model, optimizer, step_state):
@@ -899,12 +914,14 @@ def train_state_to_flat(model, optimizer, step_state):
     """The port's training state as the JAX ``TrainState(params,
     opt_state, batch_stats, step)``'s flat leaf list: ``model``'s
     parameters in flax order and layout, ``optimizer``'s state (a
-    ``DistributedOptimizer`` over ``torch.optim.AdamW`` or ``SGD``:
-    ``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState(),
-    EmptyState()))`` or ``(EmptyState(), (TraceState(trace),
-    EmptyState()))``; under ZeRO-1 one ``ckpt.ZeroLeaf``; with
-    ``backward_passes_per_step > 1`` that chain inside optax's
-    ``MultiStepsState``), a ResNet's BatchNorm statistics and
+    ``DistributedOptimizer`` over ``torch.optim.AdamW``, ``Adam`` or
+    ``SGD``: ``(EmptyState(), (ScaleByAdamState(count, mu, nu),
+    EmptyState(), EmptyState()))`` (adam without the middle link) or
+    ``(EmptyState(), (TraceState(trace), EmptyState()))``; under ZeRO-1
+    one ``ckpt.ZeroLeaf``; with ``backward_passes_per_step > 1`` that
+    chain inside optax's ``MultiStepsState``; a plain torch optimizer
+    the bare optax state, without the leading ``EmptyState()``), a
+    ResNet's BatchNorm statistics and
     ``step_state.step`` as an int32 scalar. A tensor- or expert-parallel
     state (``model`` a shard from ``parallel.tensor.shard_lm_state`` with
     its plain AdamW or SGD, or lists of the shards held in this process

@@ -1,6 +1,7 @@
 """The benchmark workloads, each built one way (the port of
-``horovod_tpu/utils/benchmarks.py``'s ``model_registry``, ``make_model``,
-``synthetic_batch``, ``make_lm_bench``, ``sync`` and the slope-window
+``horovod_tpu/utils/benchmarks.py``'s ``model_registry``,
+``compute_dtype``, ``make_model``, ``synthetic_batch``, ``make_lm_bench``,
+``sync`` and the slope-window
 timer ``slope_window``/``repeat_step_windows``; ``make_resnet_bench``
 builds ``bench.py``'s image-model step), and timing on the card with CUDA
 events."""
@@ -13,10 +14,20 @@ import torch
 
 
 def model_registry():
-    """The image models of ``bench.py --model``, by name."""
+    """The image models of ``bench.py --model`` and of the synthetic
+    benchmark (``examples/synthetic_benchmark.py``), by name."""
     from horovod_tpu_torch.models import resnet, vgg
-    return {"resnet18": resnet.ResNet18, "resnet50": resnet.ResNet50,
-            "resnet101": resnet.ResNet101, "vgg16": vgg.VGG16}
+    return {"resnet18": resnet.ResNet18, "resnet34": resnet.ResNet34,
+            "resnet50": resnet.ResNet50, "resnet101": resnet.ResNet101,
+            "resnet152": resnet.ResNet152, "vgg16": vgg.VGG16}
+
+
+def compute_dtype(device):
+    """The compute dtype on ``device``: bf16 on a card (its tensor-core
+    type), fp32 elsewhere (bf16 on the CPU is slow and proves nothing),
+    as the JAX package's rule for the accelerator and the CPU."""
+    return (torch.bfloat16 if torch.device(device).type == "cuda"
+            else torch.float32)
 
 
 def make_model(name, dtype=torch.bfloat16, num_classes=1000, seed=0,

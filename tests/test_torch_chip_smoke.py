@@ -330,5 +330,44 @@ def test_phase_21_rehearsed(rehearsal, monkeypatch):
     kernels launch nothing, so the launch counts are not held)."""
     monkeypatch.setattr(cs, "_worker_launches", lambda *a: None)
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    # an earlier test in this worker may have mapped the JAX package's
+    # core (its capability probes load it); the phase maps no other
+    mapped = cs._mapped_cores
+    foreign = {p for p in mapped() if "horovod_tpu_torch" not in p}
+    monkeypatch.setattr(cs, "_mapped_cores",
+                        lambda: [p for p in mapped() if p not in foreign])
     launches = cs.phase_native_core(torch, "card", device="cpu")
     assert set(launches) == {"fwd", "dq", "dkv"}
+
+
+def test_phase_22_runs_through_main_after_phase_21():
+    """Phase 22 is called by ``main()`` after phase 21, and adds nothing
+    to the kernels line."""
+    import ast
+    tree = ast.parse(open(cs.__file__).read())
+    main = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name == "main"][0]
+    calls = [n.func.id for n in sorted(
+        (n for n in ast.walk(main) if isinstance(n, ast.Call)
+         and isinstance(n.func, ast.Name)), key=lambda n: n.lineno)]
+    assert calls.index("phase_native_core") < calls.index("phase_examples")
+    assert calls.index("phase_examples") < calls.index("print", calls.index(
+        "phase_examples"))
+    assert "launches_22" not in ast.unparse(main)
+
+
+def test_phase_22_rehearsed(rehearsal, monkeypatch):
+    """22a-22c on the CPU at the JAX example test's smoke size: the
+    ImageNet driver's two runs (the second resumes the first), the
+    synthetic benchmark and the classic torch drivers, every hold as on
+    the card."""
+    monkeypatch.setattr(cs, "EXAMPLES", dict(
+        depth=18, num_filters=4, image_size=32, num_classes=4, batch=2,
+        examples=8, synth_model="resnet18", synth_warmup=1, synth_iters=1,
+        synth_per_iter=1))
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        cs.phase_examples(hvd_t, fa, torch, "card", device="cpu")
+    finally:
+        torch.set_num_threads(n)

@@ -14,8 +14,9 @@ wire is held to the exact run by ``WIRE_EPSILON``, and a cast wire,
 which is elementwise, to the JAX run at loss rtol 1e-5 and params atol
 1e-6.
 
-Multi-rank checks run the port on 2 gloo processes (one spawn for the
-whole file) and the JAX package under ``shard_map`` on 2 CPU devices.
+Multi-rank checks run the port on 2 gloo processes (one spawn for each
+group of ``test_two_ranks_match_jax``, so that parallel workers spread
+them) and the JAX package under ``shard_map`` on 2 CPU devices.
 """
 
 import json
@@ -650,26 +651,33 @@ _WORKER = textwrap.dedent("""
     import test_torch_compression as t
     hvd.init(device="cpu")
     data = np.load(sys.argv[1], allow_pickle=True)
-    inp = data["bucket"].item()
-    x, y, params0 = data["x"], data["y"], data["params0"].item()
-    out = dict(bucket=t._port_bucket_ops(inp, hvd.rank()),
-               layout=t._port_layout_ops(data["layout"].item(), hvd.rank()))
-    bowl = {{}}
-    for wire, ef in (("none", True), ("int8", True), ("int8", False)):
-        loss, params = t._bowl(wire, ef)
-        bowl[f"{{wire}}-{{ef}}"] = dict(loss=loss, params={{
-            k: {{n: v.tolist() for n, v in d.items()}}
-            for k, d in params.items()}})
-    out["bowl"] = bowl
-    out["dryrun"] = {{w: t._dryrun_wire(w)
-                     for w in ("none", "int8", "fp8_e4m3")}}
-    out["bf16"] = {{}}
-    for case in t.BF16_CASES:
-        losses, params = t._torch_bf16_run(case, params0[t._bf16_id(case)],
-                                           x, y)
-        out["bf16"][t._bf16_id(case)] = dict(losses=losses, params={{
-            k: {{n: v.tolist() for n, v in d.items()}}
-            for k, d in params.items()}})
+    group = sys.argv[2]
+    out = {{}}
+    if group == "schedule":
+        out["bucket"] = t._port_bucket_ops(data["bucket"].item(), hvd.rank())
+    elif group == "layouts":
+        out["layout"] = t._port_layout_ops(data["layout"].item(),
+                                           hvd.rank())
+    elif group == "bowl":
+        bowl = {{}}
+        for wire, ef in (("none", True), ("int8", True), ("int8", False)):
+            loss, params = t._bowl(wire, ef)
+            bowl[f"{{wire}}-{{ef}}"] = dict(loss=loss, params={{
+                k: {{n: v.tolist() for n, v in d.items()}}
+                for k, d in params.items()}})
+        out["bowl"] = bowl
+    elif group == "dryrun":
+        out["dryrun"] = {{w: t._dryrun_wire(w)
+                         for w in ("none", "int8", "fp8_e4m3")}}
+    else:
+        x, y, params0 = data["x"], data["y"], data["params0"].item()
+        out["bf16"] = {{}}
+        for case in t.BF16_CASES:
+            losses, params = t._torch_bf16_run(
+                case, params0[t._bf16_id(case)], x, y)
+            out["bf16"][t._bf16_id(case)] = dict(losses=losses, params={{
+                k: {{n: v.tolist() for n, v in d.items()}}
+                for k, d in params.items()}})
     print("RESULT", json.dumps([hvd.rank(), out]), flush=True)
     hvd.shutdown()
 """)
@@ -702,76 +710,93 @@ def _gap(params, exact):
                for k, d in exact.items() for n, v in d.items())
 
 
-def test_two_ranks_match_jax(jax_world, tmp_path):
-    """At world 2, on 2 gloo ranks:
+# the spawn's groups, one case each, so that workers spread them
+TWO_RANK_GROUPS = ["schedule", "layouts", "bowl", "dryrun", "bf16"]
 
-    * the compressed reduce-scatter (Average, with a residual, issued
-      asynchronously; Sum, stateless) and all-gather (with a residual) of
-      a 3-bucket schedule equal ``shard_map``'s bit for bit at every wire,
-      new residuals included;
-    * so does the int8 reduce-scatter of the LM's and the conv net's
-      gradient leaves, packed through their flax layouts;
-    * the quadratic bowl: int8 with error feedback lands on the exact
-      run's parameters, int8 without it measurably does not;
-    * the dryrun's wire contract: int8 and fp8 with error feedback stay
-      within WIRE_EPSILON of the exact losses over WIRE_STEPS steps;
-    * the bf16 wire's trajectory equals the JAX step's (loss rtol 1e-5,
-      params atol 1e-6), replicated and ZeRO-1."""
-    inp = _bucket_inputs()
-    want = _jax_bucket_ops(inp)
-    layout_inp = _layout_inputs()
-    want_layout = _jax_layout_ops(layout_inp)
-    x, y = _mlp_data()
-    mesh = jax_world(2)
-    params0, j_runs = {}, {}
-    for case in BF16_CASES:
-        p0, j_losses, j_params = _jax_bf16_run(mesh, case, x, y)
-        params0[_bf16_id(case)] = p0
-        j_runs[_bf16_id(case)] = (j_losses, j_params)
+
+@pytest.mark.parametrize("group", TWO_RANK_GROUPS)
+def test_two_ranks_match_jax(jax_world, tmp_path, group):
+    """At world 2, on 2 gloo ranks, one group a case:
+
+    * ``schedule``: the compressed reduce-scatter (Average, with a
+      residual, issued asynchronously; Sum, stateless) and all-gather
+      (with a residual) of a 3-bucket schedule equal ``shard_map``'s bit
+      for bit at every wire, new residuals included;
+    * ``layouts``: so does the int8 reduce-scatter of the LM's and the
+      conv net's gradient leaves, packed through their flax layouts;
+    * ``bowl``: the quadratic bowl: int8 with error feedback lands on the
+      exact run's parameters, int8 without it measurably does not;
+    * ``dryrun``: the dryrun's wire contract: int8 and fp8 with error
+      feedback stay within WIRE_EPSILON of the exact losses over
+      WIRE_STEPS steps;
+    * ``bf16``: the bf16 wire's trajectory equals the JAX step's (loss
+      rtol 1e-5, params atol 1e-6), replicated and ZeRO-1."""
+    data = {}
+    if group == "schedule":
+        inp = _bucket_inputs()
+        want = _jax_bucket_ops(inp)
+        data["bucket"] = np.array(inp, dtype=object)
+    elif group == "layouts":
+        layout_inp = _layout_inputs()
+        want_layout = _jax_layout_ops(layout_inp)
+        data["layout"] = np.array(layout_inp, dtype=object)
+    elif group == "bf16":
+        x, y = _mlp_data()
+        mesh = jax_world(2)
+        params0, j_runs = {}, {}
+        for case in BF16_CASES:
+            p0, j_losses, j_params = _jax_bf16_run(mesh, case, x, y)
+            params0[_bf16_id(case)] = p0
+            j_runs[_bf16_id(case)] = (j_losses, j_params)
+        data.update(x=x, y=y, params0=np.array(params0, dtype=object))
     path = tmp_path / "data.npz"
-    np.savez(path, bucket=np.array(inp, dtype=object),
-             layout=np.array(layout_inp, dtype=object), x=x, y=y,
-             params0=np.array(params0, dtype=object))
+    np.savez(path, **data)
     ranks = _run_ranks(_WORKER.format(tests=os.path.join(REPO, "tests")),
-                       2, [str(path)])
+                       2, [str(path), group])
 
-    assert set(ranks[0]["bucket"]) == set(want)
-    for key, value in want.items():
-        for r, got in enumerate(ranks):
-            np.testing.assert_array_equal(
-                np.asarray(got["bucket"][key], np.float32),
-                value[r].astype(np.float32), err_msg=key)
-    assert set(ranks[0]["layout"]) == set(want_layout)
-    assert len(want_layout) > 8  # several buckets of each model
-    for key, value in want_layout.items():
-        for r, got in enumerate(ranks):
-            np.testing.assert_array_equal(
-                np.asarray(got["layout"][key], np.float32), value[r],
-                err_msg=key)
-
-    for got in ranks:
-        bowl = got["bowl"]
-        exact = bowl["none-True"]
-        assert exact["loss"] < 1e-6
-        g_ef = _gap(bowl["int8-True"]["params"], exact["params"])
-        g_noef = _gap(bowl["int8-False"]["params"], exact["params"])
-        assert g_ef < 3e-3, f"error feedback missed the optimum: {g_ef}"
-        assert g_noef > 3e-2, f"no error feedback still landed: {g_noef}"
-        assert g_noef > 10 * g_ef
-
-        exact = np.asarray(got["dryrun"]["none"])
-        assert np.isfinite(exact).all()
-        for wire in ("int8", "fp8_e4m3"):
-            losses = np.asarray(got["dryrun"][wire])
-            assert np.isfinite(losses).all()
-            rel = np.max(np.abs(losses - exact)
-                         / np.maximum(np.abs(exact), WIRE_EPSILON_FLOOR))
-            assert rel <= WIRE_EPSILON, (wire, losses, exact)
-            assert not np.array_equal(losses, exact)
-
-        for key, (j_losses, j_params) in j_runs.items():
-            run = got["bf16"][key]
-            params = {k: {n: np.asarray(v, np.float32) for n, v in d.items()}
-                      for k, d in run["params"].items()}
-            _assert_bf16_matches(run["losses"], params, j_losses, j_params)
-    assert ranks[0]["dryrun"] == ranks[1]["dryrun"]
+    if group == "schedule":
+        assert set(ranks[0]["bucket"]) == set(want)
+        for key, value in want.items():
+            for r, got in enumerate(ranks):
+                np.testing.assert_array_equal(
+                    np.asarray(got["bucket"][key], np.float32),
+                    value[r].astype(np.float32), err_msg=key)
+    elif group == "layouts":
+        assert set(ranks[0]["layout"]) == set(want_layout)
+        assert len(want_layout) > 8  # several buckets of each model
+        for key, value in want_layout.items():
+            for r, got in enumerate(ranks):
+                np.testing.assert_array_equal(
+                    np.asarray(got["layout"][key], np.float32), value[r],
+                    err_msg=key)
+    elif group == "bowl":
+        for got in ranks:
+            bowl = got["bowl"]
+            exact = bowl["none-True"]
+            assert exact["loss"] < 1e-6
+            g_ef = _gap(bowl["int8-True"]["params"], exact["params"])
+            g_noef = _gap(bowl["int8-False"]["params"], exact["params"])
+            assert g_ef < 3e-3, f"error feedback missed the optimum: {g_ef}"
+            assert g_noef > 3e-2, f"no error feedback still landed: {g_noef}"
+            assert g_noef > 10 * g_ef
+    elif group == "dryrun":
+        for got in ranks:
+            exact = np.asarray(got["dryrun"]["none"])
+            assert np.isfinite(exact).all()
+            for wire in ("int8", "fp8_e4m3"):
+                losses = np.asarray(got["dryrun"][wire])
+                assert np.isfinite(losses).all()
+                rel = np.max(np.abs(losses - exact)
+                             / np.maximum(np.abs(exact), WIRE_EPSILON_FLOOR))
+                assert rel <= WIRE_EPSILON, (wire, losses, exact)
+                assert not np.array_equal(losses, exact)
+        assert ranks[0]["dryrun"] == ranks[1]["dryrun"]
+    else:
+        for got in ranks:
+            for key, (j_losses, j_params) in j_runs.items():
+                run = got["bf16"][key]
+                params = {k: {n: np.asarray(v, np.float32)
+                              for n, v in d.items()}
+                          for k, d in run["params"].items()}
+                _assert_bf16_matches(run["losses"], params, j_losses,
+                                     j_params)
