@@ -182,7 +182,8 @@ runs these phases; any failure raises:
   and ``matmul_conv`` beside ``profile_step``'s matmuls; then
   ``/profile?seconds=1&wait=1`` while steps run must return a summary;
 * 16c: ``/flightrec?dump=1``, and the doctor over the dump after
-  ``shutdown()``'s final one: healthy, naming the last step;
+  ``shutdown()``'s final one: healthy, naming the last step (the dumps
+  are kept for 19c);
 * 17a: elastic training: an ``ElasticDriver`` in this process over
   ``FixedHosts`` hostA and hostB (``min_np = max_np = 1``,
   ``Blacklist(threshold=2, base_delay=0)``, the port's
@@ -238,7 +239,13 @@ runs these phases; any failure raises:
 * 19c: in a subprocess, ``python -m horovod_tpu_torch.analysis.cli``
   over the port's tree (exit 0) and ``python -m
   horovod_tpu_torch.telemetry.trend`` over the repo's rounds (exit code
-  and rows printed), neither importing ``jax`` nor ``horovod_tpu``;
+  and rows printed), neither importing ``jax`` nor ``horovod_tpu``; then
+  the checkout's scripts, each in a process where ``jax`` and
+  ``horovod_tpu`` cannot be imported: ``bin/hvd-lint-torch`` (the exit
+  code and last line of the ``python -m`` run), ``bin/hvdrun-torch
+  --check-build`` (exit 0, the native core listed) and
+  ``bin/hvd-doctor-torch <16c's dumps> --json`` (16c's classification
+  and last event);
 * 20a: 6b's configuration built with ``DistributedOptimizer(axes=
   ("data",), sharded_update=True)`` on a (data 1, model 1) mesh (ZeRO-1
   over a part of the mesh), in turns with 6b on ``init()``'s mesh: every
@@ -289,7 +296,9 @@ runs these phases; any failure raises:
   checkpoint's write ms;
 * 22b: ``examples/synthetic_benchmark --model resnet50 --batch-size 64``
   (3 warm-up batches, 3 slope-window iterations of 10): img/s and MFU
-  from hook-counted multiply-adds;
+  from hook-counted multiply-adds; then the driver's step read once
+  more through ``utils.benchmarks.timed_throughput`` (one window of
+  10): finite and positive, printed with its ``upper_bound`` flag;
 * 22c: Horovod's classic ``pytorch_synthetic_benchmark`` and
   ``pytorch_mnist`` over ``horovod_tpu_torch.torch`` with their tensors
   on the card: img/s, and MNIST learning (the driver's own assert). No
@@ -3548,10 +3557,13 @@ def _xray_check(label, torch, xprof, summary, profile_dir, steps):
 
 
 def phase_telemetry(hvd, fa, torch, bench, phase5_losses, losses_6b,
-                    phase5_tok_s, card):
+                    phase5_tok_s, card, keep):
     """16a-16c (module docstring): the telemetry and diagnosis planes on
-    phase 5's LM and 6b's configuration, at world 1 over NCCL. Returns
-    the kernels' launches."""
+    phase 5's LM and 6b's configuration, at world 1 over NCCL. 16c's
+    flight-recorder dumps are copied into the directory ``keep`` for
+    19c. Returns the kernels' launches and 16c's report: ``dir``
+    (``keep``), ``classification`` and the last event."""
+    import shutil
     import tempfile
     from horovod_tpu_torch import _build, basics, telemetry, training
     from horovod_tpu_torch.diag import doctor
@@ -3771,7 +3783,9 @@ def phase_telemetry(hvd, fa, torch, bench, phase5_losses, losses_6b,
                                  f"{report['classification']}, last event "
                                  f"{ev}; want healthy at step {last_step}")
         print(f"  16c doctor: healthy, last step {ev.get('step')}")
-    return total
+        shutil.copytree(root / "flightrec", keep, dirs_exist_ok=True)
+    return total, dict(dir=keep, classification=report["classification"],
+                       last_event=ev)
 
 
 # phase 17: the steps a hostA worker takes before it dies (17a), the
@@ -4528,21 +4542,68 @@ print(json.dumps(dict(
 """
 
 
-def phase_tools():
+# 19c's scripts of the checkout: each runs as a file, as its ``#!`` line
+# runs it, in a process where the modules named in argv[1] cannot be
+# imported (``None`` in ``sys.modules``)
+_BLOCKED_RUN = """
+import runpy, sys
+for name in sys.argv[1].split(","):
+    sys.modules[name] = None
+sys.argv = sys.argv[2:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+NO_JAX = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+
+
+def start_script(name, args, blocked=NO_JAX):
+    """``bin/<name> args`` from the checkout, with nothing installed and
+    the modules ``blocked`` unimportable; returns the running process
+    (text pipes)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _BLOCKED_RUN, ",".join(blocked),
+         str(ROOT / "bin" / name), *args], cwd=ROOT, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _tail(text):
+    return (text.strip().splitlines() or [""])[-1]
+
+
+def phase_tools(doctor_16c):
     """19c: hvd-lint-torch over the port's tree and the trend tool over
-    the repo's rounds, in a subprocess that must not import JAX."""
+    the repo's rounds, in a subprocess that must not import JAX; beside
+    it the checkout's ``bin/`` scripts with JAX unimportable:
+    ``hvd-lint-torch`` as the ``python -m`` run, ``hvdrun-torch
+    --check-build``, and ``hvd-doctor-torch --json`` over 16c's dumps
+    (``doctor_16c``, ``phase_telemetry``'s report)."""
     import os
     print("== phase 19c: python -m horovod_tpu_torch.analysis.cli and "
-          "python -m horovod_tpu_torch.telemetry.trend in a subprocess")
+          "python -m horovod_tpu_torch.telemetry.trend in a subprocess; "
+          "bin/hvd-lint-torch, bin/hvdrun-torch and bin/hvd-doctor-torch "
+          "with jax and horovod_tpu unimportable")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
     t = time.perf_counter()
-    rv = subprocess.run(
-        [sys.executable, "-c", _TOOLS_PROBE, str(ROOT),
-         *(LINT_TARGETS or [])], cwd=ROOT, env=env, capture_output=True,
-        text=True, timeout=300)
+    scripts = {
+        "lint": start_script("hvd-lint-torch", [
+            "--root", str(ROOT), *(LINT_TARGETS or [])]),
+        "check": start_script("hvdrun-torch", ["--check-build"]),
+        "doctor": start_script("hvd-doctor-torch",
+                               [doctor_16c["dir"], "--json"])}
+    try:
+        rv = subprocess.run(
+            [sys.executable, "-c", _TOOLS_PROBE, str(ROOT),
+             *(LINT_TARGETS or [])], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=300)
+        done = {k: (*p.communicate(timeout=300), p.returncode)
+                for k, p in scripts.items()}
+    finally:
+        for p in scripts.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     secs = time.perf_counter() - t
     if rv.returncode != 0:
         raise AssertionError(f"19c: the tools' subprocess exited "
@@ -4558,6 +4619,33 @@ def phase_tools():
     if res["trend_rc"] not in (0, 1) or not res["rows"]:
         raise AssertionError(f"19c: the trend tool exited {res['trend_rc']} "
                              f"with {res['rows']} rows: {res['trend_err']}")
+    out, err, rc = done["lint"]
+    print(f"  19c bin/hvd-lint-torch exit {rc}: {_tail(out)}")
+    if (rc, _tail(out)) != (res["lint_rc"], res["lint_tail"]):
+        raise AssertionError(f"19c: bin/hvd-lint-torch exited {rc} with "
+                             f"{_tail(out)!r}; python -m exited "
+                             f"{res['lint_rc']} with {res['lint_tail']!r}"
+                             f"\n{err[-2000:]}")
+    out, err, rc = done["check"]
+    core = "[X] TCP (native host core)"
+    print(f"  19c bin/hvdrun-torch --check-build exit {rc}: "
+          f"{core if core in out else 'no native core listed'}")
+    if rc != 0 or core not in out:
+        raise AssertionError(f"19c: bin/hvdrun-torch --check-build exited "
+                             f"{rc}:\n{out}\n{err[-2000:]}")
+    out, err, rc = done["doctor"]
+    report = json.loads(out) if rc == 0 else {}
+    ev = (report.get("per_rank", {}).get("0") or {}).get("last_event")
+    want = json.loads(json.dumps(doctor_16c["last_event"], sort_keys=True,
+                                 default=str))
+    print(f"  19c bin/hvd-doctor-torch over 16c's dumps exit {rc}: "
+          f"{report.get('classification')}, last event {ev}")
+    if report.get("classification") != doctor_16c["classification"] or \
+            ev != want:
+        raise AssertionError(f"19c: bin/hvd-doctor-torch exited {rc}, says "
+                             f"{report.get('classification')} at {ev}; 16c "
+                             f"said {doctor_16c['classification']} at {want}"
+                             f"\n{err[-2000:]}")
 
 
 def _grad_norm_check(name, torch, step, opt):
@@ -5413,7 +5501,8 @@ def _finite(label, losses):
 def phase_examples(hvd, fa, torch, card, device=None):
     """22a: ``examples/imagenet_resnet50`` at full width (``EXAMPLES``),
     one epoch, then a second run to 2 epochs that resumes the first's
-    checkpoint; 22b ``examples/synthetic_benchmark``; 22c the classic
+    checkpoint; 22b ``examples/synthetic_benchmark``, its step read again
+    through ``timed_throughput``; 22c the classic
     ``pytorch_synthetic_benchmark`` and ``pytorch_mnist`` over
     ``horovod_tpu_torch.torch``, their tensors on the card. Each driver's
     ``main`` runs here at world 1 (its ``init()`` returns at once); no
@@ -5425,6 +5514,7 @@ def phase_examples(hvd, fa, torch, card, device=None):
                                             pytorch_mnist,
                                             pytorch_synthetic_benchmark,
                                             synthetic_benchmark)
+    from horovod_tpu_torch.utils import benchmarks as bench
     ex = EXAMPLES
     hvd.init(device=device)
     dev = hvd.device()
@@ -5489,6 +5579,16 @@ def phase_examples(hvd, fa, torch, card, device=None):
           f"{6 * macs * rate / 1e12:.1f} TFLOP/s, "
           f"{100 * 6 * macs * rate / PEAK_FLOPS['bfloat16']:.2f} % of the "
           "bf16 peak (MFU)")
+    step, (images, labels) = synth.pop("step"), synth.pop("batch")
+    timed, dt = bench.timed_throughput(step, None, images, labels, warmup=0,
+                                       iters=ex["synth_per_iter"])
+    print(f"  22b the driver's step through utils.benchmarks."
+          f"timed_throughput, one window of {ex['synth_per_iter']}: "
+          f"{timed:.1f} img/s (upper_bound {dt.upper_bound}, asymmetric "
+          f"{dt.asymmetric}) beside the driver's {rate:.1f}")
+    if not (math.isfinite(timed) and timed > 0):
+        raise AssertionError(f"22b: timed_throughput read {timed} img/s")
+    del step, images, labels, synth
 
     print("== phase 22c: examples/pytorch_synthetic_benchmark and "
           "examples/pytorch_mnist over horovod_tpu_torch.torch, tensors on "
@@ -5611,16 +5711,18 @@ def main(argv=None):
     print(f"== phase 15 took {time.perf_counter() - t15:.1f} s")
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
-    launches_16 = phase_telemetry(hvd, fa, torch, bench, losses, losses_6b,
-                                  phase5_tok_s, card)
+    import shutil
+    import tempfile
+    flightrec_16c = tempfile.mkdtemp(prefix="flightrec_")  # kept for 19c
+    launches_16, doctor_16c = phase_telemetry(
+        hvd, fa, torch, bench, losses, losses_6b, phase5_tok_s, card,
+        keep=flightrec_16c)
     print(f"== phase 16 took {time.perf_counter() - t16:.1f} s")
     t17 = time.perf_counter()
     launches_17 = phase_elastic(hvd, torch, losses)
     print(f"== phase 17 took {time.perf_counter() - t17:.1f} s")
     torch.cuda.empty_cache()
     t18 = time.perf_counter()
-    import shutil
-    import tempfile
     serve_root = tempfile.mkdtemp(prefix="serve_ckpt_")  # kept for 20b
     streams18, metrics18 = phase_serve(hvd, fa, torch, bench, card,
                                        root=serve_root)
@@ -5629,7 +5731,8 @@ def main(argv=None):
     t19 = time.perf_counter()
     launches_19 = phase_timer_tuner(hvd, fa, torch, dev, bench, rows,
                                     phase5_tok_s)
-    phase_tools()
+    phase_tools(doctor_16c)
+    shutil.rmtree(flightrec_16c, ignore_errors=True)
     print(f"== phase 19 took {time.perf_counter() - t19:.1f} s")
     torch.cuda.empty_cache()
     t20 = time.perf_counter()

@@ -8,9 +8,10 @@ horovod_tpu_torch.analysis.cli``.
     hvd-lint-torch --format json                # structured findings
     hvd-lint-torch --baseline write             # re-ratchet the debt ledger
 
-Exit codes (matches bin/hvd-doctor / bin/hvd-serve conventions):
-0 clean, 1 findings (or stale baseline entries — the ratchet), 2
-engine error (unparseable file, bad baseline, rule crash).
+Exit codes (matches the conventions of bin/hvd-doctor-torch and
+bin/hvd-serve-torch): 0 clean, 1 findings (or stale baseline entries —
+the ratchet), 2 engine error (unparseable file, bad baseline, rule
+crash).
 """
 
 import argparse

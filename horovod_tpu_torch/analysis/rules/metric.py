@@ -140,7 +140,7 @@ def _span_table_findings(parsed):
                 col=1,
                 message=f"span kind `{kind}` has no entry in the serve "
                         "doctor's PHASE_OF_KIND classifier",
-                hint="hvd-doctor serve must name a phase for every "
+                hint="hvd-doctor-torch serve must name a phase for every "
                      "kind the tracer can emit — add the mapping in "
                      "diag/serve_doctor.py",
                 fingerprint=f"SPAN_KINDS:{kind}"))

@@ -1,9 +1,10 @@
 """The desync doctor: aggregate per-rank flight-recorder dumps into one
 hang report.
 
-    hvdrun --doctor <logdir>            (python -m horovod_tpu_torch.run)
-    python -m horovod_tpu_torch.diag.doctor <logdir>
-    python -m horovod_tpu_torch.diag.doctor perf|serve|xray <dir>
+    hvd-doctor-torch <logdir>
+    hvd-doctor-torch hang|perf|serve|xray <dir>
+    hvdrun-torch --doctor <logdir>
+    python -m horovod_tpu_torch.diag.doctor [hang|perf|serve|xray] <dir>
 
 The port of ``horovod_tpu/diag/doctor.py``, the same code: it reads the
 dumps of either package (one schema), and its ``--json`` report is the
@@ -33,7 +34,7 @@ diverged (desync), and a probable-cause classification:
 * ``healthy``      — every rank dumped via clean exit paths with nothing
   left open.
 
-``hvdrun`` runs this automatically when a job exits non-zero and dumps
+``hvdrun-torch`` runs this automatically when a job exits non-zero and dumps
 are present (opt out with ``--no-doctor``).
 """
 
@@ -397,7 +398,7 @@ def run(logdir, expected_size=None, stream=None):
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        prog="python -m horovod_tpu_torch.diag.doctor",
+        prog="hvd-doctor-torch",
         description="Aggregate per-rank flight-recorder dumps into a "
                     "hang/crash report.")
     p.add_argument("logdir", help="directory containing "
@@ -445,10 +446,11 @@ SUBCOMMANDS = {
 
 
 def doctor_cli(argv=None):
-    """The ``hvd-doctor`` entry point — ``hvd-doctor <subcommand>
-    <dir> [--json]`` with the subcommands in :data:`SUBCOMMANDS`;
-    a bare ``hvd-doctor <dir>`` keeps meaning ``hang`` (the original
-    interface)."""
+    """The ``hvd-doctor-torch`` entry point (``bin/hvd-doctor-torch``,
+    ``python -m horovod_tpu_torch.diag.doctor``) — ``hvd-doctor-torch
+    <subcommand> <dir> [--json]`` with the subcommands in
+    :data:`SUBCOMMANDS`; a bare ``hvd-doctor-torch <dir>`` means
+    ``hang``, as JAX's ``hvd-doctor <dir>`` does."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in SUBCOMMANDS:
         return SUBCOMMANDS[argv[0]](argv[1:])

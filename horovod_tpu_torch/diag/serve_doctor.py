@@ -1,8 +1,8 @@
-"""``hvd-doctor serve`` — the tail-latency doctor for the serve fleet:
+"""``hvd-doctor-torch serve`` — the tail-latency doctor for the serve fleet:
 the port of ``horovod_tpu/diag/serve_doctor.py``, the same code, so it
 reads either package's dumps and reports alike.
 
-The serving twin of ``hvd-doctor perf``: where the perf doctor loads
+The serving twin of ``hvd-doctor-torch perf``: where the perf doctor loads
 goodput-ledger dumps and names each rank's dominant time sink, this one
 loads per-request trace dumps (``servetrace*.ndjson``, written by
 ``serve/tracing.py``) and names each SLOW request's dominant phase:
@@ -237,7 +237,7 @@ def run(path, slo_ms=None, stream=None):
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        prog="hvd-doctor serve",
+        prog="hvd-doctor-torch serve",
         description="Name each slow request's dominant phase from "
                     "per-request serve trace dumps "
                     "(servetrace*.ndjson).")

@@ -1,7 +1,7 @@
-"""``hvd-doctor xray`` — where did my step's device time go.
+"""``hvd-doctor-torch xray`` — where did my step's device time go.
 
 The port of ``horovod_tpu/diag/xray.py``: the device-side twin of
-``hvd-doctor perf``, over ``torch.profiler`` captures
+``hvd-doctor-torch perf``, over ``torch.profiler`` captures
 (``telemetry/xprof.py`` does the parsing). It accepts either:
 
 * a directory holding ``xray.rank<r>.json`` summaries (what
@@ -136,7 +136,7 @@ def run(directory, steps=None, byte_file=None, stream=None):
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        prog="hvd-doctor xray",
+        prog="hvd-doctor-torch xray",
         description="Attribute compiled-step device time from a "
                     "torch.profiler capture: per-category buckets, "
                     "exposed vs overlapped collective time, effective "

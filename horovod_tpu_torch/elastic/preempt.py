@@ -33,7 +33,7 @@ minutes before pulling the plug. This module turns that notice into a
 The whole window is charged to the goodput ledger's ``preemption``
 phase, counted in ``hvd_preemptions_total{kind}`` and
 ``hvd_grace_commit_seconds``, and recorded as structured ``preempt``
-flight-recorder events so ``hvd-doctor hang`` can report "graceful
+flight-recorder events so ``hvd-doctor-torch hang`` can report "graceful
 eviction" instead of a dead rank.
 """
 

@@ -112,7 +112,7 @@ def main(argv=None):
         ap.error(f"a mesh of --data {args.data} x --seq {args.seq} x "
                  f"--model {args.model} x --expert {args.expert} needs "
                  f"{args.data * others} ranks; this job has {world} "
-                 "(hvdrun -np)")
+                 "(hvdrun-torch -np)")
     if args.steps < 1 or args.warmup < 0:
         ap.error("--steps must be >= 1 and --warmup >= 0")
 

@@ -21,8 +21,10 @@ On the CPU:
         python -m horovod_tpu_torch.examples.synthetic_benchmark \\
         --device cpu --model resnet18 --batch-size 2 --image-size 32
 
-``main`` returns the rates of the iterations (img/sec over all ranks)
-and the model it timed.
+``main`` returns the rates of the iterations (img/sec over all ranks),
+the model it timed, its step in ``utils.benchmarks``' form
+``step(state, images, labels) -> (state, loss)`` and this rank's
+``(images, labels)``, so that a caller can time it again.
 """
 
 import argparse
@@ -103,7 +105,9 @@ def main(argv=None):
               f"+- {1.96 * np.std(img_secs) / ndev:.1f}")
         print(f"Total img/sec on {ndev} chip(s): {np.mean(img_secs):.1f} "
               f"+- {1.96 * np.std(img_secs):.1f}")
-    return {"img_secs": img_secs, "model": model}
+    return {"img_secs": img_secs, "model": model,
+            "step": lambda st, x, y: (st, step(x, y)),
+            "batch": (images, labels)}
 
 
 if __name__ == "__main__":

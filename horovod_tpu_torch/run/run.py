@@ -383,7 +383,7 @@ def _maybe_doctor(args, dump_dir, multi_host=False):
             print("hvdrun: MULTI-HOST job — only this host's dumps are "
                   "visible below; ranks on other hosts may be wrongly "
                   "listed as DEAD. Collect each host's dump dir into one "
-                  "place and rerun `hvdrun --doctor <dir>` for the real "
+                  "place and rerun `hvdrun-torch --doctor <dir>` for the real "
                   "verdict.", file=sys.stderr)
         doctor_mod.run(dump_dir, expected_size=args.num_proc,
                        stream=sys.stderr)

@@ -23,7 +23,7 @@ checkpoints. The port of ``horovod_tpu/serve/``, module for module.
   with zero dropped requests;
 * **tracing** (``tracing.py``) — request-scoped span recording across
   router, engines and frontends, zero-cost when off, exported as ndjson
-  for ``hvd-doctor serve`` (``diag/serve_doctor.py``) and as merged
+  for ``hvd-doctor-torch serve`` (``diag/serve_doctor.py``) and as merged
   Chrome traces.
 """
 

@@ -86,7 +86,7 @@ def build_parser():
                         "HOROVOD_PREEMPT_NOTICE_FILE/_URL env knobs")
     p.add_argument("--trace-dir", default=None,
                    help="write per-request trace dumps here on "
-                        "shutdown (ndjson for `hvd-doctor serve` plus "
+                        "shutdown (ndjson for `hvd-doctor-torch serve` plus "
                         "a merged Chrome trace); also arms tracing as "
                         "if HOROVOD_SERVE_TRACE_DIR were set — "
                         "sampling/SLO come from HOROVOD_SERVE_TRACE "
@@ -151,8 +151,8 @@ def main(argv=None):
     if Config.from_env().size > 1:
         if args.fleet > 1:
             raise SystemExit("hvd-serve-torch: --fleet serves the cards of "
-                             "one process; under hvdrun -np N > 1 the ranks "
-                             "serve one engine")
+                             "one process; under hvdrun-torch -np N > 1 the "
+                             "ranks serve one engine")
         basics.init(device="cpu" if args.device == "cpu" else None)
         mesh = basics.mesh()
     leader = mesh is None or mesh.rank == 0

@@ -3,7 +3,7 @@
 read alike in either package's ``hvd-doctor serve``.
 
 The training side can explain every second of wall clock (goodput
-ledger, flight recorder, ``hvd-doctor perf``); this module brings the
+ledger, flight recorder, ``hvd-doctor-torch perf``); this module brings the
 same per-event attribution to the request path, modeled on Horovod's
 Timeline: every phase a request passes through — router queue, scoring
 and dispatch, KV admission (or backpressure), each prefill chunk and
@@ -37,7 +37,7 @@ is set — tail sampling: every request records cheaply, but only those
 finishing over the SLO (plus sampled/forced ones) are kept.
 
 Export: ndjson dumps (one finalized trace per line — the input format
-of ``hvd-doctor serve``, diag/serve_doctor.py) and Chrome traces
+of ``hvd-doctor-torch serve``, diag/serve_doctor.py) and Chrome traces
 through the existing ``telemetry/merge.py`` machinery — one pid per
 actor (router, then replicas), clock-sync alignment, and request-hop
 flow arrows in :data:`~horovod_tpu_torch.telemetry.merge.GLOBAL_FLOW_CAT`
@@ -337,7 +337,7 @@ class ServeTracer:
 
     def write_ndjson(self, path):
         """Dump every kept trace as one-JSON-per-line — the input
-        format of ``hvd-doctor serve``."""
+        format of ``hvd-doctor-torch serve``."""
         traces = self.traces()
         with open(path, "w") as fh:
             for tr in traces:

@@ -96,7 +96,7 @@ SERVE_WEIGHT_SWAP_SECONDS = "hvd_serve_weight_swap_seconds"
 # -- goodput ledger (telemetry/ledger.py, docs/OBSERVABILITY.md) ------------
 TIME_SECONDS = "hvd_time_seconds_total"
 GOODPUT_RATIO = "hvd_goodput_ratio"
-# -- compiled-step X-ray (telemetry/xprof.py, hvd-doctor xray) --------------
+# -- compiled-step X-ray (telemetry/xprof.py, hvd-doctor-torch xray) --------
 XRAY_DEVICE_SECONDS = "hvd_xray_device_seconds"
 XRAY_BUCKETED_FRACTION = "hvd_xray_bucketed_fraction"
 XRAY_EXPOSED_SECONDS = "hvd_xray_exposed_collective_seconds"

@@ -28,7 +28,7 @@ Phases (exclusive — each second lands in exactly one):
   step and their time books as ``compute``; the step wrappers call
   :meth:`TimeLedger.note_compiled_path` so snapshots/dumps carry a
   ``compiled_path`` flag and the report annotates the zero instead of
-  implying "no exposed comms" (run ``hvd-doctor xray`` for the
+  implying "no exposed comms" (run ``hvd-doctor-torch xray`` for the
   device-side split).
 * ``data_wait``           — the training thread blocked on the input
   pipeline (``hvd_data_wait_seconds``'s source, charged here too).
@@ -69,7 +69,7 @@ settle, ride the KV heartbeat snapshots (``instruments.kv_snapshot``)
 into the elastic driver's fleet view, and land in every BENCH json.
 ``write_dump()`` drops ``goodput.rank<r>.json`` next to the
 flight-recorder dumps at shutdown; ``telemetry/report.py`` (and
-``hvd-doctor perf``) aggregates them into the end-of-run report.
+``hvd-doctor-torch perf``) aggregates them into the end-of-run report.
 """
 
 import json
@@ -211,8 +211,8 @@ class TimeLedger:
         """Mark this run as a compiled-path (GSPMD) run: its
         ``exposed_collective`` phase is structurally zero because the
         collectives live inside the compiled step. Snapshots, dumps and
-        ``hvd-doctor perf`` annotate the zero instead of implying no
-        exposed comms — the device-side answer is ``hvd-doctor xray``.
+        ``hvd-doctor-torch perf`` annotate the zero instead of implying no
+        exposed comms — the device-side answer is ``hvd-doctor-torch xray``.
         Called by the spmd step wrappers; idempotent, a bool store."""
         self.compiled_path = True
 
@@ -422,7 +422,7 @@ class TimeLedger:
     def write_dump(self, directory, rank, extra=None):
         """Finalize and write ``goodput.rank<r>.json`` into
         ``directory`` (atomically) — the per-rank half of the end-of-run
-        report (``telemetry/report.py`` / ``hvd-doctor perf``)."""
+        report (``telemetry/report.py`` / ``hvd-doctor-torch perf``)."""
         if not self.enabled or not self.started:
             return None
         snap = self.finalize()

@@ -24,7 +24,7 @@ This tool unifies them:
 CLI::
 
     python -m horovod_tpu_torch.telemetry.merge -o merged.json trace.rank*.json
-    hvdrun --merge-timeline merged.json trace.rank*.json
+    hvdrun-torch --merge-timeline merged.json trace.rank*.json
 """
 
 import argparse

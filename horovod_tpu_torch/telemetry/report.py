@@ -4,8 +4,8 @@ dominant time sink.
 The port of ``horovod_tpu/telemetry/report.py``, the same code: the same
 dumps give the same text, and it reads either package's dumps.
 
-    hvd-doctor perf <logdir>
-    hvdrun --goodput-report <logdir>
+    hvd-doctor-torch perf <logdir>
+    hvdrun-torch --goodput-report <logdir>
     python -m horovod_tpu_torch.telemetry.report <logdir>
 
 Each rank's ``TimeLedger`` (``telemetry/ledger.py``) writes a
@@ -314,14 +314,14 @@ def goodput_block(ledger=None, validate=True):
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        prog="hvd-doctor perf",
+        prog="hvd-doctor-torch perf",
         description="Aggregate per-rank goodput-ledger dumps "
                     "(goodput.rank*.json) into an end-of-run time-"
                     "attribution report naming the dominant time sink.")
     p.add_argument("logdir", help="directory containing goodput.rank*."
                                   "json dumps (searched recursively)")
     p.add_argument("--trace", default=None,
-                   help="merged Chrome trace (hvdrun --merge-timeline "
+                   help="merged Chrome trace (hvdrun-torch --merge-timeline "
                         "output) to cross-check ledger wall times "
                         "against (default: <logdir>/merged.json when "
                         "present)")

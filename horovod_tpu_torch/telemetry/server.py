@@ -106,7 +106,7 @@ class MetricsServer(HttpService):
 
     def _attribute_capture(self, window):
         """Run the window's capture through the X-ray parser: drops
-        ``xray.rank<r>.json`` next to the trace for ``hvd-doctor xray``
+        ``xray.rank<r>.json`` next to the trace for ``hvd-doctor-torch xray``
         and returns the summary the HTTP response serves. No capture
         (no step ran in the window) or a torn one returns
         ``{"error": ...}``."""
@@ -210,7 +210,8 @@ class MetricsServer(HttpService):
                                  "output_dir": out,
                                  "result": "/profile?result=1 after the "
                                            "capture finishes, or "
-                                           "hvd-doctor xray on the dir"}),
+                                           "hvd-doctor-torch xray on the "
+                                           "dir"}),
                                 "application/json")
                     else:
                         self._respond(404, "not found\n", "text/plain")

@@ -10,7 +10,8 @@ verdicts and their thresholds, innermost-wins self time,
 :func:`attribute`, :func:`verdict`, :func:`join_collective_bytes`,
 :func:`find_capture`, :func:`xray_run`, and the capture layout
 (``<dir>/plugins/profile/<timestamp>/<host>.trace.json.gz``), so that
-``hvd-doctor xray <dir>`` reads a directory of either package.
+``hvd-doctor-torch xray <dir>``, like JAX's ``hvd-doctor xray``, reads a
+directory of either package.
 
 What changes is where device lanes are found and how events are named,
 since a torch trace is not an XLA one:
@@ -530,7 +531,7 @@ def capture_steps(run_once, steps, profile_dir):
 
 def write_summary(summary, directory, rank=0):
     """Atomically drop ``xray.rank<r>.json`` into ``directory`` — the
-    artifact ``hvd-doctor xray <dir>`` aggregates."""
+    artifact ``hvd-doctor-torch xray <dir>`` aggregates."""
     payload = dict(summary)
     payload["rank"] = int(rank)
     path = os.path.join(directory, f"{SUMMARY_PREFIX}{int(rank)}.json")

@@ -1,8 +1,9 @@
 """The benchmark workloads, each built one way (the port of
 ``horovod_tpu/utils/benchmarks.py``'s ``model_registry``,
 ``compute_dtype``, ``make_model``, ``synthetic_batch``, ``make_lm_bench``,
-``sync`` and the slope-window
-timer ``slope_window``/``repeat_step_windows``; ``make_resnet_bench``
+``sync``, the slope-window
+timer ``slope_window``/``repeat_step_windows`` and its throughput views
+``repeat_throughput``/``timed_throughput``; ``make_resnet_bench``
 builds ``bench.py``'s image-model step), and timing on the card with CUDA
 events."""
 
@@ -202,6 +203,28 @@ def repeat_step_windows(step_once, state, warmup, iters, repeats,
                                  base_iters=base_iters)
         runs.append(dt)
     return runs, state
+
+
+def repeat_throughput(step, state, images, labels, warmup, iters,
+                      repeats, base_iters=2):
+    """``repeats`` slope windows of a classification step
+    ``step(state, images, labels) -> (state, out)``: a list of
+    ``(images per second, WindowTime)``, the rate
+    ``images.shape[0] * iters / dt``. The (images, labels) view of
+    :func:`repeat_step_windows`, which keeps the one copy of the timing
+    discipline; each ``WindowTime`` keeps its ``upper_bound`` and
+    ``asymmetric`` flags."""
+    dts, _ = repeat_step_windows(
+        lambda st: step(st, images, labels), state, warmup, iters,
+        repeats, base_iters=base_iters)
+    return [(images.shape[0] * iters / dt, dt) for dt in dts]
+
+
+def timed_throughput(step, state, images, labels, warmup, iters):
+    """``(images per second, WindowTime)`` of ``step`` over one slope
+    window: :func:`repeat_throughput` at one repeat."""
+    return repeat_throughput(step, state, images, labels, warmup, iters,
+                             repeats=1)[0]
 
 
 def make_lm_bench(*, batch, seq_len, layers, d_model, heads, vocab, flash,

@@ -76,6 +76,7 @@ setup(
             "hvdrun = horovod_tpu.run.run:main",
             "hvdrun-torch = horovod_tpu_torch.run.run:main",
             "hvd-doctor = horovod_tpu.diag.doctor:doctor_cli",
+            "hvd-doctor-torch = horovod_tpu_torch.diag.doctor:doctor_cli",
             "hvd-lint = horovod_tpu.analysis.cli:main",
             "hvd-lint-torch = horovod_tpu_torch.analysis.cli:main",
             "hvd-serve = horovod_tpu.serve.cli:main",

@@ -1,5 +1,6 @@
 """The port's slope-window timer (``utils/benchmarks.py``: ``WindowTime``,
-``slope_window``, ``repeat_step_windows``) and fusion autotuner
+``slope_window``, ``repeat_step_windows`` and its throughput views
+``repeat_throughput`` and ``timed_throughput``) and fusion autotuner
 (``ops/fusion.py``: ``AutotuneTimings``, ``autotune_fusion_threshold``)
 against the JAX package's, on the CPU.
 
@@ -9,6 +10,8 @@ against the JAX package's, on the CPU.
   cost on the mid windows only (asymmetric). Values, flags, calls and
   warnings equal JAX's exactly; so do they under the port's ``agree``
   hook at the identity, and a joint slope that inverts reruns the set.
+  The throughput views run on the clock at dyadic costs: rates and
+  windows equal JAX's exactly.
 * The tuner's twins of ``tests/test_fusion.py``'s autotune tests run in
   this process on a mesh whose data axis counts 2 over this one rank (the
   trials' collectives reduce over one rank; the tuner sees a world of 2),
@@ -37,6 +40,7 @@ import types
 import warnings
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -173,6 +177,80 @@ def test_repeat_step_windows_matches_jax(monkeypatch):
     want = _timed(jbench, monkeypatch, script, run)
     assert got == want
     assert len(got[0][0]) == 2 and got[1] == 2 + 2 * (1 + 36) + 36
+
+
+def test_repeat_throughput_propagates_window_times():
+    """The twin of ``tests/test_benchmarks_util.py``'s test: each of the
+    repeats is a positive rate beside its ``WindowTime``."""
+    def step(state, images, labels):
+        return state, torch.zeros(())
+
+    imgs = np.zeros((4, 1))
+    runs = pbench.repeat_throughput(step, 0, imgs, None, warmup=0, iters=3,
+                                    repeats=2)
+    assert len(runs) == 2
+    for rate, dt in runs:
+        assert isinstance(dt, pbench.WindowTime)
+        assert rate > 0
+
+
+def test_every_benchmarks_helper_has_a_port_twin():
+    """Each public function and class of JAX's ``utils/benchmarks.py``
+    has its twin in the port's but ``cost_analysis_dict``, which only
+    normalizes XLA's ``cost_analysis()`` and has no torch form."""
+    def public(mod):
+        return {n for n, v in vars(mod).items() if not n.startswith("_")
+                and getattr(v, "__module__", None) == mod.__name__}
+
+    assert public(jbench) - public(pbench) == {"cost_analysis_dict"}
+
+
+# dyadic costs, so that every window, slope and rate is exact
+_DYADIC_STEP = 2.0 ** -7
+_DYADIC_CLEAN = _rounds(0.125, 0.125, 0.125)
+_DYADIC_ASYMMETRIC = _rounds(0.0, 0.0625, 0.0)
+
+
+@pytest.mark.parametrize("view", ["repeat", "timed"])
+def test_throughput_views_match_jax(monkeypatch, view):
+    """``repeat_throughput`` (2 warm-up steps, then a clean window, one
+    inverted twice and an asymmetric one) and ``timed_throughput`` (one
+    clean window) on one scripted clock: rates, ``WindowTime`` values,
+    ``upper_bound``, ``asymmetric``, warnings and steps equal JAX's
+    exactly; a clean window of 4 steps of 2^-7 s over 4 images reads
+    512 img/s."""
+    images, labels = np.zeros((4, 3, 8, 8), np.float32), np.zeros(4)
+    if view == "repeat":
+        script = (_DYADIC_STEP, [0.0, 0.0, 0.0] + _DYADIC_CLEAN + [0.0]
+                  + _INVERTED + _INVERTED + [0.0] + _DYADIC_ASYMMETRIC)
+    else:
+        script = (_DYADIC_STEP, [0.0, 0.0] + _DYADIC_CLEAN)
+
+    def run(bench, clock):
+        def step(st, x, y):
+            assert x is images and y is labels
+            return clock.step_once(st)
+
+        if view == "repeat":
+            runs = bench.repeat_throughput(step, 0, images, labels,
+                                           warmup=2, iters=4, repeats=3)
+        else:
+            runs = [bench.timed_throughput(step, 0, images, labels,
+                                           warmup=1, iters=4)]
+        return [(rate, _window(dt)) for rate, dt in runs]
+
+    got = _timed(pbench, monkeypatch, script, run)
+    want = _timed(jbench, monkeypatch, script, run)
+    for (rate, _), (jrate, _) in zip(got[0], want[0]):
+        assert type(rate) is type(jrate) is float
+    assert got[0][0] == (512.0, (0.03125, False, False, "WindowTime"))
+    flags = [w[1:3] for _, w in got[0]]
+    if view == "repeat":
+        assert flags == [(False, False), (True, False), (False, True)]
+        assert got[1] == 2 + 3 + 36 + 2 * 36 + 36
+    else:
+        assert flags == [(False, False)] and got[1] == 1 + 1 + 36
+    assert got == want
 
 
 # ---- the tuner in this process -------------------------------------------

@@ -94,13 +94,14 @@ def test_phase_15_rehearsed(rehearsal, monkeypatch):
     cs.phase_spmd(hvd_t, fa, torch, bench, losses, tok_s, losses_6a, 1)
 
 
-def test_phase_16_rehearsed(rehearsal, monkeypatch):
+def test_phase_16_rehearsed(rehearsal, monkeypatch, tmp_path):
     """16a-16c (the telemetry and diagnosis planes on phase 5's and 6b's
     steps: losses bit for bit, the scrape's counters, the ledger, the
     x-rays against this script's own union, ``/profile`` while steps
-    run, the doctor over the dumps): every hold passes. The kernels'
-    build is stood in for by a booked compile, the device work of a CPU
-    capture is its operators."""
+    run, the doctor over the dumps): every hold passes, and 16c's dumps
+    are kept for 19c with its healthy report. The kernels' build is
+    stood in for by a booked compile, the device work of a CPU capture
+    is its operators."""
     from horovod_tpu_torch import _build, training
     from horovod_tpu_torch.telemetry import instruments
     monkeypatch.setattr(cs, "profile_step",
@@ -118,8 +119,14 @@ def test_phase_16_rehearsed(rehearsal, monkeypatch):
     losses_6b = [float(step(tokens[:, :seq], tokens[:, 1:seq + 1]))
                  for _ in range(cs.STEPS)]
     hvd_t.shutdown()
-    cs.phase_telemetry(hvd_t, fa, torch, bench, losses, losses_6b, tok_s,
-                       "card")
+    keep = str(tmp_path / "flightrec")
+    launches, doctor = cs.phase_telemetry(hvd_t, fa, torch, bench, losses,
+                                          losses_6b, tok_s, "card",
+                                          keep=keep)
+    assert set(launches) == {"fwd", "dq", "dkv"}
+    assert doctor["dir"] == keep and doctor["classification"] == "healthy"
+    assert os.path.isfile(os.path.join(keep, "flightrec.rank0.json"))
+    assert doctor["last_event"]["k"] == "step"
 
 
 def test_phase_17_runs_through_main_after_the_kernel_phases():
@@ -229,13 +236,17 @@ def test_phase_19_runs_through_main_after_phase_18():
     assert cs.TUNE_WIRES == ["none", "bf16", "int8"]
 
 
-def test_phase_19_rehearsed(rehearsal, monkeypatch):
+def test_phase_19_rehearsed(rehearsal, monkeypatch, tmp_path):
     """19a-19c on the CPU at the tiny size: the slope window over the
     tiny LM's step is no upper bound and K1's is reported; the tuner at
     world 1 returns ``(None, {})`` with the JAX package's reason and
     leaves the config as it was; the tools' subprocess (lint over two
     files of the port, so the rehearsal stays short) exits 0 for the
-    lint, reads the rounds and imports no JAX."""
+    lint, reads the rounds and imports no JAX; the ``bin/`` scripts with
+    JAX unimportable: the lint as the ``python -m`` run, ``hvdrun-torch
+    --check-build`` listing the native core, and ``hvd-doctor-torch``
+    over a port recorder's clean dump giving the in-process doctor's
+    classification and last event."""
     monkeypatch.setattr(cs, "clocks_line", lambda: "no card")
     monkeypatch.setattr(cs, "LINT_TARGETS", [
         "horovod_tpu_torch/telemetry/trend.py",
@@ -248,7 +259,19 @@ def test_phase_19_rehearsed(rehearsal, monkeypatch):
     finally:
         torch.set_num_threads(n)
     assert set(launches) == {"fwd", "dq", "dkv"}
-    cs.phase_tools()
+    from horovod_tpu_torch.diag import doctor
+    from horovod_tpu_torch.diag.recorder import FlightRecorder
+    rec = FlightRecorder(capacity=16, rank=0, size=1,
+                         dump_dir=str(tmp_path))
+    rec.step_begin(3)
+    rec.step_end(3)
+    rec.dump(reason="shutdown")
+    report = doctor.diagnose(doctor.load_dumps(str(tmp_path))[0],
+                             expected_size=1)
+    want = dict(dir=str(tmp_path), classification=report["classification"],
+                last_event=report["per_rank"][0]["last_event"])
+    assert want["classification"] == "healthy"
+    cs.phase_tools(want)
 
 
 def test_phase_20_runs_through_main_after_phase_19():

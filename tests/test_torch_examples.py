@@ -482,9 +482,10 @@ def _run_job(side, job):
                     if "dump" in job else contextlib.nullcontext()
                 with jax_start(mod, job, basics.rank), dumps:
                     ret = mod.main(job["argv"])
-                # what a driver returns for its caller's use (a model)
-                # stays out of the record
-                rec["ret"] = {k: v for k, v in ret.items() if k != "model"}
+                # what a driver returns for its caller's use (a model,
+                # its step and batch) stays out of the record
+                rec["ret"] = {k: v for k, v in ret.items()
+                              if k not in ("model", "step", "batch")}
             else:
                 path = os.path.join(REPO, "examples", job["driver"])
                 sys.argv = [path] + job["argv"]

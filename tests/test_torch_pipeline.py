@@ -215,8 +215,8 @@ def test_schedules_match_jax(schedule, n_stages, n_layers, n_micro):
             out = jpp.pipelined_forward(blk, p, jnp.asarray(x), mesh=mesh,
                                         n_micro=n_micro)
             return jnp.mean(out ** 2), out
-        (_, j_out), j_grads = jax.value_and_grad(loss, has_aux=True)(
-            jstacked)
+        (_, j_out), j_grads = jax.jit(jax.value_and_grad(
+            loss, has_aux=True))(jstacked)
         outs, grads, _ = _port_gpipe(layer_fn, stacked, x, n_stages, n_micro,
                                      1.0 / x.size)
         for o in outs:
@@ -434,7 +434,8 @@ def test_composed_with_data_and_model_axes(schedule, layout):
                                         n_micro=n_micro, batch_axis="data",
                                         param_specs=specs)
             return jnp.mean(out ** 2), out
-        (_, j_out), j_grads = jax.value_and_grad(loss, has_aux=True)(jw)
+        (_, j_out), j_grads = jax.jit(jax.value_and_grad(
+            loss, has_aux=True))(jw)
         got = run_port(schedule, w, x, shape, names, n_micro, 1.0 / x.size)
         D = shape[0]
         for r, o in enumerate(got["out"]):
@@ -531,7 +532,7 @@ LM_SEQ, LM_BATCH = 32, 8
 def _lm_params():
     model = JTransformer(JConfig(**LM, dtype=jnp.float32))
     tokens = jnp.zeros((1, LM_SEQ), jnp.int32)
-    return jax.tree_util.tree_map(np.asarray, model.init(
+    return jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(
         jax.random.PRNGKey(0), tokens)["params"])
 
 
@@ -577,8 +578,10 @@ def test_transformer_blocks_through_both_schedules(n_stages, n_micro):
     def loss(p, x):
         out = jpp.pipelined_forward(blk, p, x, mesh=mesh, n_micro=n_micro)
         return jnp.sum(out ** 2), out
-    (j_loss, j_out), (j_grads, j_dh) = jax.value_and_grad(
-        loss, argnums=(0, 1), has_aux=True)(jstacked, jnp.asarray(h))
+    # the reference compiled once as a whole (eager, each operation
+    # around the schedule compiles on its own)
+    (j_loss, j_out), (j_grads, j_dh) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(jstacked, jnp.asarray(h))
     cfg = TransformerConfig(**LM, dtype=torch.float32, flash_attention=True)
     stacked = convert.stacked_blocks_from_flax(params, cfg)
     block_fn = stage_block_fn([Block(cfg, torch.Generator())], single_axes())

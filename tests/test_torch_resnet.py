@@ -85,8 +85,8 @@ def _nchw(x):
 def _init(jmodel, x, seed=1):
     """flax variables with every BatchNorm scale drawn away from 1 and 0,
     so the zero-initialized last scale of a block hides no branch."""
-    v = jmodel.init(jax.random.PRNGKey(seed), jnp.asarray(x[:1]),
-                    train=False)
+    v = jax.jit(lambda k, x1: jmodel.init(k, x1, train=False))(
+        jax.random.PRNGKey(seed), jnp.asarray(x[:1]))
     rng = np.random.default_rng(seed)
 
     def jitter(path, leaf):
@@ -138,10 +138,13 @@ def test_resnet_matches_flax(name, size):
                                    mutable=["batch_stats"])
         return _xent(logits, jnp.asarray(y)), (logits, mut["batch_stats"])
 
-    (j_loss, (j_logits, j_stats)), j_grads = jax.value_and_grad(
-        loss, has_aux=True)(params)
-    j_eval = jmodel.apply({"params": params, "batch_stats": j_stats},
-                          jnp.asarray(x), train=False)
+    # each reference compiled once as a whole (eager JAX compiles every
+    # operation of the net on its first use)
+    (j_loss, (j_logits, j_stats)), j_grads = jax.jit(jax.value_and_grad(
+        loss, has_aux=True))(params)
+    j_eval = jax.jit(lambda p, s: jmodel.apply(
+        {"params": p, "batch_stats": s}, jnp.asarray(x), train=False))(
+        params, j_stats)
 
     tmodel = _load(_torch_net(name), params, stats).train()
     logits = tmodel(_nchw(x))
@@ -257,8 +260,8 @@ def test_vgg_matches_flax():
         logits = jmodel.apply({"params": p}, jnp.asarray(x), train=False)
         return _xent(logits, jnp.asarray(y)), logits
 
-    (j_loss, j_logits), j_grads = jax.value_and_grad(loss, has_aux=True)(
-        params)
+    (j_loss, j_logits), j_grads = jax.jit(jax.value_and_grad(
+        loss, has_aux=True))(params)
     tmodel = vgg.VGG16(num_classes=CLASSES, dtype=torch.float32, cfg=cfg,
                        image_size=32).eval()
     _load(tmodel, params, None)
@@ -346,14 +349,15 @@ def _step_data():
     return _images(STEP_BATCH, STEP_SIZE, seed=5)
 
 
-def _jax_step_run(mesh, case, x, y):
-    """Initial variables, per-step losses and final params and statistics
-    of the JAX ``make_train_step`` on the bottleneck net."""
+def _jax_step_run(mesh, case, x, y, start=None):
+    """Initial variables (``start``, else drawn by ``_init``), per-step
+    losses and final params and statistics of the JAX
+    ``make_train_step`` on the bottleneck net."""
     accum, overlap, sharded = case
     jmodel = _jax_net("bottleneck")
     tx = hvd_j.DistributedOptimizer(optax.sgd(LR, momentum=0.9),
                                     sharded_update=sharded)
-    params, stats = _init(jmodel, x, seed=0)
+    params, stats = start or _init(jmodel, x, seed=0)
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
     state = training.TrainState(
         params=jparams, opt_state=tx.init(jparams),
@@ -452,7 +456,7 @@ _WORKER = textwrap.dedent("""
 """)
 
 
-def _run_ranks(src, world, args):
+def _start_ranks(src, world, args):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -465,6 +469,10 @@ def _run_ranks(src, world, args):
         procs.append(subprocess.Popen(
             [sys.executable, "-c", src, *args], env=env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def _collect_ranks(procs):
     results = []
     for p in procs:
         out, err = p.communicate(timeout=300)
@@ -492,17 +500,27 @@ def test_make_train_step_batchnorm_matches_jax_world_two(jax_world,
                                                          tmp_path):
     """Every case at world 2: each rank on its half of the batch, with its
     own BatchNorm statistics until the step averages them, against the
-    JAX step on a 2-device mesh; both ranks end equal."""
+    JAX step on a 2-device mesh; both ranks end equal. The JAX steps run
+    while the ranks do."""
     x, y = _step_data()
-    mesh = jax_world(2)
-    want, start = {}, None
-    for case in STEP_CASES:
-        start, j_losses, j_final = _jax_step_run(mesh, case, x, y)
-        want[_case_id(case)] = (j_losses, j_final)
+    start = _init(_jax_net("bottleneck"), x, seed=0)
     path = tmp_path / "data.npz"
     np.savez(path, x=x, y=y, start=np.array(start, dtype=object))
-    ranks = _run_ranks(_WORKER.format(tests=os.path.join(REPO, "tests")),
-                       2, [str(path)])
+    procs = _start_ranks(_WORKER.format(tests=os.path.join(REPO, "tests")),
+                         2, [str(path)])
+    try:
+        mesh = jax_world(2)
+        want = {}
+        for case in STEP_CASES:
+            _, j_losses, j_final = _jax_step_run(mesh, case, x, y,
+                                                 start=start)
+            want[_case_id(case)] = (j_losses, j_final)
+        ranks = _collect_ranks(procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     for case in STEP_CASES:
         j_losses, j_final = want[_case_id(case)]
         for got in ranks:
