@@ -304,6 +304,30 @@ runs these phases; any failure raises:
   on the card: img/s, and MNIST learning (the driver's own assert). No
   flash kernel runs in phase 22.
 
+Phase 23 (the LM's training forward at explicit positions, which the
+JAX package takes as arbitrary, so attention runs dense and no flash
+kernel launches), at phase 5's full width, weights and batch, bf16 on
+fp32 parameters, AdamW:
+
+* 23a: one step with ``positions = arange(S)`` given, at phase 5's batch
+  or the largest that fits the dense scores (``POSITIONS_BATCH``,
+  printed): K1-K3 launch 0 times, the logits of its forward are within
+  ``POSITIONS_LOGITS`` of max|want| of the plain reference's at the same
+  positions, and the first loss is within ``POSITIONS_RTOL`` of phase
+  5's first loss (each gap printed). The plain reference is the same
+  model's forward with its dense attention swapped for the script's
+  own, all in fp32, masked by the positions the script made (not those
+  the model passes on);
+* 23b: the logits at packed positions (two documents of S / 2, each
+  from 0) within ``POSITIONS_LOGITS`` of the plain reference's at the
+  packed positions, while the reference at ``arange`` lies at least
+  ``POSITIONS_SEEN`` times that bound from it (a mask that ignored the
+  packing would fail); then three steps at the packed positions: finite
+  losses, and a repeat from the same start gives the same losses bit
+  for bit;
+* 23c: ``allgather(tiled=False)`` over NCCL at world 1: ``[1, ...]``, its
+  input's values.
+
 6b and 7b also time the bucket packing and unpacking with each leaf in
 its flax layout beside torch's own layout.
 
@@ -354,6 +378,20 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published dense peaks (NVIDIA data sheet, 700 W)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+
+# phase 23: the dense attention's saved scores and probabilities (fp32
+# softmax output and its bf16 copy, heads x S^2 a sequence and layer);
+# the batch is the largest power of 2 up to phase 5's whose estimate
+# fits the free memory; its first loss within the port's bf16 tolerance
+# of phase 5's flash one
+POSITIONS_BATCH = None  # None: chosen as above
+POSITIONS_RTOL = 2e-2
+# the dense path's logits against the plain fp32 reference, normwise:
+# every element within this share of max|want| (the port's bf16
+# tolerance); and how many such bounds away from the packed reference the
+# arange one must lie, so that the check can see a wrong mask
+POSITIONS_LOGITS = 2e-2
+POSITIONS_SEEN = 5
 
 # the full-width workload (bench.py lm_tokens_per_sec(flash=True))
 LM = dict(layers=12, d_model=768, heads=12, vocab=32000, seq_len=2048,
@@ -2406,7 +2444,8 @@ def phase_tp_block(fa, torch, dev, bench):
 
     def run(blocks, axes):
         xs = [x.clone().requires_grad_() for _ in blocks]
-        outs = block_shards(blocks, xs, positions, axes)
+        outs = block_shards(blocks, xs, positions, axes,
+                            contiguous_positions=True)
         torch.autograd.backward(outs, [g] * len(outs))
         return outs, xs
 
@@ -5609,6 +5648,162 @@ def phase_examples(hvd, fa, torch, card, device=None):
     hvd.shutdown()
 
 
+def _positions_batch(torch):
+    """23's batch: ``POSITIONS_BATCH``, or the largest power of 2 up to
+    phase 5's whose step fits the free device memory: the dense
+    attention's fp32 softmax output and bf16 probabilities saved in
+    every layer, two layers' more for the transients, and the fp32
+    logits three times (the logits, their log-softmax and its
+    gradient)."""
+    if POSITIONS_BATCH is not None:
+        return POSITIONS_BATCH
+    s, h = LM["seq_len"], LM["heads"]
+    per_seq = ((LM["layers"] + 2) * h * s * s * (4 + 2)
+               + 3 * s * LM["vocab"] * 4)
+    free, _ = torch.cuda.mem_get_info()
+    b = LM["batch"]
+    while b > 1 and b * per_seq > free:
+        b //= 2
+    return b
+
+
+def _plain_attention(torch, positions, calls):
+    """The script's own dense attention, all in fp32, masked by
+    ``positions`` (``[B, S]``, made by the script) whatever the model
+    passes on; each call is counted in ``calls``."""
+    def attend(q, k, v, *, causal, q_positions, kv_positions):
+        calls.append(1)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        scores = scores / math.sqrt(q.shape[-1])
+        seen = positions[:, None, :, None] >= positions[:, None, None, :]
+        probs = torch.softmax(scores.masked_fill(~seen, float("-inf")), -1)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+    return attend
+
+
+def _plain_logits(torch, model, tokens, positions):
+    """The model's logits at ``positions`` with its dense attention
+    swapped for ``_plain_attention``, which every layer must call."""
+    from horovod_tpu_torch.models import transformer
+    calls, real = [], transformer.dense_attention
+    transformer.dense_attention = _plain_attention(torch, positions, calls)
+    try:
+        with torch.no_grad():
+            logits = model(tokens, positions)
+    finally:
+        transformer.dense_attention = real
+    if len(calls) != LM["layers"]:
+        raise AssertionError(f"23: the plain attention ran {len(calls)} "
+                             f"times, not once in each of {LM['layers']} "
+                             "layers")
+    return logits
+
+
+def phase_positions(hvd, fa, torch, phase5_losses, device=None):
+    """23a-23c (module docstring): phase 5's LM at explicit positions,
+    the dense path, held against the plain reference;
+    ``allgather(tiled=False)`` over NCCL."""
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.ops import collective
+
+    hvd.init(device=device)
+    dev = hvd.device()
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    b = _positions_batch(torch)
+    cfg, model, tokens = _lm_full(torch, dev)
+    tokens = tokens[:b]
+    s = LM["seq_len"]
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    print(f"== phase 23: phase 5's LM ({LM['layers']} x {LM['d_model']}, "
+          f"{LM['heads']} heads, S {s}, bf16 on fp32 parameters, AdamW) at "
+          f"explicit positions, batch {b} (phase 5's {LM['batch']}): dense "
+          "attention, no flash kernel")
+
+    def train(positions, steps):
+        model.load_state_dict(start)
+        opt = _lm_adamw(torch, model.parameters())
+        losses = []
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            logits = model(tokens, positions)
+            loss = training.softmax_cross_entropy(logits[:, :-1],
+                                                  tokens[:, 1:])
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        return losses
+
+    contiguous = torch.arange(s, device=dev).expand(b, s)
+    half = torch.arange(s // 2, device=dev)
+    packed = torch.cat([half, torch.arange(s - s // 2, device=dev)]).expand(
+        b, s)
+    want_c = _plain_logits(torch, model, tokens, contiguous)
+    want_p = _plain_logits(torch, model, tokens, packed)
+    seen = _err(want_c, want_p) / float(want_p.abs().max())
+
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.no_grad():
+        err_a = _err(model(tokens, contiguous), want_c) / float(
+            want_c.abs().max())
+        err_b = _err(model(tokens, packed), want_p) / float(
+            want_p.abs().max())
+    del want_c, want_p
+    (first,) = train(contiguous, 1)
+    step_s = time.perf_counter() - t
+    launches = dict(fa.LAUNCHES)
+    gap = abs(first - phase5_losses[0]) / abs(phase5_losses[0])
+    print(f"  23a one step at positions = arange({s}) given: the forward's "
+          f"logits {err_a:.3e} of max|want| from the plain fp32 reference "
+          f"(bound {POSITIONS_LOGITS}); loss {first:.6f} against phase 5's "
+          f"first {phase5_losses[0]:.6f}, relative gap {gap:.3e} (bound "
+          f"{POSITIONS_RTOL}); {1e3 * step_s:.1f} ms for two forwards and "
+          "the step with their first-call costs; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    print(f"  23b the forward at packed positions (two documents of "
+          f"{s // 2}): logits {err_b:.3e} of max|want| from the plain fp32 "
+          f"reference (bound {POSITIONS_LOGITS}); the reference at arange "
+          f"lies {seen:.3e} from it ({seen / POSITIONS_LOGITS:.1f} bounds, "
+          f"at least {POSITIONS_SEEN} wanted)")
+    if any(launches.values()):
+        raise AssertionError(f"23a: flash kernels launched {launches}")
+    if not err_a <= POSITIONS_LOGITS:
+        raise AssertionError(f"23a: logits {err_a} of max|want| from the "
+                             "plain reference")
+    if not (math.isfinite(first) and gap <= POSITIONS_RTOL):
+        raise AssertionError(f"23a: loss {first} against phase 5's "
+                             f"{phase5_losses[0]}: gap {gap}")
+    if not err_b <= POSITIONS_LOGITS:
+        raise AssertionError(f"23b: logits {err_b} of max|want| from the "
+                             "plain reference")
+    if not seen >= POSITIONS_SEEN * POSITIONS_LOGITS:
+        raise AssertionError(f"23b: the arange reference is only {seen} "
+                             "from the packed one: the check cannot see "
+                             "the mask")
+    runs = [train(packed, 3) for _ in range(2)]
+    print(f"  23b three steps at packed positions: losses {runs[0]}, "
+          f"repeated {runs[1]}")
+    _finite("23b", runs[0])
+    if runs[0] != runs[1]:
+        raise AssertionError(f"23b: the repeat differs: {runs}")
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"23: flash kernels launched {fa.LAUNCHES}")
+
+    x = torch.randn(4, 5, device=dev)
+    y = collective.allgather(x, tiled=False)
+    print(f"  23c allgather(tiled=False) over "
+          f"{torch.distributed.get_backend()} at world {hvd.size()}: "
+          f"shape {tuple(y.shape)}")
+    if tuple(y.shape) != (1, 4, 5) or not torch.equal(y[0], x):
+        raise AssertionError(f"23c: {tuple(y.shape)} / values differ")
+    del model, start
+    hvd.shutdown()
+    print(f"== phase 23 took {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tune", action="store_true",
@@ -5751,6 +5946,8 @@ def main(argv=None):
     t22 = time.perf_counter()
     phase_examples(hvd, fa, torch, card)
     print(f"== phase 22 took {time.perf_counter() - t22:.1f} s")
+    torch.cuda.empty_cache()
+    phase_positions(hvd, fa, torch, losses)
 
     kernels = []
     for kind_ in ("fwd", "dq", "dkv"):

@@ -97,9 +97,9 @@ def library_path(cxx=CXX_DIR):
     return _build.BUILD_DIR / f"libhvdcore-{h.hexdigest()[:16]}.so"
 
 
-def build():
-    """Compile the core unless this exact build exists; returns the
-    library's path. Concurrent processes (the ranks of one job) build it
+def build(force=False):
+    """Compile the core unless this exact build exists (``force``: compile
+    it again all the same); returns the library's path. Concurrent processes (the ranks of one job) build it
     once: the others wait on the lock and load what it built. The
     compilers run at the lowest CPU priority, so that a build beside
     running jobs on this host (a test suite, a training job) does not
@@ -109,7 +109,7 @@ def build():
     with open(_build.BUILD_DIR / ".core.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            if lib.exists():
+            if lib.exists() and not force:
                 return lib
             if not (CXX_DIR / "src").is_dir():
                 raise RuntimeError(f"the native core's sources are missing: "

@@ -138,9 +138,13 @@ def _hosts_tile_world(cfg, dev):
             and cross_max * local_max == cfg.size)
 
 
-def init(device=None):
+def init(device=None, num_slices=None):
     """Initialize (idempotent). ``device`` is ``None`` for this process's
     card (raises when CUDA is absent), ``"cpu"``, or an explicit device.
+    ``num_slices`` fixes the mesh's ``("dcn", "data")`` split, as the JAX
+    ``init(num_slices=)`` does: ``(num_slices, size // num_slices)`` ranks
+    (one axis ``("data",)`` for 1), refused before the rendezvous when it
+    does not divide the world; None takes it from the job's hosts, below.
     Joins the world through ``cluster.procmesh.ensure_distributed`` and
     installs the mesh of ``parallel/mesh.py``, as the JAX ``init()`` does
     (``basics.py:97-106``):
@@ -166,6 +170,9 @@ def init(device=None):
         if _state.initialized:
             return
         cfg = Config.from_env()
+        if num_slices is not None and cfg.size % num_slices:
+            raise ValueError(f"device count {cfg.size} not divisible by "
+                             f"num_slices {num_slices}")
         dev = _resolve_device(device, cfg)
         _state.config = cfg
         try:
@@ -173,7 +180,7 @@ def init(device=None):
             # rendezvous it should explain), the timeline and the metrics
             # server
             services.start(_state)
-            _join(cfg, dev)
+            _join(cfg, dev, num_slices)
         except BaseException:
             # a retried init() starts the services afresh
             services.stop(_state, reason="init_failed")
@@ -182,7 +189,7 @@ def init(device=None):
         _state.initialized = True
 
 
-def _join(cfg, dev):
+def _join(cfg, dev, num_slices=None):
     """The rendezvous and the mesh of ``init()``."""
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -192,10 +199,14 @@ def _join(cfg, dev):
     _state.mesh = mesh_lib.Mesh(group=dist.group.WORLD, device=dev,
                                 size=cfg.size, rank=cfg.rank)
     mesh_lib.set_mesh(_state.mesh)
-    if procmesh.coordinator_spec(cfg) is not None:
+    procs = cfg.spmd_procs or cfg.size
+    if procmesh.coordinator_spec(cfg) is not None and \
+            num_slices in (None, procs):
         procmesh.build_process_mesh(procmesh.row_owners(
-            cfg.size, cfg.spmd_procs or cfg.size,
-            cfg.spmd_local_devices))
+            cfg.size, procs, cfg.spmd_local_devices))
+    elif num_slices is not None:
+        if num_slices > 1:
+            mesh_lib.build_mesh(num_slices=num_slices)
     elif _hosts_tile_world(cfg, dev):
         mesh_lib.build_mesh(num_slices=cfg.cross_size)
     _state.init_mesh = mesh_lib.get_mesh()

@@ -155,14 +155,16 @@ def restore_checkpoint(directory, step, model, optimizer=None):
     return meta
 
 
-def restore_or_init(directory, model, optimizer=None):
+def restore_or_init(directory, model, optimizer=None, axes=None):
     """The resume convention in one call: rank 0 finds the newest
     checkpoint and the step is broadcast; if there is one, rank 0 reads
     it; then every leaf of the parameters and the optimizer state is
     broadcast from rank 0 and loaded on every rank, so every worker
-    starts identical, restored or freshly initialized. Returns
-    ``(step, meta)``: 0 and ``{}`` when there was no checkpoint; meta is
-    rank 0's (``{}`` elsewhere)."""
+    starts identical, restored or freshly initialized. ``axes`` is
+    accepted and ignored, as JAX's ``restore_or_init`` ignores it: the
+    broadcast goes over the whole world. Returns ``(step, meta)``: 0 and
+    ``{}`` when there was no checkpoint; meta is rank 0's (``{}``
+    elsewhere)."""
     meta = {}
     step = resume_step(directory)
     world = basics.size()

@@ -4,7 +4,8 @@ fusion threshold, the wire format, the two-level reduction and the
 process mesh across hosts (``HOROVOD_SPMD_*``) and the observability
 planes (timeline, metrics endpoint, profile directory, flight recorder),
 under the same ``HOROVOD_*`` names as the JAX package
-(``horovod_tpu/config.py``), and the stall inspector's thresholds."""
+(``horovod_tpu/config.py``), the stall inspector's thresholds, and the
+native core's cycle, cache, logging and autotune knobs."""
 
 import dataclasses
 import os
@@ -13,6 +14,10 @@ import os
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 # Stall-warning threshold in seconds (Horovod's 60 s, stall_inspector.h).
 DEFAULT_STALL_WARNING_TIME = 60.0
+# The native core's background cycle and response cache (Horovod's
+# HOROVOD_CYCLE_TIME and HOROVOD_CACHE_CAPACITY defaults).
+DEFAULT_CYCLE_TIME_MS = 5.0
+DEFAULT_CACHE_CAPACITY = 1024
 # The tuning variables that the port acts on; hvdrun says of every other
 # one it sets that the port does not act on it.
 ACTED_ON = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_WIRE_DTYPE",
@@ -104,6 +109,21 @@ class Config:
     stall_check_disable: bool = False
     stall_warning_time: float = DEFAULT_STALL_WARNING_TIME
     stall_shutdown_time: float = 0.0
+    # --- the native core's knobs (JAX config.py:88-89, 105, 134-140),
+    # read here as the JAX Config reads them. The core (_core.py) reads
+    # the variables itself when it starts, and hvdrun names the ones the
+    # port does not act on (ACTED_ON)
+    cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS
+    cache_capacity: int = DEFAULT_CACHE_CAPACITY
+    batch_d2d_memcopies: bool = True
+    log_level: str = "warning"
+    log_hide_timestamp: bool = False
+    autotune: bool = False
+    autotune_log: str = None
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    autotune_bayes_opt_max_samples: int = 20
+    autotune_gaussian_process_noise: float = 0.8
 
     @property
     def flightrec_enabled(self):
@@ -150,4 +170,21 @@ class Config:
                 DEFAULT_STALL_WARNING_TIME),
             stall_shutdown_time=_env_float(
                 "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0.0),
+            cycle_time_ms=_env_float("HOROVOD_CYCLE_TIME",
+                                     DEFAULT_CYCLE_TIME_MS),
+            cache_capacity=_env_int("HOROVOD_CACHE_CAPACITY",
+                                    DEFAULT_CACHE_CAPACITY),
+            batch_d2d_memcopies=_env_bool("HOROVOD_BATCH_D2D_MEMCOPIES", True),
+            log_level=_env_str("HOROVOD_LOG_LEVEL", "warning"),
+            log_hide_timestamp=_env_bool("HOROVOD_LOG_HIDE_TIME"),
+            autotune=_env_bool("HOROVOD_AUTOTUNE"),
+            autotune_log=_env_str("HOROVOD_AUTOTUNE_LOG"),
+            autotune_warmup_samples=_env_int(
+                "HOROVOD_AUTOTUNE_WARMUP_SAMPLES", 3),
+            autotune_steps_per_sample=_env_int(
+                "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", 10),
+            autotune_bayes_opt_max_samples=_env_int(
+                "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", 20),
+            autotune_gaussian_process_noise=_env_float(
+                "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE", 0.8),
         )

@@ -26,6 +26,12 @@ through ``reduce_from``, so ``forward`` returns this shard's block of the
 vocabulary's logits. On axes of one rank every operator is the identity
 and the computation is the unsharded one.
 
+**Explicit positions** (``Transformer.forward(tokens, positions)``): as
+in the JAX package, positions the caller gives are taken as arbitrary
+(packed documents, offsets), even when they equal ``arange``, so
+attention runs dense over them (the dense ring under a sequence axis) and
+never through the flash kernels, which mask by contiguous positions.
+
 **Incremental decode** (``Transformer.forward(tokens, positions=,
 kv_cache=)``, ``horovod_tpu_torch/serve/``): the fed tokens at their
 absolute positions attend densely over the cached context ++ themselves,
@@ -189,8 +195,13 @@ class Attention(nn.Module):
         self.value = _lecun_linear(d, d, generator)
         self.out = _lecun_linear(d, d, generator)
 
-    def forward(self, x, positions, cache=None):
-        """With ``cache=(ck, cv, ctx_positions)`` (the context's K/V,
+    def forward(self, x, positions, contiguous_positions=False, cache=None):
+        """``contiguous_positions`` says that ``positions`` are the default
+        ones (``ring.default_positions``): only then may the flash kernels,
+        which mask by contiguous positions, run; other positions take the
+        dense path (the dense ring under a sequence axis).
+
+        With ``cache=(ck, cv, ctx_positions)`` (the context's K/V,
         ``[B, S_ctx, H, D]``, and its absolute positions ``[B, S_ctx]``)
         the decode step: returns ``(out, (k, v))``, the fed tokens' K/V
         after the rotary embedding. Always the dense path: a decode step
@@ -217,7 +228,8 @@ class Attention(nn.Module):
                     [ctx_positions.to(positions.dtype), positions], dim=1))
             return F.linear(out.reshape(b, s, -1), self.out.weight.to(dt)), \
                 (k, v)
-        if cfg.sequence_axis is not None and cfg.flash_attention:
+        use_flash = cfg.flash_attention and contiguous_positions
+        if cfg.sequence_axis is not None and use_flash:
             # the kernels per rotated K/V block, merged by lse; they mask
             # by the contiguous positions the ring computes
             out = ring.ring_attention(q, k, v, cfg.sequence_axis,
@@ -226,7 +238,7 @@ class Attention(nn.Module):
             out = ring.ring_attention(q, k, v, cfg.sequence_axis,
                                       causal=cfg.causal, q_positions=positions,
                                       kv_positions=positions)
-        elif cfg.flash_attention:
+        elif use_flash:
             out = fa.attention(q, k, v, causal=cfg.causal)
         else:
             out = dense_attention(q, k, v, causal=cfg.causal,
@@ -264,18 +276,35 @@ class Block(nn.Module):
         y = F.gelu(y, approximate="tanh")  # flax nn.gelu is tanh-approximate
         return F.linear(y, self.mlp_out.weight.to(dt))
 
-    def forward(self, x, positions):
-        return block_shards([self], [x], positions, _axes_of(self))[0]
+    def forward(self, x, positions, contiguous_positions=False, cache=None):
+        """The block at ``positions`` (see ``Attention.forward``); with
+        ``cache`` the decode step of an unsharded block, which returns
+        ``(out, (k, v))``."""
+        if cache is None:
+            return block_shards([self], [x], positions, _axes_of(self),
+                                contiguous_positions)[0]
+        attn, new_kv = self.attn(self.norm1(x), positions, cache=cache)
+        x = x + attn
+        y = self.norm2(x)
+        if self.use_moe:
+            from horovod_tpu_torch.models.moe import moe_shards
+            axes = single_axes()
+            y = moe_shards([self.moe], [y.reshape(-1, y.shape[-1])],
+                           axes.expert, axes.batch)[0].reshape(y.shape)
+        else:
+            y = self.mlp(y)
+        return x + y, new_kv
 
 
-def block_shards(blocks, xs, positions, axes):
+def block_shards(blocks, xs, positions, axes, contiguous_positions=False):
     """The block over shards: ``blocks`` each shard's block, ``xs`` each
     shard's residual stream (replicated over the model and expert axes),
-    ``axes`` an ``Axes``. Attention and the MLP are column-parallel in
+    ``axes`` an ``Axes``, ``positions`` and ``contiguous_positions`` as in
+    ``Attention.forward``. Attention and the MLP are column-parallel in
     and row-parallel out; the MoE routes every token of the shard's
     batch and runs the shard's experts."""
     ys = axes.model.copy_to([b.norm1(x) for b, x in zip(blocks, xs)])
-    attn = axes.model.reduce_from([b.attn(y, positions)
+    attn = axes.model.reduce_from([b.attn(y, positions, contiguous_positions)
                                    for b, y in zip(blocks, ys)])
     xs = [x + a for x, a in zip(xs, attn)]
     ys = [b.norm2(x) for b, x in zip(blocks, xs)]
@@ -294,28 +323,37 @@ def block_shards(blocks, xs, positions, axes):
 
 class _StageShards(nn.Module):
     """One stage's shards of a block, as one module: ``forward`` runs
-    ``block_shards`` on them at the default positions."""
+    ``block_shards`` on them at the given positions, or at the default
+    (contiguous) ones."""
 
-    def __init__(self, blocks, axes):
+    def __init__(self, blocks, axes, positions=None):
         super().__init__()
         self.blocks = nn.ModuleList(blocks)
         self.axes = axes
+        self.positions = positions
 
     def forward(self, xs):
-        b, s = xs[0].shape[:2]
-        positions = ring.default_positions(None, b, s, device=xs[0].device)
-        return block_shards(list(self.blocks), xs, positions, self.axes)
+        positions = self.positions
+        if positions is None:
+            b, s = xs[0].shape[:2]
+            positions = ring.default_positions(None, b, s,
+                                               device=xs[0].device)
+        return block_shards(list(self.blocks), xs, positions, self.axes,
+                            self.positions is None)
 
 
-def stage_block_fn(blocks, axes):
+def stage_block_fn(blocks, axes, positions=None):
     """``block_fn`` of ``parallel/pipeline.py`` for the transformer's
     blocks: one layer on one stage's shards. ``blocks`` holds one
     ``Block`` a shard of the stage, each with the layout of that shard
     (its cut, ``parallel.tensor.Shard``), ``axes`` the ``Axes`` over them.
     Each call runs ``block_shards`` with the layer's parameters (each
     shard's ``{name: tensor}``, the names of ``Block.named_parameters``)
-    in place of the blocks' own (``torch.func.functional_call``)."""
-    shards = _StageShards(blocks, axes)
+    in place of the blocks' own (``torch.func.functional_call``).
+    ``positions`` (``[B_micro, S]``, every microbatch's) are explicit
+    positions: attention then runs dense over them, as the JAX
+    ``Block`` does; None is the default contiguous ones."""
+    shards = _StageShards(blocks, axes, positions)
 
     def block_fn(layer_params, xs):
         params = {f"blocks.{i}.{k}": v for i, p in enumerate(layer_params)
@@ -366,16 +404,17 @@ class Transformer(nn.Module):
         if device is not None:
             self.to(device)
 
-    def forward(self, tokens, positions=None, kv_cache=None):
-        """Training's forward: ``tokens`` -> fp32 logits. With ``kv_cache``
-        the incremental decode step (``decode_forward``)."""
+    def forward(self, tokens, positions=None, train=True, kv_cache=None):
+        """Training's forward: ``tokens`` -> fp32 logits, at the default
+        positions or at the given ``positions`` ``[B, S]`` (dense
+        attention over them, module docstring). ``train`` is the JAX
+        signature's and changes nothing: the family has no dropout. With
+        ``kv_cache`` the incremental decode step (``decode_forward``)."""
+        del train
         if kv_cache is not None:
             return decode_forward(self, tokens, positions, kv_cache)
-        if positions is not None:
-            raise NotImplementedError(
-                "explicit positions are taken by the incremental decode "
-                "branch (kv_cache=); training's forward computes its own")
-        return forward_shards([self], [tokens], _axes_of(self))[0]
+        return forward_shards([self], [tokens], _axes_of(self),
+                              positions)[0]
 
 
 def decode_forward(model, tokens, positions, kv_cache):
@@ -404,39 +443,34 @@ def decode_forward(model, tokens, positions, kv_cache):
         raise NotImplementedError("incremental decode runs the unsharded "
                                   "model")
     ctx_k, ctx_v, ctx_positions = kv_cache
-    axes = single_axes()
     x = F.embedding(tokens, model.embed.weight).to(cfg.dtype)
     new_ks, new_vs = [], []
     for i, blk in enumerate(model.blocks):
-        attn, (k, v) = blk.attn(blk.norm1(x), positions,
-                                cache=(ctx_k[i], ctx_v[i], ctx_positions))
-        x = x + attn
-        y = blk.norm2(x)
-        if blk.use_moe:
-            from horovod_tpu_torch.models.moe import moe_shards
-            y = moe_shards([blk.moe], [y.reshape(-1, y.shape[-1])],
-                           axes.expert, axes.batch)[0].reshape(y.shape)
-        else:
-            y = blk.mlp(y)
-        x = x + y
+        x, (k, v) = blk(x, positions,
+                        cache=(ctx_k[i], ctx_v[i], ctx_positions))
         new_ks.append(k)
         new_vs.append(v)
     logits = F.linear(model.norm(x), model.lm_head.weight.to(cfg.dtype))
     return logits.float(), (torch.stack(new_ks), torch.stack(new_vs))
 
 
-def forward_shards(models, tokens, axes):
+def forward_shards(models, tokens, axes, positions=None):
     """The transformer over shards: ``models`` each shard's module,
-    ``tokens`` each shard's ``[B, S]`` batch, ``axes`` an ``Axes``.
-    Returns each shard's fp32 logits, its block of the vocabulary."""
+    ``tokens`` each shard's ``[B, S]`` batch, ``axes`` an ``Axes``,
+    ``positions`` the batch's explicit ``[B, S]`` positions (every
+    shard's; None: the default ones). Returns each shard's fp32 logits,
+    its block of the vocabulary."""
     cfg = models[0].cfg
-    b, s = tokens[0].shape
-    positions = ring.default_positions(cfg.sequence_axis, b, s,
-                                       device=tokens[0].device)
+    contiguous = positions is None  # the default positions are 0..S-1
+    if contiguous:
+        b, s = tokens[0].shape
+        positions = ring.default_positions(cfg.sequence_axis, b, s,
+                                           device=tokens[0].device)
     xs = [F.embedding(t, m.embed.weight).to(cfg.dtype)
           for m, t in zip(models, tokens)]
     for i in range(cfg.num_layers):
-        xs = block_shards([m.blocks[i] for m in models], xs, positions, axes)
+        xs = block_shards([m.blocks[i] for m in models], xs, positions, axes,
+                          contiguous)
     hs = axes.model.copy_to([m.norm(x) for m, x in zip(models, xs)])
     return [F.linear(h, m.lm_head.weight.to(cfg.dtype)).float()
             for m, h in zip(models, hs)]

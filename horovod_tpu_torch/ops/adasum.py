@@ -20,8 +20,14 @@ The algorithms are written once over the axis objects of
 ``hierarchical_adasum_allreduce`` run on the installed mesh's process
 groups; ``_adasum_tree`` and ``_hierarchical_adasum`` take lists of
 shards and ``LocalAxis`` objects as well.
+
+``adasum_combine_np``, ``adasum_tree_np`` and ``hierarchical_adasum_np``
+are the operator's numpy references, the JAX package's oracles
+(``horovod_tpu/ops/adasum.py:140-190``) written again here, so that a
+check on the card has an oracle that shares no code with the port.
 """
 
+import numpy as np
 import torch
 
 from horovod_tpu_torch.parallel import hierarchical
@@ -109,3 +115,55 @@ def _hierarchical_adasum(xs, ici, dcn, divide_by_local_size=True):
         else:  # 16-bit: divide in fp32, as every other accumulation
             out = [(o.float() / ici_size).to(dtype) for o in out]
     return out
+
+
+def adasum_combine_np(a, b):
+    """NumPy reference of the pairwise operator, in fp32, formula for
+    formula: the dot product and squared norms as Python floats, a
+    coefficient of 1 for an operand of norm 0."""
+    af = a.astype(np.float32).ravel()
+    bf = b.astype(np.float32).ravel()
+    dot = float(np.dot(af, bf))
+    na2 = float(np.dot(af, af))
+    nb2 = float(np.dot(bf, bf))
+    ca = 1.0 - dot / (2.0 * na2) if na2 > 0 else 1.0
+    cb = 1.0 - dot / (2.0 * nb2) if nb2 > 0 else 1.0
+    return (af * ca + bf * cb).reshape(a.shape)
+
+
+def adasum_tree_np(vectors):
+    """NumPy reference of the whole tree over a power-of-2 list of
+    vectors: at level l each index combines with its XOR 2^l partner,
+    the lower index first."""
+    vecs = [np.asarray(v, dtype=np.float32) for v in vectors]
+    size = len(vecs)
+    if size & (size - 1):
+        raise ValueError(f"Adasum needs a power of 2 of vectors, got {size}")
+    level = 0
+    while (1 << level) < size:
+        d = 1 << level
+        nxt = list(vecs)
+        for i in range(size):
+            j = i ^ d
+            a, b = (vecs[i], vecs[j]) if i < j else (vecs[j], vecs[i])
+            nxt[i] = adasum_combine_np(a, b)
+        vecs = nxt
+        level += 1
+    return vecs[0]
+
+
+def hierarchical_adasum_np(grid):
+    """NumPy reference of the two-level composite: ``grid`` is
+    ``[n_nodes, local_size, n]`` per-rank gradients. Node sums, the
+    zero-padded equal-chunk scatter, the tree per chunk across nodes,
+    the chunks concatenated, divided by ``local_size``; in fp32."""
+    grid = np.asarray(grid, np.float32)
+    n_nodes, local_size, n = grid.shape
+    node_sums = grid.sum(axis=1)
+    pad = (-n) % local_size
+    padded = np.pad(node_sums, ((0, 0), (0, pad)))
+    chunks = padded.reshape(n_nodes, local_size, -1)
+    out = np.concatenate([
+        adasum_tree_np([chunks[c, i] for c in range(n_nodes)])
+        for i in range(local_size)])
+    return out[:n] / local_size

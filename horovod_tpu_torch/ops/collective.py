@@ -186,15 +186,18 @@ def allreduce_(x, op=Average, axes=None, logical_nbytes=None):
     return x
 
 
-def allreduce(x, op=Average, compression=None, axes=None):
+def allreduce(x, op=Average, compression=None, axes=None,
+              logical_nbytes=None):
     """Out-of-place ``allreduce_``. ``compression`` (a compressor or a
     wire name, ``ops/compression.py``) casts ``x`` to a narrow wire dtype,
     reduces at that dtype and casts back. Only cast wires sum on the wire:
     a chunked quantizer raises, since its per-chunk scales cannot be summed
-    in flight (``fusion.fused_allreduce_`` exchanges and then reduces)."""
+    in flight (``fusion.fused_allreduce_`` exchanges and then reduces).
+    ``logical_nbytes``: as in ``allreduce_`` (None: ``x``'s bytes)."""
     compression = compression_lib.resolve(compression)
     if compression is None:
-        return allreduce_(x.clone(), op=op, axes=axes)
+        return allreduce_(x.clone(), op=op, axes=axes,
+                          logical_nbytes=logical_nbytes)
     if compression.chunked:
         raise ValueError(
             f"{compression.name} is a chunked quantizer: its per-chunk "
@@ -205,8 +208,11 @@ def allreduce(x, op=Average, compression=None, axes=None):
     wire, ctx = compression.compress(x)
     if wire is x:
         wire = x.clone()
+    if logical_nbytes is None:
+        logical_nbytes = _nbytes(x)
     return compression.decompress(
-        allreduce_(wire, op=op, axes=axes, logical_nbytes=_nbytes(x)), ctx)
+        allreduce_(wire, op=op, axes=axes, logical_nbytes=logical_nbytes),
+        ctx)
 
 
 def mesh_size(axes=None):
@@ -296,10 +302,24 @@ class _AllGather(torch.autograd.Function):
         return _reducescatter(g, Sum, ctx.axes), None, None
 
 
-def allgather(x, async_op=False, axes=None, logical_nbytes=None):
+def allgather(x, async_op=False, axes=None, logical_nbytes=None,
+              tiled=True):
     """Concatenate ``x`` from the ranks of ``axes`` along dim 0 (equal
-    shapes). With ``async_op`` returns a ``Pending``; without, the call
-    is differentiable. ``logical_nbytes``: as in ``allreduce_``."""
+    shapes). With ``tiled=False`` stack them instead, on one new leading
+    dim for each axis, in the order given: ``[n_a, n_b, ..., *x.shape]``
+    for axes ``(a, b, ...)``, as JAX's ``lax.all_gather(tiled=False)``
+    over each axis. With ``async_op`` returns a ``Pending``; without, the
+    call is differentiable. ``logical_nbytes``: as in ``allreduce_``."""
+    if not tiled:
+        m = mesh_lib.get_mesh()
+        names = (m.resolve(None) if axes is None
+                 else (axes,) if isinstance(axes, str) else tuple(axes))
+        shape = tuple(m.axis_size(a) for a in names) + tuple(x.shape)
+        out = allgather(x.unsqueeze(0), async_op=async_op, axes=axes,
+                        logical_nbytes=logical_nbytes)
+        if not async_op:
+            return out.reshape(shape)
+        return Pending((), lambda: out.wait().reshape(shape))
     if async_op:
         return _allgather(x, axes, async_op=True,
                           logical_nbytes=logical_nbytes)

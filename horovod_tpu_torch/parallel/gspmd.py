@@ -795,10 +795,12 @@ class CompiledProgramCache:
     The first call of a signature is the port's counterpart of the JAX
     step's compile: its seconds go to the goodput ledger's ``compile``
     phase and ``hvd_compile_seconds_total`` (``record_compile``), and its
-    collectives into ``hvd_collective_*`` under ``spmd_<kind>`` labels,
+    collectives into ``hvd_collective_*`` under ``<prefix>_<kind>`` labels
+    (``prefix`` "spmd" by default),
     once a signature (JAX ``record_compiled_collectives``)."""
 
-    def __init__(self, mesh=None):
+    def __init__(self, prefix="spmd", mesh=None):
+        self.prefix = prefix
         self.mesh = mesh
         self._seen = {}  # signature -> (by_op, by_axes)
         self.last_collectives = None
@@ -819,7 +821,8 @@ class CompiledProgramCache:
             _tele.record_compile(time.perf_counter() - t0)
             for op, tot in by_op.items():
                 _tele.record_compiled_collective(
-                    f"spmd_{op}", calls=tot["calls"], nbytes=tot["bytes"])
+                    f"{self.prefix}_{op}", calls=tot["calls"],
+                    nbytes=tot["bytes"])
             self._seen[key] = entry = (by_op, by_axes)
         else:
             out = fn(*args)

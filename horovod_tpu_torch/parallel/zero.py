@@ -94,6 +94,14 @@ def _hyper(optimizer):
             if k != "params"}
 
 
+def bucket_rows(schedule, idx, leaves):
+    """Bucket ``idx`` of ``leaves`` packed, zero-padded and viewed as its
+    ``[world, shard]`` rows: row ``r`` is the chunk of the rank whose
+    index over the schedule's axes is ``r`` (JAX ``zero.bucket_rows``)."""
+    return fusion.pack_padded(schedule, idx, leaves).reshape(
+        schedule.world, schedule.shard_sizes[idx])
+
+
 def init(optimizer, params, plan):
     """Build the rows and an inner optimizer of ``optimizer``'s class and
     hyperparameters over them. ``optimizer``'s own state stays empty."""

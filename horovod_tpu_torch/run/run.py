@@ -315,6 +315,16 @@ def _validate_elastic_args(parser, args):
     return True
 
 
+def free_port():
+    """A TCP port that was free when asked (bound to port 0 and released):
+    the launcher's pick for a service it starts on this host."""
+    s = socket.socket()
+    s.bind(("0.0.0.0", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 def _check_metrics_ports(args, slots):
     """Per-rank metrics ports (base + local_rank), each probed with a
     bind where the slot is local (a remote host fails loudly when its

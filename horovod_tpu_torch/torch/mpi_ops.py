@@ -49,15 +49,17 @@ class TorchHandle:
     ``inplace_tensor``, where the core's in-place result already is (on
     the CPU). ``staged`` is the pinned host buffer a card tensor was
     copied into and the core worked in, in place: the result goes from
-    it to the card."""
+    it to the card. ``postprocess``, when given, maps the new result
+    before it is returned or copied into ``out_tensor``."""
 
     def __init__(self, core_handle, out_tensor=None, inplace_tensor=None,
-                 device=None, staged=None):
+                 device=None, staged=None, postprocess=None):
         self._h = core_handle
         self._out = out_tensor
         self._inplace = inplace_tensor
         self._device = device
         self._staged = staged
+        self._post = postprocess
 
     def poll(self):
         return self._h.poll()
@@ -74,6 +76,8 @@ class TorchHandle:
             t = torch.from_numpy(arr).to(self._device)
         else:
             t = torch.from_numpy(np.array(arr))
+        if self._post is not None:
+            t = self._post(t)
         if self._out is not None:
             if self._out.shape != t.shape:
                 self._out.resize_(t.shape)

@@ -203,7 +203,8 @@ def _batch_stats(model):
 def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
                     dropout_seed=0, accum_steps=1, overlap_grads=False,
                     error_feedback=True, loader=None, spmd=False,
-                    telemetry=None, _norm_out=None):
+                    telemetry=None, *, batch_axes=None, mesh=None,
+                    _norm_out=None):
     """Build a classification train step over the data axis.
     ``step(inputs, labels)`` takes this rank's shard of the batch, puts
     the model in training mode, runs forward, backward and the optimizer
@@ -284,15 +285,34 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
     gradient, as the JAX GSPMD step's. Losses and parameters are bit for
     bit those of ``telemetry=False``.
 
+    ``batch_axes`` and ``mesh`` are keyword-only, after the port's
+    earlier parameters (JAX's signature puts them third and fifth).
+    ``mesh`` is the installed mesh (None: the same; another is refused,
+    as by ``make_lm_train_step``: the port's collectives run over the
+    installed mesh's groups). ``batch_axes`` (None: the mesh's data axes, ``("data",)`` or
+    ``("dcn", "data")``) are the axes the batch is split over, JAX's
+    ``data_axes``: the loss is averaged, the BatchNorm statistics are
+    averaged and the dropout streams are drawn over them, and nothing is
+    averaged along the other axes (ranks there that take the same shard
+    are replicas). Given, they must be the axes a
+    ``DistributedOptimizer`` reduces over
+    (``DistributedOptimizer(axes=batch_axes)``).
+
     ``_norm_out`` (internal: the GSPMD step's chunked island) is a
     one-item list each step writes that norm into, with or without
     telemetry."""
+    mesh = _installed_mesh(mesh, "make_train_step")
+    if batch_axes is not None:
+        batch_axes = ((batch_axes,) if isinstance(batch_axes, str)
+                      else tuple(batch_axes))
+        if isinstance(optimizer, hvd_torch.DistributedOptimizer):
+            _check_optimizer_axes(mesh, optimizer, batch_axes)
     if spmd:
         return _make_spmd_train_step(
-            model, optimizer, loss_fn=loss_fn, dropout_seed=dropout_seed,
-            accum_steps=accum_steps, overlap_grads=overlap_grads,
-            error_feedback=error_feedback, loader=loader,
-            telemetry=telemetry)
+            model, optimizer, loss_fn=loss_fn, batch_axes=batch_axes,
+            dropout_seed=dropout_seed, accum_steps=accum_steps,
+            overlap_grads=overlap_grads, error_feedback=error_feedback,
+            loader=loader, telemetry=telemetry)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     pipelined = overlap_grads or accum_steps > 1
@@ -321,11 +341,10 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
             "and synchronizes over its own process group; synchronize "
             "BatchNorm as the JAX package does with "
             "models.resnet.ResNet(bn_cross_replica_axes=('data',))")
-    mesh = mesh_lib.get_mesh()
     # the batch is split over the data axes: the loss, the BatchNorm
     # statistics and the dropout streams go by them (JAX's data_axes),
     # and the ranks along any other axis are replicas
-    data_axes = mesh.resolve(None)
+    data_axes = mesh.resolve(batch_axes)
     data_rank = collective.mesh_rank(data_axes)
     # the wire format of the overlapped pipeline's bucket collectives,
     # resolved once; the other paths compress inside optimizer.step()
@@ -551,6 +570,26 @@ def make_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
     return step
 
 
+def _installed_mesh(mesh, what):
+    """The installed mesh; a ``mesh`` argument must be that one (the
+    port's collectives run over the installed mesh's groups)."""
+    installed = mesh_lib.get_mesh()
+    if mesh is not None and mesh is not installed:
+        raise ValueError(f"{what}(mesh=...) must be the installed mesh: "
+                         "parallel.mesh.build_mesh installs the mesh it "
+                         "builds")
+    return installed
+
+
+def _check_optimizer_axes(mesh, optimizer, step_axes):
+    """A step whose batch is split over ``step_axes`` refuses an optimizer
+    that reduces over other ranks."""
+    if mesh.group_of(step_axes)[1] != mesh.group_of(optimizer.axes)[1]:
+        raise ValueError(
+            f"the optimizer reduces over {optimizer.axes!r}, the step over "
+            f"{step_axes}: build DistributedOptimizer(axes={step_axes})")
+
+
 def _add_waited(acc, pending):
     """Wait for one microbatch's reduce-scatters, in schedule order, and
     add their shards to ``acc`` (None for the first microbatch)."""
@@ -620,21 +659,13 @@ def make_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
                                         telemetry=telemetry)
     if not isinstance(optimizer, hvd_torch.DistributedOptimizer):
         raise TypeError("make_lm_train_step needs a DistributedOptimizer")
-    installed = mesh_lib.get_mesh()
-    if mesh is not None and mesh is not installed:
-        raise ValueError("make_lm_train_step(mesh=...) must be the installed "
-                         "mesh: parallel.mesh.build_mesh installs the mesh "
-                         "it builds")
-    mesh = installed
+    mesh = _installed_mesh(mesh, "make_lm_train_step")
     if batch_axis is None:
         batch_axis = mesh_lib.data_axis_names(mesh)
     batch_axes = ((batch_axis,) if isinstance(batch_axis, str)
                   else tuple(batch_axis))
     grad_axes = batch_axes + ((seq_axis,) if seq_axis else ())
-    if mesh.group_of(grad_axes)[1] != mesh.group_of(optimizer.axes)[1]:
-        raise ValueError(
-            f"the optimizer reduces over {optimizer.axes!r}, the step over "
-            f"{grad_axes}: build DistributedOptimizer(axes={grad_axes})")
+    _check_optimizer_axes(mesh, optimizer, grad_axes)
     cfg_axis = getattr(getattr(model, "cfg", None), "sequence_axis", None)
     if cfg_axis is not None and cfg_axis != seq_axis:
         raise ValueError(f"the model's sequence_axis is {cfg_axis!r}, the "
@@ -896,9 +927,17 @@ def _spmd_norm(norm, optimizer):
         axes=optimizer.zero_state.plan.schedule.axes).sqrt()
 
 
+def _check_spmd_batch_axes(plan, batch_axes, what):
+    """The GSPMD steps place the batch over the plan's data axes."""
+    if set(batch_axes) != set(plan.data_axes):
+        raise ValueError(f"the GSPMD {what} shards the batch over the data "
+                         f"axes {plan.data_axes}, not {batch_axes}")
+
+
 def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
-                          dropout_seed=0, accum_steps=1, overlap_grads=False,
-                          error_feedback=True, loader=None, telemetry=None):
+                          batch_axes=None, dropout_seed=0, accum_steps=1,
+                          overlap_grads=False, error_feedback=True,
+                          loader=None, telemetry=None):
     """The GSPMD step behind ``make_train_step(spmd=True)`` (JAX
     ``training.py:804``). ``step(inputs, labels)`` takes the global batch,
     the same on every rank (or DTensors already placed); each rank keeps
@@ -958,6 +997,8 @@ def _make_spmd_train_step(model, optimizer, loss_fn=softmax_cross_entropy,
             "global batch")
     mesh = mesh_lib.get_mesh()
     plan = gspmd.derive_plan(mesh)
+    if batch_axes is not None:
+        _check_spmd_batch_axes(plan, batch_axes, "step")
     sharded = optimizer.sharded_update
     chunked = wire is not None and wire.chunked
     use_ef = wire is not None and error_feedback and (chunked or sharded)
@@ -1113,24 +1154,14 @@ def _make_spmd_lm_train_step(model, optimizer, mesh=None, batch_axis=None,
     from torch.distributed.tensor.experimental import implicit_replication
 
     wire = _spmd_gate(optimizer, "make_lm_train_step")
-    installed = mesh_lib.get_mesh()
-    if mesh is not None and mesh is not installed:
-        raise ValueError("make_lm_train_step(mesh=...) must be the installed "
-                         "mesh: parallel.mesh.build_mesh installs the mesh "
-                         "it builds")
-    mesh = installed
+    mesh = _installed_mesh(mesh, "make_lm_train_step")
     if batch_axis is None:
         batch_axis = mesh_lib.data_axis_names(mesh)
     batch_axes = ((batch_axis,) if isinstance(batch_axis, str)
                   else tuple(batch_axis))
-    if mesh.group_of(batch_axes)[1] != mesh.group_of(optimizer.axes)[1]:
-        raise ValueError(
-            f"the optimizer reduces over {optimizer.axes!r}, the step over "
-            f"{batch_axes}: build DistributedOptimizer(axes={batch_axes})")
+    _check_optimizer_axes(mesh, optimizer, batch_axes)
     plan = gspmd.derive_plan(mesh)
-    if set(batch_axes) != set(plan.data_axes):
-        raise ValueError(f"the GSPMD LM step shards the batch over the data "
-                         f"axes {plan.data_axes}, not {batch_axes}")
+    _check_spmd_batch_axes(plan, batch_axes, "LM step")
     sharded = optimizer.sharded_update
     chunked = wire is not None and wire.chunked
     prog = _SpmdProgram(plan, model, optimizer)

@@ -61,9 +61,13 @@ def synthetic_batch(global_batch, image_size, seed=0, num_classes=1000,
             torch.from_numpy(labels).long().to(device))
 
 
-def sync():
-    """Wait until the card has finished all queued work."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+def sync(x=None):
+    """Wait until the card has finished all queued work: ``x``'s card
+    when ``x`` is a tensor there (the JAX ``sync(x)`` waits for ``x``),
+    else the current one."""
+    if torch.is_tensor(x) and x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    elif torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
 

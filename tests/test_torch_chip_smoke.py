@@ -394,3 +394,38 @@ def test_phase_22_rehearsed(rehearsal, monkeypatch):
         cs.phase_examples(hvd_t, fa, torch, "card", device="cpu")
     finally:
         torch.set_num_threads(n)
+
+
+def test_phase_23_runs_through_main_after_phase_22():
+    """Phase 23 is called by ``main()`` after phase 22, with phase 5's
+    losses, and adds nothing to the kernels line."""
+    import ast
+    tree = ast.parse(open(cs.__file__).read())
+    main = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name == "main"][0]
+    calls = [n.func.id for n in sorted(
+        (n for n in ast.walk(main) if isinstance(n, ast.Call)
+         and isinstance(n.func, ast.Name)), key=lambda n: n.lineno)]
+    assert calls.index("phase_examples") < calls.index("phase_positions")
+    assert calls.index("phase_positions") < calls.index("print", calls.index(
+        "phase_positions"))
+    assert "phase_positions(hvd, fa, torch, losses)" in ast.unparse(main)
+    assert "launches_23" not in ast.unparse(main)
+
+
+def test_phase_23_rehearsed(rehearsal, monkeypatch):
+    """23a-23c on the CPU at the tiny size: phase 5's LM at explicit
+    positions (no flash kernel called: the wrappers raise here), its
+    logits at ``arange`` and at packed positions within
+    ``POSITIONS_LOGITS`` of the plain fp32 reference's, the two
+    references ``POSITIONS_SEEN`` bounds apart, its first loss within
+    ``POSITIONS_RTOL`` of phase 5's, the packed steps repeated bit for
+    bit, ``allgather(tiled=False)`` at world 1."""
+    monkeypatch.setattr(cs, "profile_step", lambda *a, **k: None)
+    losses, _, _ = cs.phase_full(hvd_t, fa, torch, bench)
+    monkeypatch.setattr(cs, "POSITIONS_BATCH", cs.LM["batch"])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("explicit positions reached a flash kernel")
+    monkeypatch.setattr(fa, "attention", refuse)
+    cs.phase_positions(hvd_t, fa, torch, losses, device="cpu")

@@ -272,15 +272,24 @@ def test_decode_guards_raise_alike(guard):
 
 
 def test_training_forward_is_unchanged_and_takes_no_positions():
-    _, _, model, _ = lm()
+    """Training's forward without a cache is the decode branch's twin,
+    untouched by it. Explicit positions without a cache are taken, as in
+    the JAX package: the dense path at those positions (here the default
+    path is dense too, so ``arange`` gives the same bits), and the
+    logits of flax's ``apply(tokens, positions)``."""
+    jm, jp, model, _ = lm()
     toks = torch.from_numpy(np.random.default_rng(3).integers(0, VOCAB,
                                                               (2, 8)))
     with torch.no_grad():
         a = model(toks)
         b = model.forward(toks)
+        pos = torch.arange(8).expand(2, 8)
+        c = model(toks, positions=pos)
     assert torch.equal(a, b) and a.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="kv_cache"):
-        model(toks, positions=torch.zeros((2, 8), dtype=torch.long))
+    assert torch.equal(c, a)
+    want = jm.apply({"params": jp}, jnp.asarray(toks.numpy()),
+                    positions=jnp.asarray(pos.numpy()))
+    np.testing.assert_allclose(c.numpy(), np.asarray(want), atol=1e-4)
 
 
 # -- the KV pool ----------------------------------------------------------------
